@@ -1,0 +1,106 @@
+// Row-tile geometry and the two stages shared by the stem and gdMlp kernels:
+// loading a haloed tile with a per-pixel LayerNorm, and the 1x1 projection
+// of that tile onto a chunk of hidden channels.
+//
+// A block owns TH image rows x kTileW columns of one image. It loads the tile
+// with a one-pixel halo on every side ((TH+2) x (kTileW+2) pixels, all C
+// channels) into shared memory, so the depthwise 3x3 over the projected
+// hidden channels needs no neighbour exchange: the halo's projection is
+// recomputed, as the Pallas kernels recompute their halo rows.
+#pragma once
+
+#include "common.cuh"
+
+namespace bem {
+
+constexpr int kTileW = 32;
+constexpr int kThreads = 256;
+
+struct Tile {
+  int TH, HH, WW, NP, TQ;
+  __host__ __device__ Tile(int th)
+      : TH(th), HH(th + 2), WW(kTileW + 2), NP((th + 2) * (kTileW + 2)), TQ(th * kTileW) {}
+};
+
+// xs[c * NP + p] = x at halo pixel p (0 outside the image), then LN'd in
+// place when lns != nullptr (fp32 stats, centred variance, eps 1e-5); the LN
+// output is rounded to bf16 when round_ln is set.
+template <typename T>
+__device__ void load_tile_ln(const T* __restrict__ xb, const float* __restrict__ lns,
+                             const float* __restrict__ lnb, float* xs, const Tile& g,
+                             int C, int H, int W, int r0, int c0, bool round_ln) {
+  const long L = (long)H * W;
+  for (int i = threadIdx.x; i < C * g.NP; i += blockDim.x) {
+    const int c = i / g.NP, p = i - c * g.NP;
+    const int hy = p / g.WW, hx = p - hy * g.WW;
+    const int gy = r0 - 1 + hy, gx = c0 - 1 + hx;
+    float v = 0.f;
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W) v = IO<T>::load(xb, c * L + (long)gy * W + gx);
+    xs[i] = v;
+  }
+  __syncthreads();
+  if (lns == nullptr) return;
+  const float invc = 1.f / (float)C;
+  for (int p = threadIdx.x; p < g.NP; p += blockDim.x) {
+    float s = 0.f;
+    for (int c = 0; c < C; ++c) s += xs[c * g.NP + p];
+    const float m = s * invc;
+    float v = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float d = xs[c * g.NP + p] - m;
+      v = fmaf(d, d, v);
+    }
+    const float inv = rsqrtf(v * invc + 1e-5f);
+    for (int c = 0; c < C; ++c) {
+      float y = (xs[c * g.NP + p] - m) * inv * lns[c] + lnb[c];
+      xs[c * g.NP + p] = round_ln ? round_bf16(y) : y;
+    }
+  }
+  __syncthreads();
+}
+
+// hid[k * NP + p] = W1[ch(k)] . xs[:, p] + b1[ch(k)] for the NK <= KMAX hidden
+// channels ch(0..NK-1) of this chunk; 0 at halo pixels outside the image (the
+// depthwise conv's zero padding). w1s holds the chunk's weights as [c][k].
+template <int KMAX>
+__device__ void project_tile(const float* xs, const float* w1s, const float* bias_k,
+                             float* hid, const Tile& g, int C, int H, int W, int r0,
+                             int c0) {
+  for (int p = threadIdx.x; p < g.NP; p += blockDim.x) {
+    const int hy = p / g.WW, hx = p - hy * g.WW;
+    const int gy = r0 - 1 + hy, gx = c0 - 1 + hx;
+    const bool valid = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    float acc[KMAX];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) acc[k] = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float xv = xs[c * g.NP + p];
+      const float* wr = w1s + c * KMAX;
+#pragma unroll
+      for (int k = 0; k < KMAX; ++k) acc[k] = fmaf(wr[k], xv, acc[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) hid[k * g.NP + p] = valid ? acc[k] + bias_k[k] : 0.f;
+  }
+}
+
+// depthwise 3x3 of one hidden row at interior pixel (ty, tx), taps [dy][dx]
+__device__ __forceinline__ float dw3x3(const float* hrow, const float* taps, int ww, int ty,
+                                       int tx) {
+  float s = 0.f;
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) s = fmaf(taps[dy * 3 + dx], hrow[(ty + dy) * ww + tx + dx], s);
+  return s;
+}
+
+// Largest tile height in {8, 4, 2, 1} whose shared memory fits the budget.
+template <typename F>
+inline int pick_tile_rows(F smem_floats) {
+  for (int th = 8; th > 1; th /= 2)
+    if (smem_floats(Tile(th)) * sizeof(float) <= kSmemBudget) return th;
+  return 1;
+}
+
+}  // namespace bem

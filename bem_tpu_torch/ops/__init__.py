@@ -1,0 +1,8 @@
+"""Kernel-level functions of the port: each wraps a hand-written CUDA kernel
+and carries its plain PyTorch version (used for CPU tensors)."""
+
+from .gdmlp_fused import (gdmlp_fused_cf, gdmlp_fused_cf_plain, stem_fused_cf,
+                          stem_fused_cf_plain)
+from .resize import resize_bilinear
+from .ss2d_seq import ss2d_seq_pair, ss2d_seq_pair_plain
+from .ss2d_tail import ss2d_tail_cf, ss2d_tail_cf_plain

@@ -1,0 +1,166 @@
+"""Fused channel-first stem and gdMlp: kernels 1 and 4 of the serving path.
+
+``stem_fused_cf``: [LN ->] 1x1 in_proj (+b1) -> depthwise 3x3 (+bdw) -> SiLU.
+``gdmlp_fused_cf``: [x +] W2 . (GELU(h1) * h2) + b2 with
+[h1; h2] = dw3x3(W1 . LN(x) + b1) + bdw.
+
+Both take the channel-first stream (B, C, H*W) and the weight shapes of
+bem_tpu/ops/gdmlp_fused.py. The CUDA kernels are ``csrc/stem_fused.cu`` and
+``csrc/gdmlp_fused.cu`` (their headers say what bounds them and how they
+are tiled); the ``*_plain`` versions compute the same function with plain
+PyTorch ops on any device: the wrappers use them for CPU tensors, and the
+card checks hold the kernels against them. The 3x3 conv is zero-padded at
+the image border only.
+
+bf16 rounding points follow the Pallas kernels as they run in interpret
+mode: the stem pre-rounds W1 to bf16 and does not round its LN output; the
+gdMlp rounds its LN output and the gate to bf16 and keeps W1/W2 in fp32.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from ._common import check_stream, layer_norm_c, on_cuda, ptr, round_bf16, weight
+
+
+def _dw3x3(hid: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
+    """Depthwise 3x3, zero padding. hid (B, K, H, W); dw (K, 9) taps [dy][dx]."""
+    H, W = hid.shape[-2:]
+    hp = torch.nn.functional.pad(hid, (1, 1, 1, 1))
+    out = torch.zeros_like(hid)
+    for dy in range(3):
+        for dx in range(3):
+            tap = dw[:, 3 * dy + dx].reshape(1, -1, 1, 1)
+            out = out + tap * hp[:, :, dy:dy + H, dx:dx + W]
+    return out
+
+
+def _stem_plain(x, W1, b1, dw, bdw, H, Wd, lns, lnb):
+    B, C, L = x.shape
+    xi = x.float().reshape(B, C, H, Wd)
+    if lns is not None:
+        xi = layer_norm_c(xi, lns, lnb)
+    hid = torch.einsum("oc,bchw->bohw", W1, xi)
+    if b1 is not None:
+        hid = hid + b1.reshape(1, -1, 1, 1)
+    conv = _dw3x3(hid, dw)
+    if bdw is not None:
+        conv = conv + bdw.reshape(1, -1, 1, 1)
+    return (conv * torch.sigmoid(conv)).reshape(B, -1, L).to(x.dtype).contiguous()
+
+
+def _stem_args(x, W1, b1, dw, bdw, H, Wd, lns, lnb):
+    B, C, L = x.shape
+    if L != H * Wd:
+        raise ValueError(f"stem_fused_cf: L={L} != {H}*{Wd}")
+    check_stream("stem_fused_cf", x)
+    dev = x.device
+    Dh = W1.shape[0]
+    W1 = weight(W1, dev, (Dh, C), "W1")
+    if x.dtype == torch.bfloat16:
+        W1 = round_bf16(W1)
+    return (x, W1, weight(b1, dev, (Dh,), "b1"), weight(dw, dev, (Dh, 9), "dw"),
+            weight(bdw, dev, (Dh,), "bdw"), H, Wd, weight(lns, dev, (C,), "lns"),
+            weight(lnb, dev, (C,), "lnb"))
+
+
+def stem_fused_cf_plain(x, W1, b1, dw, bdw, H: int, Wd: int, lns=None, lnb=None):
+    """The plain PyTorch version of :func:`stem_fused_cf`, on any device."""
+    return _stem_plain(*_stem_args(x, W1, b1, dw, bdw, H, Wd, lns, lnb))
+
+
+def stem_fused_cf(x, W1, b1, dw, bdw, H: int, Wd: int, lns=None, lnb=None):
+    """SS2D stem. x (B, C, H*Wd); W1 (Dh, C); dw (Dh, 9); b1/bdw (Dh,) or None;
+    lns/lnb (C,) fold the block's pre-LN in. Returns (B, Dh, H*Wd) in x.dtype."""
+    args = _stem_args(x, W1, b1, dw, bdw, H, Wd, lns, lnb)
+    if not on_cuda(x, "stem_fused_cf"):
+        return _stem_plain(*args)
+    x, W1, b1, dw, bdw, H, Wd, lns, lnb = args
+    B, C, L = x.shape
+    Dh = W1.shape[0]
+    out = torch.empty((B, Dh, L), dtype=x.dtype, device=x.device)
+    _build.call("bem_stem_fused", ptr(x), ptr(lns), ptr(lnb), ptr(W1), ptr(b1),
+                ptr(dw), ptr(bdw), ptr(out), B, C, Dh, H, Wd,
+                int(x.dtype == torch.bfloat16))
+    stem_fused_cf.launches += 1
+    return out
+
+
+stem_fused_cf.launches = 0
+
+
+def _gdmlp_plain(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual):
+    B, C, L = x.shape
+    h = W1.shape[0] // 2
+    bf = x.dtype == torch.bfloat16
+    xi = x.float().reshape(B, C, H, Wd)
+    if lns is not None:
+        xi = layer_norm_c(xi, lns, lnb)
+        if bf:
+            xi = round_bf16(xi)
+    hid = torch.einsum("oc,bchw->bohw", W1, xi)
+    if b1 is not None:
+        hid = hid + b1.reshape(1, -1, 1, 1)
+    conv = _dw3x3(hid, dw)
+    if bdw is not None:
+        conv = conv + bdw.reshape(1, -1, 1, 1)
+    a = conv[:, :h]
+    g = 0.5 * a * (1.0 + torch.erf(a * 0.7071067811865476)) * conv[:, h:]
+    if bf:
+        g = round_bf16(g)
+    out = torch.einsum("oc,bchw->bohw", W2, g)
+    if b2 is not None:
+        out = out + b2.reshape(1, -1, 1, 1)
+    out = out.reshape(B, -1, L)
+    if residual:
+        out = out + x.float()
+    return out.to(x.dtype).contiguous()
+
+
+def _gdmlp_args(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual):
+    B, C, L = x.shape
+    if L != H * Wd:
+        raise ValueError(f"gdmlp_fused_cf: L={L} != {H}*{Wd}")
+    check_stream("gdmlp_fused_cf", x)
+    dev = x.device
+    h2 = W1.shape[0]
+    Cout = W2.shape[0]
+    if residual and Cout != C:
+        raise ValueError(f"gdmlp_fused_cf: residual needs Cout == C ({Cout}, {C})")
+    return (x, weight(W1, dev, (h2, C), "W1"), weight(b1, dev, (h2,), "b1"),
+            weight(dw, dev, (h2, 9), "dw"), weight(bdw, dev, (h2,), "bdw"),
+            weight(W2, dev, (Cout, h2 // 2), "W2"), weight(b2, dev, (Cout,), "b2"),
+            H, Wd, weight(lns, dev, (C,), "lns"), weight(lnb, dev, (C,), "lnb"),
+            bool(residual))
+
+
+def gdmlp_fused_cf_plain(x, W1, b1, dw, bdw, W2, b2, H: int, Wd: int, lns=None,
+                         lnb=None, residual: bool = False):
+    """The plain PyTorch version of :func:`gdmlp_fused_cf`, on any device."""
+    return _gdmlp_plain(*_gdmlp_args(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns,
+                                     lnb, residual))
+
+
+def gdmlp_fused_cf(x, W1, b1, dw, bdw, W2, b2, H: int, Wd: int, lns=None,
+                   lnb=None, residual: bool = False):
+    """Fused gdMlp. x (B, C, H*Wd); W1 (2h, C); dw (2h, 9); W2 (Cout, h);
+    biases (2h,)/(2h,)/(Cout,) or None; lns/lnb (C,) the folded pre-LN;
+    residual adds x (Cout == C). Returns (B, Cout, H*Wd) in x.dtype."""
+    args = _gdmlp_args(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual)
+    if not on_cuda(x, "gdmlp_fused_cf"):
+        return _gdmlp_plain(*args)
+    x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual = args
+    B, C, L = x.shape
+    Cout = W2.shape[0]
+    out = torch.empty((B, Cout, L), dtype=x.dtype, device=x.device)
+    _build.call("bem_gdmlp_fused", ptr(x), ptr(lns), ptr(lnb), ptr(W1),
+                ptr(b1), ptr(dw), ptr(bdw), ptr(W2), ptr(b2), ptr(out),
+                B, C, W1.shape[0] // 2, Cout, H, Wd, int(residual),
+                int(x.dtype == torch.bfloat16))
+    gdmlp_fused_cf.launches += 1
+    return out
+
+
+gdmlp_fused_cf.launches = 0
