@@ -1,10 +1,11 @@
 """Build and load the package's Hopper kernels.
 
-All of ``csrc/*.cu`` is compiled by one ``nvcc`` call into a shared library
-with a plain C interface (``build/libbem_kernels_<hash>.so``) at first use,
-and loaded with ctypes. The file name carries a hash of the sources and
-flags, so an edited source rebuilds. A failed build raises: nothing runs
-without the kernels. ``build/nvcc.log`` keeps the compiler's ``-Xptxas -v``
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain
+C interface (``build/libbem_kernels_<hash>.so``) at first use, loaded with
+ctypes. The file name carries a hash of the sources and flags, so an
+edited source rebuilds. A failed build raises: nothing runs without the
+kernels. ``build/nvcc_<source>.log`` keeps the compiler's ``-Xptxas -v``
 report (registers, shared memory and spills of every kernel).
 """
 
@@ -21,7 +22,7 @@ _HERE = Path(__file__).resolve().parent
 SRC_DIR = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +33,9 @@ _SIGNATURES = {
     "bem_gdmlp_fused": [_P] * 10 + [_I] * 8 + [_P],
     "bem_ss2d_seq_dir": [_P] * 8 + [_I] * 7 + [_P],
     "bem_ss2d_tail": [_P] * 8 + [_I] * 5 + [_P],
+    "bem_ss2d_col_sum": [_P] * 13 + [_I] * 7 + [_P],
+    "bem_ss2d_col_dir": [_P] * 9 + [_I] * 8 + [_P],
+    "bem_linear_scan": [_P] * 5 + [_I] * 5 + [_P],
 }
 
 _LIB = None
@@ -62,22 +66,43 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbem_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds, logs):
+    """Run the commands concurrently, each writing to its log file; returns
+    [(cmd, returncode, output)]."""
+    procs = []
+    for c, log in zip(cmds, logs):
+        with open(log, "w") as fh:
+            fh.write(" ".join(c) + "\n")
+            fh.flush()
+            procs.append(subprocess.Popen(c, stdout=fh, stderr=subprocess.STDOUT))
+    return [(c, p.wait(), Path(log).read_text()) for c, p, log in zip(cmds, procs, logs)]
+
+
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists."""
     so = library_path()
     if so.exists():
         return so
     cu, _ = _sources()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tmpdir = BUILD_DIR / f"obj_{so.stem}_{os.getpid()}"
+    tmpdir.mkdir(parents=True, exist_ok=True)
+    objs = [tmpdir / (f.stem + ".o") for f in cu]
+    results = _run_all([[nvcc, *NVCC_FLAGS, "-c", str(f), "-o", str(o)]
+                        for f, o in zip(cu, objs)],
+                       [BUILD_DIR / f"nvcc_{f.stem}.log" for f in cu])
+    failed = [(cmd, rc, out) for cmd, rc, out in results if rc != 0]
+    if failed:
+        cmd, rc, out = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}) on {cmd[-3]}:\n{out[-8000:]}")
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "nvcc.log").write_text(
-        " ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({r.returncode}):\n{r.stderr[-8000:]}")
+    (cmd, rc, out), = _run_all([[nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                                 "-o", str(tmp), *map(str, objs)]],
+                               [BUILD_DIR / "nvcc_link.log"])
+    if rc != 0:
+        raise RuntimeError(f"nvcc link failed ({rc}):\n{out[-8000:]}")
     os.replace(tmp, so)
+    shutil.rmtree(tmpdir, ignore_errors=True)
     return so
 
 

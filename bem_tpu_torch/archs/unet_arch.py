@@ -101,11 +101,14 @@ class Network(nn.Module):
                  d_state: Union[int, Sequence[int]] = 1, ssm_ratio: float = 1,
                  mlp_ratio: float = 4, mlp_type: str = "gdmlp",
                  use_pixelshuffle: bool = True, bayesian: bool = False,
-                 sigma_init: float = 0.05, last_act=None):
+                 sigma_init: float = 0.05, last_act=None, drop_path: float = 0.0,
+                 sam: bool = False):
         super().__init__()
-        if mlp_type != "gdmlp" or not use_pixelshuffle or last_act is not None:
+        if (mlp_type != "gdmlp" or not use_pixelshuffle or last_act is not None
+                or drop_path or sam):
             raise NotImplementedError(
-                "Network port: mlp_type='gdmlp', use_pixelshuffle=True, no last_act")
+                "Network port: mlp_type='gdmlp', use_pixelshuffle=True, no last_act, "
+                "drop_path=0, sam=False")
         self.stage = stage
         self.first_conv = Conv2d(in_channels, n_feat, 3, padding=1,
                                  weight_init="kaiming_normal_fan_out", zero_bias=True)

@@ -1,10 +1,15 @@
 """SS2D, the 2D selective-scan block, ``v05_noz`` fused-core form.
 
-Counterpart of bem_tpu/nn/ss2d.py::SS2D on its fused serving branch
+Counterpart of bem_tpu/nn/ss2d.py::SS2D on its fused branch
 (ss2d.py:207-389): stem kernel (LN + in_proj + depthwise 3x3 + SiLU), the
-row scan pair, the column scan pair on the transposed sequence, and the
-tail kernel (merge + LN + out_proj + residual). No bias on in_proj,
-conv2d or out_proj. Other forward types raise NotImplementedError.
+row scan pair, the column scan pair, and the tail kernel (merge + LN +
+out_proj + residual). The column pair takes bem_tpu's dispatch
+(ss2d.py:335-358): where ``col_pair_supported(H, W)``, the transpose-free
+column kernels merge the row pair's output and the tail reads one stream;
+elsewhere the row pair's kernel runs on the transposed sequence. No bias
+on in_proj, conv2d or out_proj. Other forward types raise
+NotImplementedError. Every op is differentiable, so one module serves
+training and serving.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import torch
 from torch import nn
 
 from ..ops.gdmlp_fused import stem_fused_cf
-from ..ops.ss2d_seq import ss2d_seq_pair
+from ..ops.ss2d_seq import col_pair_supported, ss2d_col_pair, ss2d_seq_pair
 from ..ops.ss2d_tail import ss2d_tail_cf
 from . import init
 from .layers import Conv2d, Dense, LayerNorm2d
@@ -74,10 +79,14 @@ class SS2D(nn.Module):
         D = self.Ds.reshape(K_DIRS, C)
         w = (self.x_proj_weight, self.dt_projs_weight, self.dt_projs_bias, A, D)
         y_row = ss2d_seq_pair(xs, *w, "row")
-        # the column pair scans the transposed (column-major) sequence
-        col = xs.reshape(B, C, H, W).transpose(2, 3).contiguous().reshape(B, C, L)
-        y_col = ss2d_seq_pair(col, *w, "col")
-        y_colT = y_col.reshape(B, C, W, H).transpose(2, 3).contiguous().reshape(B, C, L)
+        if col_pair_supported(H, W):
+            # the column kernels walk the row-major stream and merge y_row
+            y_row, y_colT = ss2d_col_pair(xs, *w, y_row, H, W), None
+        else:
+            # the column pair scans the transposed (column-major) sequence
+            col = xs.reshape(B, C, H, W).transpose(2, 3).contiguous().reshape(B, C, L)
+            y_col = ss2d_seq_pair(col, *w, "col")
+            y_colT = y_col.reshape(B, C, W, H).transpose(2, 3).contiguous().reshape(B, C, L)
         w_out, b_out = self.out_proj.weights()
         return ss2d_tail_cf(y_row, y_colT, self.out_norm.weight, self.out_norm.bias,
                             w_out.t(), b_out, x if residual else None)

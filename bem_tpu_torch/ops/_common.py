@@ -54,3 +54,15 @@ def layer_norm_c(x: torch.Tensor, scale, bias) -> torch.Tensor:
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
     """The fp32 value a bf16 cast keeps (round-to-nearest-even)."""
     return t.to(torch.bfloat16).to(torch.float32)
+
+
+def ref_grads(need, fn, g, inputs):
+    """Gradients of ``fn(*inputs)`` for cotangent g with respect to each
+    input whose ``need`` flag is set (None elsewhere): the backward of an
+    autograd.Function that recomputes through a differentiable oracle."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(bool(n)) if t is not None else None
+               for t, n in zip(inputs, need)]
+        wrt = [t for t, n in zip(ins, need) if t is not None and n]
+        grads = iter(torch.autograd.grad(fn(*ins), wrt, g) if wrt else ())
+    return [next(grads) if t is not None and n else None for t, n in zip(ins, need)]

@@ -15,6 +15,10 @@ the image border only.
 bf16 rounding points follow the Pallas kernels as they run in interpret
 mode: the stem pre-rounds W1 to bf16 and does not round its LN output; the
 gdMlp rounds its LN output and the gate to bf16 and keeps W1/W2 in fp32.
+
+Both are differentiable: the backward recomputes through the jnp oracles'
+counterparts :func:`_stem_ref` and :func:`_gdmlp_ref`
+(gdmlp_fused.py:618-673), for every argument that is not None.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._common import check_stream, layer_norm_c, on_cuda, ptr, round_bf16, weight
+from ._common import (check_stream, layer_norm_c, on_cuda, ptr, ref_grads, round_bf16,
+                      weight)
 
 
 def _dw3x3(hid: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
@@ -71,9 +76,7 @@ def stem_fused_cf_plain(x, W1, b1, dw, bdw, H: int, Wd: int, lns=None, lnb=None)
     return _stem_plain(*_stem_args(x, W1, b1, dw, bdw, H, Wd, lns, lnb))
 
 
-def stem_fused_cf(x, W1, b1, dw, bdw, H: int, Wd: int, lns=None, lnb=None):
-    """SS2D stem. x (B, C, H*Wd); W1 (Dh, C); dw (Dh, 9); b1/bdw (Dh,) or None;
-    lns/lnb (C,) fold the block's pre-LN in. Returns (B, Dh, H*Wd) in x.dtype."""
+def _stem_run(x, W1, b1, dw, bdw, H, Wd, lns, lnb):
     args = _stem_args(x, W1, b1, dw, bdw, H, Wd, lns, lnb)
     if not on_cuda(x, "stem_fused_cf"):
         return _stem_plain(*args)
@@ -86,9 +89,6 @@ def stem_fused_cf(x, W1, b1, dw, bdw, H: int, Wd: int, lns=None, lnb=None):
                 int(x.dtype == torch.bfloat16))
     stem_fused_cf.launches += 1
     return out
-
-
-stem_fused_cf.launches = 0
 
 
 def _gdmlp_plain(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual):
@@ -143,11 +143,7 @@ def gdmlp_fused_cf_plain(x, W1, b1, dw, bdw, W2, b2, H: int, Wd: int, lns=None,
                                      lnb, residual))
 
 
-def gdmlp_fused_cf(x, W1, b1, dw, bdw, W2, b2, H: int, Wd: int, lns=None,
-                   lnb=None, residual: bool = False):
-    """Fused gdMlp. x (B, C, H*Wd); W1 (2h, C); dw (2h, 9); W2 (Cout, h);
-    biases (2h,)/(2h,)/(Cout,) or None; lns/lnb (C,) the folded pre-LN;
-    residual adds x (Cout == C). Returns (B, Cout, H*Wd) in x.dtype."""
+def _gdmlp_run(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual):
     args = _gdmlp_args(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual)
     if not on_cuda(x, "gdmlp_fused_cf"):
         return _gdmlp_plain(*args)
@@ -163,4 +159,88 @@ def gdmlp_fused_cf(x, W1, b1, dw, bdw, W2, b2, H: int, Wd: int, lns=None,
     return out
 
 
+# ---------------------------------------------------------------------------
+# backward: recompute through the oracles
+
+
+def _f32(t):
+    return None if t is None else t.float()
+
+
+def _stem_ref(x, W1, b1, dw, bdw, H, Wd, lns=None, lnb=None):
+    """Oracle of the stem (gdmlp_fused.py:486-515), differentiable in every
+    argument: the backward path. On the bf16 stream it rounds the LN output
+    and W1 (the kernel rounds only W1)."""
+    if x.dtype != torch.bfloat16 or lns is None:
+        W1 = round_bf16(W1.float()) if x.dtype == torch.bfloat16 else W1.float()
+        return _stem_plain(x, W1, _f32(b1), _f32(dw), _f32(bdw), H, Wd, _f32(lns), _f32(lnb))
+    B, C, L = x.shape
+    xi = round_bf16(layer_norm_c(x.float().reshape(B, C, H, Wd), lns.float(), lnb.float()))
+    return _stem_plain(xi.reshape(B, C, L), round_bf16(W1.float()), _f32(b1), _f32(dw),
+                       _f32(bdw), H, Wd, None, None).to(x.dtype)
+
+
+def _gdmlp_ref(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns=None, lnb=None, residual=False):
+    """Oracle of the gdMlp (gdmlp_fused.py:289-330), differentiable in every
+    argument: the backward path. It is the plain version with W1 and W2
+    rounded to bf16 on the bf16 stream."""
+    r = round_bf16 if x.dtype == torch.bfloat16 else (lambda t: t)
+    return _gdmlp_plain(x, r(W1.float()), _f32(b1), _f32(dw), _f32(bdw), r(W2.float()),
+                        _f32(b2), H, Wd, _f32(lns), _f32(lnb), residual)
+
+
+class _Stem(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, W1, b1, dw, bdw, H, Wd, lns, lnb):
+        ctx.hw = (H, Wd)
+        ctx.save_for_backward(x, W1, b1, dw, bdw, lns, lnb)
+        return _stem_run(x, W1, b1, dw, bdw, H, Wd, lns, lnb)
+
+    @staticmethod
+    def backward(ctx, g):
+        H, Wd = ctx.hw
+        x, W1, b1, dw, bdw, lns, lnb = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        gx, gW1, gb1, gdw, gbdw, glns, glnb = ref_grads(
+            need[:5] + need[7:], lambda x, W1, b1, dw, bdw, lns, lnb: _stem_ref(
+                x, W1, b1, dw, bdw, H, Wd, lns, lnb),
+            g.contiguous(), [x, W1, b1, dw, bdw, lns, lnb])
+        return gx, gW1, gb1, gdw, gbdw, None, None, glns, glnb
+
+
+class _GdMlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual):
+        ctx.cfg = (H, Wd, residual)
+        ctx.save_for_backward(x, W1, b1, dw, bdw, W2, b2, lns, lnb)
+        return _gdmlp_run(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        H, Wd, residual = ctx.cfg
+        need = ctx.needs_input_grad
+        gx, gW1, gb1, gdw, gbdw, gW2, gb2, glns, glnb = ref_grads(
+            need[:7] + need[9:11], lambda x, W1, b1, dw, bdw, W2, b2, lns, lnb: _gdmlp_ref(
+                x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual),
+            g.contiguous(), ctx.saved_tensors)
+        return gx, gW1, gb1, gdw, gbdw, gW2, gb2, None, None, glns, glnb, None
+
+
+def stem_fused_cf(x, W1, b1, dw, bdw, H: int, Wd: int, lns=None, lnb=None):
+    """SS2D stem. x (B, C, H*Wd); W1 (Dh, C); dw (Dh, 9); b1/bdw (Dh,) or None;
+    lns/lnb (C,) fold the block's pre-LN in. Returns (B, Dh, H*Wd) in x.dtype.
+    Differentiable."""
+    return _Stem.apply(x, W1, b1, dw, bdw, H, Wd, lns, lnb)
+
+
+def gdmlp_fused_cf(x, W1, b1, dw, bdw, W2, b2, H: int, Wd: int, lns=None,
+                   lnb=None, residual: bool = False):
+    """Fused gdMlp. x (B, C, H*Wd); W1 (2h, C); dw (2h, 9); W2 (Cout, h);
+    biases (2h,)/(2h,)/(Cout,) or None; lns/lnb (C,) the folded pre-LN;
+    residual adds x (Cout == C). Returns (B, Cout, H*Wd) in x.dtype.
+    Differentiable."""
+    return _GdMlp.apply(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, bool(residual))
+
+
+stem_fused_cf.launches = 0
 gdmlp_fused_cf.launches = 0

@@ -1,18 +1,28 @@
-"""Per-sequence SS2D scan pair: kernel 2 of the serving path.
+"""SS2D scan pairs: kernels 2 (row pair), 5 and 6 (transpose-free column pair).
 
 ``ss2d_seq_pair(xseq, Wx, Wdt, bias, A, D, pair)`` runs both scan
 directions of one sequence (row-major: cross2d directions 0/2; col-major,
 i.e. the transposed feature map: 1/3) with in-kernel dt/B/C projections
 and returns y_fwd + y_rev in the original positions. It is the ungrouped
 (G=1) form of bem_tpu/ops/ss2d_seq.py::ss2d_seq_pair_g; the TPU's
-sublane grouping has no counterpart here.
+sublane grouping has no counterpart here. Its CUDA kernel
+(``csrc/ss2d_seq.cu``) runs one direction per launch: the forward launch
+writes y_f in the stream dtype, the reverse launch adds it and applies
+the combined skip term (D_f + D_r) * x, as the Pallas pair does.
 
-The CUDA kernel (``csrc/ss2d_seq.cu``) runs one direction per launch: the
-forward launch writes y_f in the stream dtype, the reverse launch adds it
-and applies the combined skip term (D_f + D_r) * x, as the Pallas pair
-does. The log-decay is clamped at -10 (``W_CLAMP`` of the TPU kernels);
-the plain version clamps too, so it matches the kernel and not
-bem_tpu's unclamped ``_seq_pair_ref``.
+``ss2d_col_pair(xrow, Wx, Wdt, bias, A, D, y0, H, W)`` runs both column
+directions (1/3) on the ROW-major stream, as ss2d_col_pair_g does: one
+summary pass over both directions (:func:`ss2d_col_sum`), two
+cross-column scans on :func:`..scan.linear_scan`, and one full pass per
+direction (:func:`ss2d_col_dir`); the first merges ``y0`` and the
+combined D term, the second adds the first's rounded output. Its CUDA
+kernels are in ``csrc/ss2d_col.cu``.
+
+The forward passes clamp the log-decay at -10 (``W_CLAMP`` of the TPU
+kernels), and so do their plain versions, which match the kernels and not
+bem_tpu's unclamped ``_seq_pair_ref``. The backward of both pairs
+recomputes through the unclamped composition :func:`_seq_pair_ref` on
+``linear_scan``, as bem_tpu's custom VJPs do.
 """
 
 from __future__ import annotations
@@ -20,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._common import check_stream, on_cuda, ptr, weight
+from ._common import check_stream, on_cuda, ptr, ref_grads, weight
+from .scan import linear_scan, linear_scan_plain, scan_plain
 
 PAIRS = {"row": (0, 2), "col": (1, 3)}
 W_CLAMP = -10.0
@@ -30,18 +41,21 @@ def _softplus(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(v, min=0.0) + torch.log1p(torch.exp(-v.abs()))
 
 
-def _linear_scan(a: torch.Tensor, b: torch.Tensor, reverse: bool = False):
-    """h_t = a_t * h_{t-1} + b_t along the last dim (h_{-1} = 0), by
-    doubling: log2(L) elementwise passes instead of an L-step loop."""
-    if reverse:
-        a, b = a.flip(-1), b.flip(-1)
-    L = a.shape[-1]
-    s = 1
-    while s < L:
-        b = torch.cat([b[..., :s], a[..., s:] * b[..., :-s] + b[..., s:]], -1)
-        a = torch.cat([a[..., :s], a[..., s:] * a[..., :-s]], -1)
-        s *= 2
-    return b.flip(-1) if reverse else b
+def _decay_input(x, Wx, Wdt, bias, A):
+    """Per-position scan operands of one direction in fp32. x (B, C, ...)
+    fp32; Wx (P, C); Wdt (C, R); bias (C,); A (C, N). Returns the
+    projection rows xdbl (B, P, ...), the clamped log-decays w and the
+    inputs b, each a list of N tensors shaped like x."""
+    N = A.shape[-1]
+    R = Wx.shape[0] - 2 * N
+    ex = (1,) * (x.dim() - 2)
+    xdbl = torch.einsum("pc,bc...->bp...", Wx, x)
+    dt = _softplus(torch.einsum("cr,br...->bc...", Wdt, xdbl[:, :R])
+                   + bias.reshape(1, -1, *ex))
+    du = dt * x
+    w = [torch.clamp(dt * A[:, n].reshape(1, -1, *ex), min=W_CLAMP) for n in range(N)]
+    b = [du * xdbl[:, R + n:R + n + 1] for n in range(N)]
+    return xdbl, w, b
 
 
 def _dir_plain(x, Wx, Wdt, bias, A, D, reverse: bool):
@@ -49,33 +63,30 @@ def _dir_plain(x, Wx, Wdt, bias, A, D, reverse: bool):
     bias (C,); A (C, N); D (C,) or None."""
     N = A.shape[-1]
     R = Wx.shape[0] - 2 * N
-    xdbl = torch.einsum("pc,bcl->bpl", Wx, x)
-    dt = _softplus(torch.einsum("cr,brl->bcl", Wdt, xdbl[:, :R])
-                   + bias.reshape(1, -1, 1))
-    du = dt * x
+    xdbl, w, b = _decay_input(x, Wx, Wdt, bias, A)
     y = D.reshape(1, -1, 1) * x if D is not None else torch.zeros_like(x)
     for n in range(N):
-        a = torch.exp(torch.clamp(dt * A[:, n].reshape(1, -1, 1), min=W_CLAMP))
-        h = _linear_scan(a, du * xdbl[:, R + n:R + n + 1], reverse)
+        h = scan_plain(torch.exp(w[n]), b[n], reverse, dim=-1)
         y = y + xdbl[:, R + N + n:R + N + n + 1] * h
     return y
 
 
-def _pair_args(xseq, Wx, Wdt, bias, A, D, pair):
-    B, C, L = xseq.shape
-    check_stream("ss2d_seq_pair", xseq)
-    d_f, d_r = PAIRS[pair]
-    dev = xseq.device
+def _dir_weights(Wx, Wdt, bias, A, D, dev, C):
+    """Per-direction weights as fp32 contiguous copies on ``dev``."""
     K, P, _ = Wx.shape
     N = A.shape[-1]
     R = P - 2 * N
     if N not in (1, 2, 4):
-        raise ValueError(f"ss2d_seq_pair: d_state N={N} not in (1, 2, 4)")
-    Wx = weight(Wx, dev, (4, P, C), "Wx")
-    Wdt = weight(Wdt, dev, (4, C, R), "Wdt")
-    bias = weight(bias, dev, (4, C), "bias")
-    A = weight(A, dev, (4, C, N), "A")
-    D = weight(D, dev, (4, C), "D")
+        raise ValueError(f"ss2d scan: d_state N={N} not in (1, 2, 4)")
+    return (weight(Wx, dev, (4, P, C), "Wx"), weight(Wdt, dev, (4, C, R), "Wdt"),
+            weight(bias, dev, (4, C), "bias"), weight(A, dev, (4, C, N), "A"),
+            weight(D, dev, (4, C), "D"))
+
+
+def _pair_args(xseq, Wx, Wdt, bias, A, D, pair):
+    check_stream("ss2d_seq_pair", xseq)
+    d_f, d_r = PAIRS[pair]
+    Wx, Wdt, bias, A, D = _dir_weights(Wx, Wdt, bias, A, D, xseq.device, xseq.shape[1])
     fwd = (Wx[d_f], Wdt[d_f], bias[d_f], A[d_f], None)
     # both directions scan the same x, so their D*x skip terms are one
     # combined term applied by the reverse pass
@@ -95,13 +106,8 @@ def ss2d_seq_pair_plain(xseq, Wx, Wdt, bias, A, D, pair: str):
     return _pair_plain(*_pair_args(xseq, Wx, Wdt, bias, A, D, pair))
 
 
-def ss2d_seq_pair(xseq, Wx, Wdt, bias, A, D, pair: str):
-    """Both scan directions of one sequence, direction-merged.
-
-    xseq (B, C, L); Wx (4, R+2N, C), Wdt (4, C, R), bias (4, C), A (4, C, N)
-    (negative), D (4, C): per-direction weights in cross2d order; ``pair``
-    "row" runs directions 0/2, "col" 1/3. Returns (B, C, L) in xseq.dtype.
-    """
+def _seq_pair_run(xseq, Wx, Wdt, bias, A, D, pair):
+    """The forward pass: plain version for CPU tensors, kernels for CUDA."""
     xseq, fwd, rev = _pair_args(xseq, Wx, Wdt, bias, A, D, pair)
     if not on_cuda(xseq, "ss2d_seq_pair"):
         return _pair_plain(xseq, fwd, rev)
@@ -120,4 +126,281 @@ def ss2d_seq_pair(xseq, Wx, Wdt, bias, A, D, pair: str):
     return y
 
 
+# ---------------------------------------------------------------------------
+# transpose-free column pair
+
+
+def _pick_col_rows(H: int, W: int, cap: int = 1536):
+    """Rows per column-scan block of the TPU kernel (ss2d_seq.py:164-177):
+    the largest t <= 8 dividing H with t*W <= cap and t*W divisible by 128;
+    small images (H*W <= 4096) take the whole image; else None."""
+    best = None
+    for t in range(1, min(H, 8) + 1):
+        if H % t == 0 and t * W <= cap and (t * W) % 128 == 0:
+            best = t
+    if best is None and H * W <= 4096:
+        return H
+    return best
+
+
+def col_pair_supported(H: int, W: int) -> bool:
+    """Whether bem_tpu runs the transpose-free column pair at (H, W); the
+    SS2D takes the same dispatch."""
+    return _pick_col_rows(H, W) is not None
+
+
+def _col_check(name, x, H, W, *dirs):
+    """The stream's shape and each direction's (Wx, Wdt, bias, A[, D])
+    weights: fp32, contiguous, on x's device, shaped for x's channels."""
+    check_stream(name, x)
+    if x.shape[-1] != H * W:
+        raise ValueError(f"{name}: L={x.shape[-1]} != {H}*{W}")
+    C = x.shape[1]
+    for wts in dirs:
+        P, N = wts[0].shape[0], wts[3].shape[-1]
+        if N not in (1, 2, 4):
+            raise ValueError(f"{name}: d_state N={N} not in (1, 2, 4)")
+        for t, shape in zip(wts, ((P, C), (C, P - 2 * N), (C,), (C, N), (C,))):
+            if t is not None and (t.dtype != torch.float32 or t.device != x.device
+                                  or not t.is_contiguous() or tuple(t.shape) != shape):
+                raise ValueError(f"{name}: weight {tuple(t.shape)} {t.dtype} on {t.device}, "
+                                 f"expected fp32 contiguous {shape} on {x.device}")
+
+
+def ss2d_col_sum_plain(x, fwd, rev, H: int, W: int):
+    """The plain PyTorch version of :func:`ss2d_col_sum`, on any device."""
+    _col_check("ss2d_col_sum", x, H, W, fwd, rev)
+    B, C, _ = x.shape
+    xi = x.float().reshape(B, C, H, W)
+    out = []
+    for (Wx, Wdt, bias, A), reverse in ((fwd, False), (rev, True)):
+        _, w, b = _decay_input(xi, Wx, Wdt, bias, A)
+        # forward: the state at the column bottom; reverse (bottom-up): its
+        # state at the column top, each from 0
+        row = 0 if reverse else H - 1
+        send = [scan_plain(torch.exp(wn), bn, reverse, dim=-2)[:, :, row] for wn, bn in zip(w, b)]
+        stot = [wn.sum(dim=2) for wn in w]
+        out += [torch.cat(send, -1).contiguous(), torch.cat(stot, -1).contiguous()]
+    return tuple(out)
+
+
+def ss2d_col_sum(x, fwd, rev, H: int, W: int):
+    """Both column directions' summaries in one top-down walk.
+
+    x (B, C, H*W) row-major stream; fwd / rev = (Wx (P, C), Wdt (C, R),
+    bias (C,), A (C, N)) fp32 of directions 1 and 3. Returns (send_f,
+    stot_f, send_r, stot_r), each (B, C, N*W) fp32 at [.., n*W + w]: each
+    column's end state from 0 (forward: bottom, reverse: top) and its sum
+    of clamped log-decays."""
+    if not on_cuda(x, "ss2d_col_sum"):
+        return ss2d_col_sum_plain(x, fwd, rev, H, W)
+    _col_check("ss2d_col_sum", x, H, W, fwd, rev)
+    B, C, _ = x.shape
+    N = fwd[3].shape[-1]
+    R = fwd[0].shape[0] - 2 * N
+    out = [torch.empty((B, C, N * W), dtype=torch.float32, device=x.device) for _ in range(4)]
+    _build.call("bem_ss2d_col_sum", ptr(x), *map(ptr, fwd), *map(ptr, rev), *map(ptr, out),
+                B, C, H, W, R, N, int(x.dtype == torch.bfloat16))
+    ss2d_col_sum.launches += 1
+    return tuple(out)
+
+
+def ss2d_col_dir_plain(x, wts, sinit, yin, H: int, W: int, reverse: bool):
+    """The plain PyTorch version of :func:`ss2d_col_dir`, on any device."""
+    _col_check("ss2d_col_dir", x, H, W, wts)
+    Wx, Wdt, bias, A, D = wts
+    B, C, _ = x.shape
+    N = A.shape[-1]
+    R = Wx.shape[0] - 2 * N
+    xi = x.float().reshape(B, C, H, W)
+    xdbl, w, b = _decay_input(xi, Wx, Wdt, bias, A)
+    y = D.reshape(1, -1, 1, 1) * xi if D is not None else torch.zeros_like(xi)
+    row = H - 1 if reverse else 0
+    for n in range(N):
+        a = torch.exp(w[n])
+        s = sinit[:, :, n * W:(n + 1) * W].float()
+        # the entry state folds into the first row walked
+        bn = b[n].clone()
+        bn[:, :, row] = bn[:, :, row] + a[:, :, row] * s
+        h = scan_plain(a, bn, reverse, dim=-2)
+        y = y + xdbl[:, R + N + n:R + N + n + 1] * h
+    y = y.reshape(B, C, H * W)
+    if yin is not None:
+        y = y + yin.float()
+    return y.to(x.dtype).contiguous()
+
+
+def ss2d_col_dir(x, wts, sinit, yin, H: int, W: int, reverse: bool):
+    """One column direction's full scan from per-column entry states.
+
+    x (B, C, H*W); wts = (Wx, Wdt, bias, A, D or None) fp32; sinit
+    (B, C, N*W) fp32; yin (B, C, H*W) in x.dtype or None. Walks top-down
+    (bottom-up when ``reverse``) and returns y = sum_n C_n h_n [+ D x]
+    [+ yin] in x.dtype."""
+    if not on_cuda(x, "ss2d_col_dir"):
+        return ss2d_col_dir_plain(x, wts, sinit, yin, H, W, reverse)
+    _col_check("ss2d_col_dir", x, H, W, wts)
+    B, C, L = x.shape
+    N = wts[3].shape[-1]
+    R = wts[0].shape[0] - 2 * N
+    if yin is not None:
+        check_stream("ss2d_col_dir", yin, x.shape)
+        if yin.dtype != x.dtype:
+            raise TypeError("ss2d_col_dir: yin dtype differs from x")
+    if sinit.shape != (B, C, N * W) or sinit.dtype != torch.float32 or not sinit.is_contiguous():
+        raise ValueError(f"ss2d_col_dir: sinit {tuple(sinit.shape)} {sinit.dtype}")
+    y = torch.empty_like(x)
+    _build.call("bem_ss2d_col_dir", ptr(x), *map(ptr, wts), ptr(sinit), ptr(yin), ptr(y),
+                B, C, H, W, R, N, int(reverse), int(x.dtype == torch.bfloat16))
+    ss2d_col_dir.launches += 1
+    return y
+
+
+def _col_cross_scan(send, stot, N: int, W: int, reverse: bool, scan=linear_scan):
+    """Column entry states from the summaries (ss2d_seq.py:429-448): the
+    W-long recurrence s(w) = exp(stot(w-/+1)) s(w-/+1) + send(w-/+1);
+    forward, column w enters with column w-1's end state (column 0 with
+    0); reverse, with column w+1's (column W-1 with 0)."""
+    B, C, _ = send.shape
+    aT = torch.exp(stot).reshape(B, C, N, W).permute(0, 3, 1, 2).reshape(B, W, C * N)
+    bT = send.reshape(B, C, N, W).permute(0, 3, 1, 2).reshape(B, W, C * N)
+    s_inc = scan(aT.contiguous(), bT.contiguous(), reverse)
+    zero = torch.zeros_like(s_inc[:, :1])
+    s_init = (torch.cat([s_inc[:, 1:], zero], 1) if reverse
+              else torch.cat([zero, s_inc[:, :-1]], 1))
+    return s_init.reshape(B, W, C, N).permute(0, 2, 3, 1).reshape(B, C, N * W).contiguous()
+
+
+def _col_args(xrow, Wx, Wdt, bias, A, D, y0, H, W):
+    _col_check("ss2d_col_pair", xrow, H, W)
+    if y0 is not None:
+        check_stream("ss2d_col_pair", y0, xrow.shape)
+        if y0.dtype != xrow.dtype:
+            raise TypeError("ss2d_col_pair: y0 dtype differs from xrow")
+    d_f, d_r = PAIRS["col"]
+    Wx, Wdt, bias, A, D = _dir_weights(Wx, Wdt, bias, A, D, xrow.device, xrow.shape[1])
+    # both directions scan the same x: the D*x terms fold into the first
+    # full pass, as in ss2d_col_pair_g
+    fwd = (Wx[d_f], Wdt[d_f], bias[d_f], A[d_f], (D[d_f] + D[d_r]).contiguous())
+    rev = (Wx[d_r], Wdt[d_r], bias[d_r], A[d_r], None)
+    return fwd, rev
+
+
+def _col_pair(xrow, fwd, rev, y0, H, W, col_sum, col_dir, scan):
+    N = fwd[3].shape[-1]
+    send_f, stot_f, send_r, stot_r = col_sum(xrow, fwd[:4], rev[:4], H, W)
+    sinit_f = _col_cross_scan(send_f, stot_f, N, W, False, scan)
+    sinit_r = _col_cross_scan(send_r, stot_r, N, W, True, scan)
+    y = col_dir(xrow, fwd, sinit_f, y0, H, W, False)
+    return col_dir(xrow, rev, sinit_r, y, H, W, True)
+
+
+def ss2d_col_pair_plain(xrow, Wx, Wdt, bias, A, D, y0, H: int, W: int):
+    """The plain PyTorch version of :func:`ss2d_col_pair`, on any device."""
+    fwd, rev = _col_args(xrow, Wx, Wdt, bias, A, D, y0, H, W)
+    return _col_pair(xrow, fwd, rev, y0, H, W, ss2d_col_sum_plain, ss2d_col_dir_plain,
+                     linear_scan_plain)
+
+
+def _col_pair_run(xrow, Wx, Wdt, bias, A, D, y0, H, W):
+    fwd, rev = _col_args(xrow, Wx, Wdt, bias, A, D, y0, H, W)
+    return _col_pair(xrow, fwd, rev, y0, H, W, ss2d_col_sum, ss2d_col_dir, linear_scan)
+
+
+# ---------------------------------------------------------------------------
+# backward: the unclamped composition on linear_scan
+
+
+def _seq_pair_ref(xseq, Wx, Wdt, bias, A, D, d_f: int, d_r: int, scan=linear_scan):
+    """Composition oracle for one sequence pair (ss2d_seq.py:451-486):
+    fp32 math, no log-decay clamp, directions d_f (forward) and d_r
+    (reverse) scanned by ``scan`` on (B, L, C*N). Returns xseq.dtype."""
+    B, C, L = xseq.shape
+    N = A.shape[-1]
+    R = Wx.shape[1] - 2 * N
+    x = xseq.float()
+    out = torch.zeros((B, C, L), dtype=torch.float32, device=x.device)
+    for k, rev in ((d_f, False), (d_r, True)):
+        xdbl = torch.einsum("pc,bcl->bpl", Wx[k].float(), x)
+        dt = _softplus(torch.einsum("cr,brl->bcl", Wdt[k].float(), xdbl[:, :R])
+                       + bias[k].float()[None, :, None])
+        a = torch.exp(dt[..., None] * A[k].float()[None, :, None, :])       # (B, C, L, N)
+        b = (dt * x)[..., None] * xdbl[:, R:R + N].transpose(1, 2)[:, None]  # (B, C, L, N)
+        a2 = a.permute(0, 2, 1, 3).reshape(B, L, C * N)
+        b2 = b.permute(0, 2, 1, 3).reshape(B, L, C * N)
+        h = scan(a2, b2, rev).reshape(B, L, C, N)
+        y = torch.einsum("blcn,bln->bcl", h, xdbl[:, R + N:].transpose(1, 2))
+        out = out + y + D[k].float()[None, :, None] * x
+    return out.to(xseq.dtype)
+
+
+def _transpose_hw(t, H, W):
+    """(B, C, H*W) row-major <-> (B, C, W*H) column-major."""
+    B, C, _ = t.shape
+    return t.reshape(B, C, H, W).transpose(2, 3).reshape(B, C, H * W)
+
+
+class _SeqPair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xseq, Wx, Wdt, bias, A, D, pair):
+        ctx.pair = pair
+        ctx.save_for_backward(xseq, Wx, Wdt, bias, A, D)
+        return _seq_pair_run(xseq, Wx, Wdt, bias, A, D, pair)
+
+    @staticmethod
+    def backward(ctx, g):
+        d_f, d_r = PAIRS[ctx.pair]
+        grads = ref_grads(ctx.needs_input_grad[:6], lambda *a: _seq_pair_ref(*a, d_f, d_r),
+                          g.contiguous(), ctx.saved_tensors)
+        return (*grads, None)
+
+
+class _ColPair(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xrow, Wx, Wdt, bias, A, D, y0, H, W):
+        ctx.hw = (H, W)
+        ctx.save_for_backward(xrow, Wx, Wdt, bias, A, D)
+        return _col_pair_run(xrow, Wx, Wdt, bias, A, D, y0, H, W)
+
+    @staticmethod
+    def backward(ctx, g):
+        H, W = ctx.hw
+        xrow, *w = ctx.saved_tensors
+        d_f, d_r = PAIRS["col"]
+        # recompute on the column-major view (ss2d_seq.py:588-609)
+        grads = ref_grads(ctx.needs_input_grad[:6], lambda *a: _seq_pair_ref(*a, d_f, d_r),
+                           _transpose_hw(g, H, W).contiguous(),
+                           [_transpose_hw(xrow, H, W)] + w)
+        dx = None if grads[0] is None else _transpose_hw(grads[0], W, H)
+        # the y0 merge is a plain add: its cotangent is g itself
+        dy0 = g if ctx.needs_input_grad[6] else None
+        return (dx, *grads[1:], dy0, None, None)
+
+
+def ss2d_seq_pair(xseq, Wx, Wdt, bias, A, D, pair: str):
+    """Both scan directions of one sequence, direction-merged.
+
+    xseq (B, C, L); Wx (4, R+2N, C), Wdt (4, C, R), bias (4, C), A (4, C, N)
+    (negative), D (4, C): per-direction weights in cross2d order; ``pair``
+    "row" runs directions 0/2, "col" 1/3. Returns (B, C, L) in xseq.dtype.
+    Differentiable (backward through the unclamped composition).
+    """
+    return _SeqPair.apply(xseq, Wx, Wdt, bias, A, D, pair)
+
+
 ss2d_seq_pair.launches = 0
+
+
+def ss2d_col_pair(xrow, Wx, Wdt, bias, A, D, y0, H: int, W: int):
+    """Both COLUMN scan directions (cross2d 1/3) on the row-major stream.
+
+    xrow (B, C, H*W); weights as :func:`ss2d_seq_pair`; y0 (B, C, H*W) in
+    xrow.dtype or None, merged into the output (the row pair's result, so
+    the tail reads one stream). Returns (B, C, H*W) in xrow.dtype: y0 +
+    y_dir1 + y_dir3 in row-major positions. Differentiable.
+    """
+    return _ColPair.apply(xrow, Wx, Wdt, bias, A, D, y0, H, W)
+
+
+ss2d_col_sum.launches = 0
+ss2d_col_dir.launches = 0

@@ -7,7 +7,8 @@ ungrouped (G=1) form of bem_tpu/ops/ss2d_tail.py::ss2d_tail_cf; the CUDA
 kernel is ``csrc/ss2d_tail.cu``.
 
 On the bf16 stream the LN output is rounded to bf16 before out_proj and
-Wout is rounded to bf16, as the Pallas kernel does.
+Wout is rounded to bf16, as the Pallas kernel does. Differentiable: the
+backward recomputes through :func:`_tail_ref` (ss2d_tail.py:248-273).
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._common import check_stream, layer_norm_c, on_cuda, ptr, round_bf16, weight
+from ._common import (check_stream, layer_norm_c, on_cuda, ptr, ref_grads, round_bf16,
+                      weight)
 
 
 def _tail_args(y_row, y_colT, scale, bias, Wout, bout, res):
@@ -59,10 +61,7 @@ def ss2d_tail_cf_plain(y_row, y_colT, scale, bias, Wout, bout, res=None):
     return _tail_plain(*_tail_args(y_row, y_colT, scale, bias, Wout, bout, res))
 
 
-def ss2d_tail_cf(y_row, y_colT, scale, bias, Wout, bout, res=None):
-    """Merge + LN + out_proj [+ residual]. y_row / y_colT (B, C, L) (y_colT may
-    be None); scale/bias (C,); Wout (C, C_out); bout (C_out,) or None; res
-    (B, C_out, L) or None. Returns (B, C_out, L) in y_row.dtype."""
+def _tail_run(y_row, y_colT, scale, bias, Wout, bout, res):
     args = _tail_args(y_row, y_colT, scale, bias, Wout, bout, res)
     if not on_cuda(y_row, "ss2d_tail_cf"):
         return _tail_plain(*args)
@@ -75,6 +74,34 @@ def ss2d_tail_cf(y_row, y_colT, scale, bias, Wout, bout, res=None):
                 B, C, Cout, L, int(y_row.dtype == torch.bfloat16))
     ss2d_tail_cf.launches += 1
     return out
+
+
+def _tail_ref(y_row, y_colT, scale, bias, Wout, bout, res=None):
+    """Oracle of the tail (ss2d_tail.py:125-153, G=1), differentiable in
+    every argument: the backward path. It is the plain version with Wout
+    rounded to bf16 on the bf16 stream, as the wrapper rounds it."""
+    w = round_bf16(Wout.float()) if y_row.dtype == torch.bfloat16 else Wout.float()
+    return _tail_plain(y_row, y_colT, scale.float(), bias.float(), w,
+                       None if bout is None else bout.float(), res)
+
+
+class _Tail(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y_row, y_colT, scale, bias, Wout, bout, res):
+        ctx.save_for_backward(y_row, y_colT, scale, bias, Wout, bout, res)
+        return _tail_run(y_row, y_colT, scale, bias, Wout, bout, res)
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(ref_grads(ctx.needs_input_grad, _tail_ref, g.contiguous(),
+                               ctx.saved_tensors))
+
+
+def ss2d_tail_cf(y_row, y_colT, scale, bias, Wout, bout, res=None):
+    """Merge + LN + out_proj [+ residual]. y_row / y_colT (B, C, L) (y_colT may
+    be None); scale/bias (C,); Wout (C, C_out); bout (C_out,) or None; res
+    (B, C_out, L) or None. Returns (B, C_out, L) in y_row.dtype. Differentiable."""
+    return _Tail.apply(y_row, y_colT, scale, bias, Wout, bout, res)
 
 
 ss2d_tail_cf.launches = 0

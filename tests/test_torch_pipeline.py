@@ -31,7 +31,8 @@ H, W, K, NIMG = 112, 176, 2, 2
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, bem_tpu_torch.enhancement.pipeline, bem_tpu_torch.smoke; "
+    code = ("import sys, bem_tpu_torch.enhancement.pipeline, bem_tpu_torch.smoke, "
+            "bem_tpu_torch.models, bem_tpu_torch.train, bem_tpu_torch.ops.scan; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'bem_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
