@@ -36,6 +36,8 @@ _SIGNATURES = {
     "bem_ss2d_col_sum": [_P] * 13 + [_I] * 7 + [_P],
     "bem_ss2d_col_dir": [_P] * 9 + [_I] * 8 + [_P],
     "bem_linear_scan": [_P] * 5 + [_I] * 5 + [_P],
+    "bem_ss2d_fused_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    "bem_ss2d_fused_bwd": [_P] * 19 + [_I] * 5 + [_P],
 }
 
 _LIB = None

@@ -1,4 +1,4 @@
-"""flax params <-> the port's state_dict, for bem_tpu's ``Network``.
+"""flax params <-> the port's state_dict, for bem_tpu's ``Network`` and ``VSSM``.
 
 The port's modules carry the flax tree's names, so the map is mechanical:
 a path ``a/b/leaf`` becomes ``a.b.<leaf'>`` with the layout rules of

@@ -90,9 +90,9 @@ class Conv2d(BayesLayer):
                  padding: int = 0, groups: int = 1,
                  bias: bool = True, bayesian: bool = False,
                  sigma_init: float = 0.05, weight_init: str = "default",
-                 zero_bias: bool = False):
+                 zero_bias: bool = False, stride: int = 1):
         super().__init__(bayesian, sigma_init)
-        self.padding, self.groups = padding, groups
+        self.padding, self.groups, self.stride = padding, groups, stride
         self.weight_init, self.zero_bias = weight_init, zero_bias
         self.fan_in = in_ch // groups * kernel_size * kernel_size
         self.fan_out = out_ch * kernel_size * kernel_size
@@ -114,21 +114,30 @@ class Conv2d(BayesLayer):
     def forward(self, x):
         w, b = self.weights()
         return F.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
-                        1, self.padding, 1, self.groups)
+                        self.stride, self.padding, 1, self.groups)
 
 
 class Dense(BayesLayer):
-    """Linear over the channel axis (dim 1); weight (out, in)."""
+    """Linear over the channel axis (dim 1); weight (out, in). ``weight_init``
+    "trunc_normal" draws the weight from trunc_normal(0.02) and zeroes the
+    bias (the VSSM head, vssm.py:161-162)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 bayesian: bool = False, sigma_init: float = 0.05):
+                 bayesian: bool = False, sigma_init: float = 0.05,
+                 weight_init: str = "default"):
         super().__init__(bayesian, sigma_init)
         self.in_features = in_features
+        self.weight_init = weight_init
         self._declare("weight", (out_features, in_features))
         if bias:
             self._declare("bias", (out_features,))
 
     def reset_parameters(self, gen):
+        if self.weight_init == "trunc_normal":
+            self._init("weight", lambda t: init.trunc_normal_(t, 0.02, gen=gen))
+            if self.value("bias") is not None:
+                self._init("bias", lambda t: t.zero_())
+            return
         self._init("weight", lambda t: init.torch_default_(t, self.in_features, gen))
         if self.value("bias") is not None:
             self._init("bias", lambda t: init.torch_default_(t, self.in_features, gen))
@@ -156,6 +165,31 @@ class LayerNorm2d(nn.Module):
 
     def forward(self, x):
         return layer_norm_c(x.float(), self.weight, self.bias).to(x.dtype)
+
+
+def drop_path(x, rate: float, gen=None, mask=None):
+    """Per-sample stochastic depth (layers.py:359-371): with keep = 1 - rate,
+    each sample is x / keep where its mask is set and 0 elsewhere. The mask
+    (B,) bool is drawn as uniform < keep from ``gen`` (on its device) or
+    given; with neither, or at rate 0, x passes unchanged (eval)."""
+    if rate == 0.0 or (gen is None and mask is None):
+        return x
+    keep = 1.0 - rate
+    if mask is None:
+        mask = torch.rand(x.shape[0], generator=gen, device=gen.device) < keep
+    mask = mask.to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class DropPath(nn.Module):
+    """:func:`drop_path` at a fixed rate; no parameters."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, gen=None, mask=None):
+        return drop_path(x, self.rate, gen, mask)
 
 
 class PReLU(nn.Module):

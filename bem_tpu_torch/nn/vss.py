@@ -1,18 +1,49 @@
-"""VSSBlock and its gated-dconv MLP (gdMlp), channel-first.
+"""VSSBlock and its MLPs (gdMlp, Mlp, gMlp), channel-first.
 
-Counterpart of bem_tpu/nn/vss.py. Each block runs
-``x = x + SS2D(LN(x))`` and ``x = x + gdMlp(LN2(x))`` with both LNs and
-both residual adds folded into the kernels (vss.py:256-299): the stem and
-tail kernels for the SS2D branch, the gdMlp kernel for the MLP branch.
+Counterpart of bem_tpu/nn/vss.py. The BEM nets' block (gdMlp, the
+``v05_noz`` fused core, no drop-path) runs ``x = x + SS2D(LN(x))`` and
+``x = x + gdMlp(LN2(x))`` with both LNs and both residual adds folded into
+the kernels (vss.py:256-299): the stem and tail kernels for the SS2D
+branch, the gdMlp kernel for the MLP branch. Every other block (the VSSM
+classifier's, with Mlp or gMlp) runs the unfolded pre-norm form
+``x + drop_path(op(norm(x)))``, ``x + drop_path(mlp(norm2(x)))``
+(vss.py:265-299) on (B, C, H, W); bem_tpu runs it channels-last, the
+math is the same.
 """
 
 from __future__ import annotations
 
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.gdmlp_fused import gdmlp_fused_cf
-from .layers import Conv2d, LayerNorm2d
+from .layers import Conv2d, Dense, DropPath, LayerNorm2d
 from .ss2d import SS2D
+
+
+class Mlp(nn.Module):
+    """fc1 -> exact GELU -> fc2 over the channel axis (vss.py:105-116)."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+        super().__init__()
+        self.fc1 = Dense(in_features, hidden_features)
+        self.fc2 = Dense(hidden_features, out_features)
+
+    def forward(self, x):
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class GMlp(nn.Module):
+    """fc1 to 2*hidden -> x * GELU(z) -> fc2 (vss.py:119-130)."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+        super().__init__()
+        self.fc1 = Dense(in_features, 2 * hidden_features)
+        self.fc2 = Dense(hidden_features, out_features)
+
+    def forward(self, x):
+        x, z = self.fc1(x).chunk(2, dim=1)
+        return self.fc2(x * F.gelu(z))
 
 
 class GDMlp(nn.Module):
@@ -40,22 +71,45 @@ class GDMlp(nn.Module):
 
 
 class VSSBlock(nn.Module):
-    """The BEM configuration of the reference VSSBlock: v05_noz SS2D +
-    gdMlp, pre-norm, no drop-path."""
+    """The reference VSSBlock, pre-norm and non-windowed. ``mlp_type``
+    "gdmlp" is the BEM form (folded into the kernels; needs the v05_noz
+    core and no drop-path); "mlp" / "gmlp" the classifier's."""
 
     def __init__(self, hidden_dim: int, ssm_d_state: int = 1,
                  ssm_ratio: float = 1.0, mlp_ratio: float = 4.0,
-                 bayesian: bool = False, sigma_init: float = 0.05):
+                 bayesian: bool = False, sigma_init: float = 0.05,
+                 drop_path: float = 0.0, ssm_dt_rank="auto", ssm_conv: int = 3,
+                 ssm_conv_bias: bool = False, forward_type: str = "v05_noz",
+                 mlp_type: str = "gdmlp"):
         super().__init__()
         bayes = dict(bayesian=bayesian, sigma_init=sigma_init)
+        if bayesian and mlp_type != "gdmlp":
+            raise NotImplementedError("VSSBlock port: Bayesian layers only in the gdMlp form")
         self.norm = LayerNorm2d(hidden_dim)
-        self.op = SS2D(hidden_dim, d_state=ssm_d_state, ssm_ratio=ssm_ratio, **bayes)
-        self.norm2 = LayerNorm2d(hidden_dim)
-        self.mlp = GDMlp(hidden_dim, int(hidden_dim * mlp_ratio), hidden_dim, **bayes)
+        self.op = SS2D(hidden_dim, d_state=ssm_d_state, ssm_ratio=ssm_ratio,
+                       forward_type=forward_type, dt_rank=ssm_dt_rank, d_conv=ssm_conv,
+                       conv_bias=ssm_conv_bias, **bayes)
+        h = int(hidden_dim * mlp_ratio)
+        self.fold = mlp_type == "gdmlp"
+        if self.fold and (drop_path or not self.op.fused_core or ssm_conv != 3):
+            raise NotImplementedError("VSSBlock port: gdMlp only in the folded BEM form")
+        if mlp_ratio > 0:
+            self.norm2 = LayerNorm2d(hidden_dim)
+            mlp = {"gdmlp": GDMlp, "mlp": Mlp, "gmlp": GMlp}[mlp_type]
+            self.mlp = (GDMlp(hidden_dim, h, hidden_dim, **bayes) if self.fold
+                        else mlp(hidden_dim, h, hidden_dim))
+        self.drop_path = DropPath(drop_path)
 
-    def forward(self, x):
-        """x (B, C, H, W) -> (B, C, H, W); the interior runs on (B, C, H*W)."""
+    def forward(self, x, gen=None):
+        """x (B, C, H, W) -> (B, C, H, W). ``gen`` (a torch.Generator)
+        turns drop-path on (training); without it the block is deterministic."""
         B, C, H, W = x.shape
+        if not self.fold:
+            x = x + self.drop_path(self.op(self.norm(x)), gen)
+            if hasattr(self, "mlp"):
+                x = x + self.drop_path(self.mlp(self.norm2(x)), gen)
+            return x
+        # the BEM form: the interior runs on (B, C, H*W)
         x = x.reshape(B, C, H * W).contiguous()
         x = self.op(x, (H, W), (self.norm.weight, self.norm.bias), residual=True)
         x = self.mlp(x, (H, W), (self.norm2.weight, self.norm2.bias), residual=True)

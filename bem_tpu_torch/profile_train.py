@@ -22,14 +22,48 @@ from .options import lolv1_options
 from .train import synthetic_batch
 
 
-def main():
+def card_setup(name: str) -> str:
+    """The card's name and power limit; TF32 off, as chip_smoke.py sets it."""
     if not torch.cuda.is_available():
-        raise SystemExit("profile_train: needs a CUDA device")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip()
+        raise SystemExit(f"{name}: needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def profiled(fn):
+    """(wall ms, profiler) of one ``fn()`` that ends in a synchronize."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    return wall_ms, prof
+
+
+def report(card: str, what: str, wall_ms: float, prof, top: int = 15) -> None:
+    """Busy / idle share, device time by kernel name, host ops by self time."""
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    print(f"{card}: {what} {wall_ms:.1f} ms wall, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %), idle "
+          f"{100 - 100 * busy_ms / wall_ms:.1f} %, {launches} device kernels")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        ms = e.self_device_time_total / 1e3
+        print(f"  device {ms:9.2f} ms {100 * ms / busy_ms:5.1f} % {e.count:6d}x  {e.key[:80]}")
+    host = [e for e in events if e.device_type.name == "CPU"]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]:
+        ms = e.self_cpu_time_total / 1e3
+        print(f"  host   {ms:9.2f} ms {e.count:6d}x  {e.key[:80]}")
+
+
+def main():
+    card = card_setup("profile_train")
     for model_type in ("ImageEnhancer", "ConditionGenerator"):
         opt = dict(lolv1_options(model_type), is_train=True)
         model = build_model(opt, device="cuda")
@@ -37,26 +71,8 @@ def main():
         for _ in range(2):
             model.train_step(synthetic_batch(opt, gen))
         batch = synthetic_batch(opt, gen)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model.train_step(batch)
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        events = prof.key_averages()
-        kernels = [e for e in events if e.device_type.name == "CUDA"]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        launches = sum(e.count for e in kernels)
-        print(f"{card}: {model_type} train step {wall_ms:.1f} ms wall, device busy "
-              f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %), idle "
-              f"{100 - 100 * busy_ms / wall_ms:.1f} %, {launches} device kernels")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]:
-            ms = e.self_device_time_total / 1e3
-            print(f"  device {ms:9.2f} ms {100 * ms / busy_ms:5.1f} % {e.count:6d}x  {e.key[:80]}")
-        host = [e for e in events if e.device_type.name == "CPU"]
-        for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:12]:
-            ms = e.self_cpu_time_total / 1e3
-            print(f"  host   {ms:9.2f} ms {e.count:6d}x  {e.key[:80]}")
+        wall_ms, prof = profiled(lambda: model.train_step(batch))
+        report(card, f"{model_type} train step", wall_ms, prof)
         del model
         torch.cuda.empty_cache()
 

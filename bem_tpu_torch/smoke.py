@@ -21,6 +21,7 @@ import torch
 
 from .ops import gdmlp_fused as _gd
 from .ops import scan as _scan
+from .ops import ss2d_fused as _fused
 from .ops import ss2d_seq as _seq
 from .ops import ss2d_tail as _tail
 
@@ -47,7 +48,22 @@ KERNELS = {
     "linear_scan": (_scan.linear_scan, _scan.linear_scan_plain,
                     "bem_tpu_torch/csrc/scan.cu",
                     "bem_tpu/ops/scan.py:157"),
+    "ss2d_dir_fused": (_fused.ss2d_dir_fused, _fused.ss2d_dir_fused_plain,
+                       "bem_tpu_torch/csrc/ss2d_fused.cu",
+                       "bem_tpu/ops/ss2d_fused.py:339"),
+    "ss2d_dir_fused_bwd": (_fused.ss2d_dir_fused_bwd, _fused.ss2d_dir_fused_bwd_plain,
+                           "bem_tpu_torch/csrc/ss2d_fused.cu",
+                           "bem_tpu/ops/ss2d_fused_bwd.py:158"),
+    "ss2d_dir_fused_g": (_fused.ss2d_dir_fused_g, _fused.ss2d_dir_fused_g_plain,
+                         "bem_tpu_torch/csrc/ss2d_fused.cu",
+                         "bem_tpu/ops/ss2d_fused_g.py:309"),
 }
+# the kernels of the BEM nets' serving and training paths, and of the VSSM
+# classifier's (the clamped core runs at narrow widths only, where
+# pick_group(B, d_inner) > 1: the reference checks)
+BEM_KERNELS = ("stem_fused_cf", "ss2d_seq_pair", "ss2d_tail_cf", "gdmlp_fused_cf",
+               "ss2d_col_sum", "ss2d_col_dir", "linear_scan")
+CLS_KERNELS = ("ss2d_dir_fused", "ss2d_dir_fused_bwd", "ss2d_dir_fused_g")
 
 # (label, B, C, H, W): the serving path's levels at the 448x640 IE input
 # (C = 40 / 80 / 160) and the CG's top level at 28x40, two images each
@@ -68,9 +84,22 @@ TRAIN_SHAPES = [
 ]
 SMALL_SHAPES = [("small 16x48 C16", 2, 16, 16, 48), ("small 12x20 C40", 1, 40, 12, 20),
                 ("small 2x2 C24", 2, 24, 2, 2)]
+# (label, B, d_inner, H, W, dt rank, d_state): the SS2D cores of the VMamba-T
+# classifier's four stages (dims 96 / 192 / 384 / 768, ssm_ratio 2) at
+# 224x224, two images each
+CLS_SHAPES = [
+    ("VMamba-T S0 56x56 C192", 2, 192, 56, 56, 6, 16),
+    ("VMamba-T S1 28x28 C384", 2, 384, 28, 28, 12, 16),
+    ("VMamba-T S2 14x14 C768", 2, 768, 14, 14, 24, 16),
+    ("VMamba-T S3 7x7 C1536", 2, 1536, 7, 7, 48, 16),
+]
+SMALL_CLS_SHAPES = [("small 6x10 C24", 2, 24, 6, 10, 2, 16), ("small 5x7 C70", 1, 70, 5, 7, 3, 4)]
 # the case whose numbers the summary reports: (label, dtype) per kernel
 HEADLINE = {name: ("IE-L0 448x640 C40", "bfloat16") for name in KERNELS}
 HEADLINE["linear_scan"] = ("train IE-L0 128x128 C40 bwd", "float32")
+HEADLINE["ss2d_dir_fused"] = ("VMamba-T S0 56x56 C192", "bfloat16")
+HEADLINE["ss2d_dir_fused_g"] = ("VMamba-T S0 56x56 C192", "bfloat16")
+HEADLINE["ss2d_dir_fused_bwd"] = ("VMamba-T S0 56x56 C192", "float32")
 
 
 def reset_launch_counts() -> None:
@@ -86,6 +115,12 @@ def launch_counts() -> dict:
 # by doubling instead of a sequential loop); bf16 outputs may differ by a
 # few bf16 ulps where the two sides round an intermediate differently
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# kernels with several outputs of unrelated scales: each output against its own
+PER_OUTPUT = ("ss2d_dir_fused_bwd",)
+# kernels whose (B, 2, C, L) output (the backward: its dxs2) is held per row:
+# each (image, stream, channel) against its own largest entry, the clamp
+# probe's positions (see _clamp_probe) as rows of their own
+PER_ROW = ("ss2d_dir_fused", "ss2d_dir_fused_g", "ss2d_dir_fused_bwd")
 GRAD_TOL = 1e-4  # of each gradient's largest entry: two fp32 orders of summation
 
 
@@ -95,6 +130,10 @@ class Case:
     label: str
     dtype: torch.dtype
     args: tuple
+    probe: torch.Tensor | None = None  # PER_ROW: the clamp probe's elements
+    # the fused forward: err / tol of the kernel against the plain version
+    # with the other clamp setting (set by compare; must exceed 1)
+    other_clamp: float | None = None
 
     @property
     def fn(self) -> Callable:
@@ -193,9 +232,55 @@ def _scan_bwd_cases(label, B, C, H, W, device, seed):
                  (a, b, rev)) for rev in (False, True)]
 
 
+def _fused_weights(rng, C, R, N, t):
+    """The fused core's (Wx, Wdt, bias, A, D) at the v0 init's scales
+    (x_proj +-(4P)^-0.5, dt_proj +-R^-0.5, the dt bias, A = -(1..N), D = 1),
+    with bias +12 on every third channel so dt*A < -10 there."""
+    P = R + 2 * N
+    bias = _dt_bias(rng, (4, C))
+    bias[:, ::3] = 12.0
+    A = -np.broadcast_to(np.arange(1, N + 1, dtype=np.float32), (4, C, N))
+    return [t(_uniform(rng, (4, P, C), (4 * P) ** -0.5)), t(_uniform(rng, (4, C, R), R ** -0.5)),
+            t(bias), t(A), t(np.ones((4, C)))]
+
+
+def _clamp_probe(xs2):
+    """Zero x at the odd positions of the clamped channels (every third, as
+    _fused_weights sets them) in both streams; returns the mask of those
+    elements. There D*x and the input term vanish and y is the decay of the
+    neighbours' states alone, sum_n C_n exp(dt A_n) h_n: exp(-10) where
+    clamped, exp(dt A_n) <= exp(-11) unclamped (dt ~ softplus(12)), so the
+    clamp changes y there by a factor of e or more."""
+    mask = np.zeros(xs2.shape, bool)
+    mask[:, :, ::3, 1::2] = True
+    xs2[mask] = 0.0
+    return mask
+
+
+def _cls_cases(label, B, C, H, W, R, N, device, seed):
+    """The fused core, its clamped form (fp32, bf16) and its backward (fp32)
+    at one stage: xs2 = the (row, column) sequences of a SiLU output, with
+    the clamp probe."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    x = rng.standard_normal((B, C, H, W)).astype(np.float32)
+    x = x / (1.0 + np.exp(-x))
+    xs2 = np.stack([x.reshape(B, C, H * W), x.transpose(0, 1, 3, 2).reshape(B, C, H * W)], 1)
+    probe = torch.from_numpy(_clamp_probe(xs2)).to(device)
+    w = _fused_weights(rng, C, R, N, t)
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        xs = t(xs2).to(dtype)
+        out += [Case("ss2d_dir_fused", label, dtype, (xs, *w), probe),
+                Case("ss2d_dir_fused_g", label, dtype, (xs, *w), probe)]
+    g = t(rng.standard_normal(xs2.shape))
+    out.append(Case("ss2d_dir_fused_bwd", label, torch.float32, (t(xs2), *w, g), probe))
+    return out
+
+
 def kernel_cases(small: bool = False, device="cuda"):
-    """Every kernel at every serving and training shape, fp32 and bf16, or
-    at three tiny shapes (``small``)."""
+    """Every kernel at every serving, training and classifier shape, fp32 and
+    bf16, or at tiny shapes (``small``)."""
     shapes = SMALL_SHAPES if small else PATH_SHAPES + TRAIN_SHAPES
     out = []
     for i, (label, B, C, H, W) in enumerate(shapes):
@@ -203,6 +288,8 @@ def kernel_cases(small: bool = False, device="cuda"):
             out += _cases_for(label, B, C, H, W, dtype, device, seed=i)
         if label.startswith("train IE") or small:
             out += _scan_bwd_cases(label, B, C, H, W, device, seed=100 + i)
+    for i, shape in enumerate(SMALL_CLS_SHAPES if small else CLS_SHAPES):
+        out += _cls_cases(*shape, device, seed=300 + i)
     return out
 
 
@@ -215,21 +302,60 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize()
 
 
+def row_scaled(out, ref, rel, probe=None):
+    """(error, tolerance) at the element of ``out`` worst against ``ref``,
+    each element's tolerance ``rel`` times the largest |ref| of its row
+    (the last axis) -- with ``probe`` (a bool mask), the largest over the
+    probe's or the other elements of that row, whichever it belongs to."""
+    d = (out.float() - ref.float()).abs()
+    r = ref.float().abs()
+    worst = (-1.0, 0.0, 0.0)
+    for m in ([None] if probe is None else [probe, ~probe]):
+        dm = d if m is None else torch.where(m, d, 0.0)
+        tol = rel * (r if m is None else torch.where(m, r, 0.0)).amax(-1, keepdim=True)
+        ratio = dm / tol.clamp_min(1e-30)
+        i = int(ratio.argmax())
+        q = ratio.flatten()[i].item()
+        if q > worst[0]:
+            worst = (q, dm.flatten()[i].item(), tol.expand_as(dm).flatten()[i].item())
+    return worst[1], worst[2]
+
+
 @torch.inference_mode()
 def compare(case: Case):
-    """(max abs error of the kernel vs its plain version, the tolerance)."""
+    """(max abs error of the kernel vs its plain version, the tolerance).
+    The fused forward must also fail the same check against the plain
+    version with the other clamp setting (its err / tol lands in
+    ``case.other_clamp``), or the check could not see the clamp flag."""
     outs = _outputs(case.fn(*case.args))
     refs = _outputs(case.plain(*case.args))
     _sync(outs[0])
     err, scale = 0.0, 1.0
-    for out, ref in zip(outs, refs, strict=True):
+    worst = None  # PER_OUTPUT: (err / tol, err, tol) of the worst output
+    for j, (out, ref) in enumerate(zip(outs, refs, strict=True)):
         if out.shape != ref.shape or out.dtype != ref.dtype:
             raise AssertionError(f"{case.name}: {out.shape}/{out.dtype} vs "
                                  f"{ref.shape}/{ref.dtype}")
         if not torch.isfinite(out).all():
             raise AssertionError(f"{case.name} {case.label}: non-finite kernel output")
-        err = max(err, (out.float() - ref.float()).abs().max().item())
-        scale = max(scale, ref.float().abs().max().item())
+        if case.name in PER_ROW and j == 0:
+            e, tol = row_scaled(out, ref, TOL[case.dtype], case.probe)
+        else:
+            e = (out.float() - ref.float()).abs().max().item()
+            m = ref.float().abs().max().item()
+            err, scale = max(err, e), max(scale, m)
+            tol = TOL[case.dtype] * max(m, 1e-12)
+        if worst is None or e / tol > worst[0]:
+            worst = (e / tol, e, tol)
+    if case.name in ("ss2d_dir_fused", "ss2d_dir_fused_g"):
+        other = _fused.ss2d_dir_fused_plain(*case.args, clamp=case.name == "ss2d_dir_fused")
+        e, tol = row_scaled(outs[0], other, TOL[case.dtype], case.probe)
+        case.other_clamp = e / tol
+        if e <= tol:
+            raise AssertionError(f"{case.name} {case.label}: the check cannot tell the "
+                                 f"clamped function from the unclamped ({e} <= {tol})")
+    if case.name in PER_OUTPUT or case.name in PER_ROW:
+        return worst[1], worst[2]
     return err, TOL[case.dtype] * scale
 
 
@@ -282,6 +408,18 @@ def work(case: Case):
             io += _nbytes(*x)
     if case.name == "linear_scan":
         return io, 0, 2 * a[0].numel()
+    if case.name in CLS_KERNELS:
+        B, _, C, L = a[0].shape
+        P, N = a[1].shape[1], a[4].shape[-1]
+        R = P - 2 * N
+        fwd = 4 * _scan_dir_ops(B, C, L, R, N, True)
+        if case.name != "ss2d_dir_fused_bwd":  # the 4 directions' projections
+            return io, 4 * 2 * B * L * P * C, fwd
+        # the projection again, dxdbl[:R], dx, dWx, dWdt; the forward once more
+        # and per (position, channel, state) the lambda step, da, ddt, dx,
+        # dA, dB and dC terms (2 + 1 + 4 + 2 + 2 + 2 + 2)
+        return (io, 4 * 2 * B * L * C * (3 * P + 2 * R),
+                fwd + 4 * B * C * L * (15 * N + 6))
     B, C, L = a[0].shape
     if case.name == "stem_fused_cf":
         Dh = a[1].shape[0]
@@ -337,10 +475,27 @@ def _col_pair_plain(x, Wx, Wdt, bias, A, D, y0, H, W):
     return _seq._transpose_hw(y, W, H) + y0
 
 
+def _cls_grad_cases(small, device):
+    """The fused core's autograd wrappers (kernel forward, kernel 9
+    backward) vs autograd through the unclamped plain core, both forms."""
+    out = []
+    for i, (label, B, C, H, W, R, N) in enumerate(SMALL_CLS_SHAPES if small else CLS_SHAPES):
+        rng = np.random.default_rng(400 + i)
+        t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+        xs2 = t(rng.standard_normal((B, 2, C, H * W)))
+        args = [xs2 * torch.sigmoid(xs2), *_fused_weights(rng, C, R, N, t)]
+        for name, fn in (("ss2d_dir_fused", _fused.ss2d_dir_fused),
+                         ("ss2d_dir_fused_g", _fused.ss2d_dir_fused_g)):
+            out.append(GradCase(name, label, fn, _fused.ss2d_dir_fused_plain, args,
+                                (B, 2, C, H * W)))
+    return out
+
+
 def grad_cases(small: bool = False, device="cuda"):
     """The five autograd wrappers of the VSSBlock and linear_scan at the
-    training shapes (``small``: tiny shapes), fp32, clamp-hitting scan biases."""
-    out = []
+    training shapes (``small``: tiny shapes), fp32, clamp-hitting scan
+    biases; then the classifier's fused core at its stage shapes."""
+    out = _cls_grad_cases(small, device)
     for i, (label, B, C, H, W) in enumerate(SMALL_SHAPES if small else TRAIN_SHAPES):
         rng = np.random.default_rng(200 + i)
         L = H * W

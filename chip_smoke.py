@@ -26,9 +26,25 @@ result line):
      every kernel's launch count over the phase must be > 0;
   7. the flagship serving pipeline (n_feat 40, blocks (2,2,2), K=16, two
      400x600 images padded to 448x640, bf16 stream, seeded weights)
-     answering 3 requests; every kernel's launch count must be > 0.
-The line before the last is the per-kernel JSON summary, the one before it
-the card's name and power limit; the last line is {"ok": true, ...}.
+     answering 3 requests; every kernel of phases 6-7 must launch;
+  8. the VMamba classifier (VSSM, forward_type v2) at narrow width (embed
+     16, depths (1,1), d_state 16, 32x32), fp32: logits and one train step
+     on the card vs the CPU at B=1 (the fused core) and B=2 (its clamped
+     form, as pick_group(2, d_inner) > 1 selects it), clamp-hitting biases;
+  9. VMamba-T training (the harness defaults: depths (2,2,9,2), embed 96,
+     d_state 16, batch 128, 224x224, fp32), 1 warm-up + 5 timed steps;
+ 10. VMamba-T throughput (bf16 images, fp32 params, batch 128), through the
+     harness's throughput() (1 warm-up + 5 timed batches), and one
+     forward's logits checked; the fused core and its backward must launch.
+The kernels' phase also holds the three classifier kernels (the fused core,
+its clamped form, its backward) against their plain versions at the four
+VMamba-T stage shapes (batch 2), each output row against its own largest
+entry, with a clamp probe (x zero at every other position of the clamped
+channels, where the clamp changes y by a factor of e or more) held apart;
+each fused forward must also fail that check against the plain version
+with the other clamp setting. The gradients' phase holds their autograd
+wrappers. The line before the last is the per-kernel JSON summary, the one
+before it the card's name and power limit; the last line is {"ok": true, ...}.
 Imports nothing of JAX or of bem_tpu.
 """
 
@@ -46,6 +62,10 @@ import torch
 
 from bem_tpu_torch import _build, smoke
 from bem_tpu_torch.archs import build_network
+from bem_tpu_torch.classification import build_model_from_config, get_config, make_trainer
+from bem_tpu_torch.classification import synthetic_batch as cls_batch
+from bem_tpu_torch.classification import throughput
+from bem_tpu_torch.nn.ss2d import SS2D
 from bem_tpu_torch.enhancement.pipeline import build_pipeline, padded_size
 from bem_tpu_torch.models import build_model
 from bem_tpu_torch.options import lolv1_options
@@ -56,6 +76,8 @@ NIMG = 2
 H, W = 400, 600
 N_REQUESTS = 3
 N_TRAIN_STEPS = 5
+CLS_BATCH = 128
+IMAGENET_TRAIN = 1281167  # images per epoch of the harness's schedule
 
 
 def phase(name):
@@ -89,9 +111,11 @@ def compare_kernels():
         plain_ms = smoke.time_ms(case.plain, case.args)
         dt = str(case.dtype).replace("torch.", "")
         ok = err <= tol
+        other = "" if case.other_clamp is None else \
+            f"  vs other clamp err/tol {case.other_clamp:.3g}"
         print(f"{case.name:15s} {case.label:34s} {dt:8s} max_abs_err {err:.3e} "
               f"tol {tol:.3e} {'ok' if ok else 'FAIL'}  kernel {ms:.3f} ms  "
-              f"plain {plain_ms:.3f} ms", flush=True)
+              f"plain {plain_ms:.3f} ms{other}", flush=True)
         if not ok:
             raise AssertionError(f"{case.name} {case.label} {dt}: {err} > {tol}")
         if (case.label, dt) == smoke.HEADLINE[case.name] and case.name not in summary:
@@ -253,7 +277,7 @@ def train_phase(card: str):
         torch.cuda.empty_cache()
     total = smoke.launch_counts()
     print(f"launches over the training phase: {total}")
-    if min(total.values()) <= 0:
+    if min(total[k] for k in smoke.BEM_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the training path never launched: {total}")
     return total
 
@@ -279,11 +303,162 @@ def serve(card: str):
               f"NIQE min {scores.min(0).values.tolist()}", flush=True)
     counts = smoke.launch_counts()
     print(f"launches over {N_REQUESTS} requests: {counts}")
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in smoke.BEM_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the serving path never launched: {counts}")
     med = statistics.median(times)
     print(f"pipeline K={K} NIMG={NIMG} {H}x{W} bf16: median {1e3 * med:.1f} ms/request, "
           f"{NIMG / med:.4f} images/s ({card})")
+    return counts
+
+
+def _narrow_cls_config():
+    c = get_config()
+    v = c.MODEL.VSSM
+    v.EMBED_DIM, v.DEPTHS, v.SSM_D_STATE = 16, [1, 1], 16
+    c.DATA.IMG_SIZE, c.MODEL.NUM_CLASSES, c.MODEL.DROP_PATH_RATE = 32, 10, 0.0
+    return c
+
+
+def cls_reference_check():
+    """The narrow VSSM on the card vs the CPU, same weights and batch, at
+    B=1 (fused core) and B=2 (the clamped form): logits within 1e-4 of
+    their largest; two train steps (the warmup schedule's first lr is 0):
+    each loss within 1e-4 relative, every gradient leaf within 1e-3 of the
+    leaf's max, the params after the second within 1e-5 where both steps'
+    |g| > 1e-2 max|g| of the leaf, and elsewhere within 2 lr (1 + wd |p|),
+    the most two AdamW steps can differ by."""
+    c = _narrow_cls_config()
+    smoke.reset_launch_counts()
+    for B in (1, 2):
+        model = build_model_from_config(c, torch.Generator().manual_seed(5))
+        with torch.no_grad():  # every third channel's dt bias +12: dt*A < -10
+            for m in model.modules():
+                if isinstance(m, SS2D):
+                    m.dt_projs_bias[:, ::3] = 12.0
+        rng = np.random.default_rng(B)
+        images = torch.from_numpy(rng.random((B, 32, 32, 3), np.float32))
+        labels = torch.from_numpy(rng.integers(0, 10, B))
+        res = {}
+        for dev in ("cuda", "cpu"):
+            m = copy.deepcopy(model).to(dev)
+            with torch.no_grad():
+                logits = m(images.to(dev)).cpu()
+            state, train_step, _ = make_trainer(m, total_steps=10, base_lr=1e-3, device=dev)
+            grads, losses = [], []
+            step = state.optimizer.step
+            state.optimizer.step = lambda p, g, step=step: (
+                grads.append({k: v.cpu() for k, v in g.items()}), step(p, g))[1]
+            for _ in range(2):
+                state, loss = train_step(state, images, labels)
+                losses.append(float(loss))
+            res[dev] = (logits, losses, grads, state.logs["lr"],
+                        {k: p.detach().cpu() for k, p in m.named_parameters()})
+        (lg, sg, gg, lr, pg), (lc, sc, gc, _, pc) = res["cuda"], res["cpu"]
+        logit_err = (lg - lc).abs().max().item() / lc.abs().max().item()
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(sg, sc))
+        grad_err = max((g1[k] - g2[k]).abs().max().item() / max(g2[k].abs().max().item(), 1e-30)
+                       for g1, g2 in zip(gg, gc) for k in g2)
+        p0 = dict(model.named_parameters())
+        param_err, param_far = 0.0, 0.0
+        for k in pc:
+            moved = (pg[k] - pc[k]).abs()
+            clear = torch.ones_like(moved, dtype=torch.bool)
+            for g in gc:
+                clear &= g[k].abs() > 1e-2 * g[k].abs().max()
+            if clear.any():
+                param_err = max(param_err, (moved[clear] / (1 + pc[k][clear].abs())).max().item())
+            param_far = max(param_far, (moved - 2 * lr * (1 + 0.05 * p0[k].detach().abs())
+                                        ).max().item())
+        print(f"classifier reference B={B} 32x32 fp32: logits err / max {logit_err:.2e} "
+              f"(tol 1e-4); losses card {sg} cpu {sc} (rel {loss_rel:.2e}, tol 1e-4); "
+              f"grads max err / leaf max {grad_err:.2e} (tol 1e-3) over 2 x {len(gc[0])} "
+              f"leaves; params after lr {lr:.1e}: max rel err {param_err:.2e} (tol 1e-5), "
+              f"beyond two steps {max(param_far, 0.0):.2e} (tol 1e-6)", flush=True)
+        if not (logit_err <= 1e-4 and loss_rel <= 1e-4 and grad_err <= 1e-3
+                and param_err <= 1e-5 and param_far <= 1e-6 and lr > 0):
+            raise AssertionError(f"classifier B={B} on the card disagrees with the CPU")
+    counts = smoke.launch_counts()
+    print(f"launches over the classifier reference checks: {counts}")
+    if counts["ss2d_dir_fused"] <= 0 or counts["ss2d_dir_fused_g"] <= 0 \
+            or counts["ss2d_dir_fused_bwd"] <= 0:
+        raise AssertionError(f"a classifier kernel never launched: {counts}")
+    return counts
+
+
+def cls_train_phase(card: str):
+    """VMamba-T (the harness defaults) trained 1 + N steps at batch 128 on
+    seeded synthetic batches, with the 300-epoch schedule of an ImageNet
+    epoch at this batch."""
+    c = get_config()
+    steps_per_epoch = -(-IMAGENET_TRAIN // c.DATA.BATCH_SIZE)
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model_from_config(c, torch.Generator().manual_seed(c.SEED))
+    state, train_step, _ = make_trainer(
+        model, total_steps=c.TRAIN.EPOCHS * steps_per_epoch, base_lr=c.TRAIN.BASE_LR,
+        warmup_steps=c.TRAIN.WARMUP_EPOCHS * steps_per_epoch,
+        weight_decay=c.TRAIN.WEIGHT_DECAY, label_smoothing=c.MODEL.LABEL_SMOOTHING,
+        seed=c.SEED, device="cuda")
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    smoke.reset_launch_counts()
+    times = []
+    for i in range(1 + N_TRAIN_STEPS):
+        images, labels = cls_batch(c, gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = train_step(state, images, labels)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        loss, gn, lr = float(loss), float(state.logs["grad_norm"]), state.logs["lr"]
+        print(f"VMamba-T step {i} ({'warm-up' if i == 0 else 'timed'}) {tuple(images.shape)}: "
+              f"loss {loss:.6f} grad_norm {gn:.5f} lr {lr:.6e} {1e3 * dt:.1f} ms", flush=True)
+        if not (np.isfinite(loss) and np.isfinite(gn)):
+            raise AssertionError(f"VMamba-T step {i}: non-finite loss or grad norm")
+        if i == 0:
+            step_counts = smoke.launch_counts()
+        else:
+            times.append(dt)
+    moved = sum(not torch.equal(before[k], p) for k, p in model.named_parameters())
+    if moved == 0:
+        raise AssertionError("VMamba-T: no parameter changed")
+    med = statistics.median(times)
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    B, S = c.DATA.BATCH_SIZE, c.DATA.IMG_SIZE
+    print(f"VMamba-T train B={B} {S}x{S} fp32: median {1e3 * med:.1f} ms/step, "
+          f"{B / med:.1f} images/s, peak memory {mem:.2f} GiB, "
+          f"{moved}/{len(before)} params moved ({card})")
+    counts = smoke.launch_counts()
+    print(f"VMamba-T launches per train step: {step_counts}; over the phase: {counts}")
+    if counts["ss2d_dir_fused"] <= 0 or counts["ss2d_dir_fused_bwd"] <= 0:
+        raise AssertionError(f"a kernel of the classifier's training path never launched: {counts}")
+    del model, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def cls_throughput_phase(card: str):
+    """bf16 forward throughput of VMamba-T at batch 128 (the harness's
+    throughput(): 1 warm-up + 5 timed batches) and one forward's logits."""
+    c = get_config()
+    model = build_model_from_config(c, torch.Generator().manual_seed(c.SEED)).to("cuda")
+    smoke.reset_launch_counts()
+    ips = throughput(model, batch=CLS_BATCH, size=c.DATA.IMG_SIZE, iters=N_TRAIN_STEPS)
+    x = cls_batch(c, torch.Generator(device="cuda").manual_seed(2))[0].to(torch.bfloat16)
+    with torch.no_grad():
+        logits = model(x)
+    torch.cuda.synchronize()
+    if logits.shape != (CLS_BATCH, c.MODEL.NUM_CLASSES) or not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"VMamba-T throughput: bad logits {tuple(logits.shape)}")
+    counts = smoke.launch_counts()
+    print(f"VMamba-T throughput B={CLS_BATCH} {c.DATA.IMG_SIZE}x{c.DATA.IMG_SIZE} bf16: "
+          f"{ips:.1f} images/s, "
+          f"{1e3 * CLS_BATCH / ips:.1f} ms/batch ({card}); logits {logits.dtype} finite, "
+          f"|max| {logits.float().abs().max().item():.4f}")
+    print(f"VMamba-T launches over the throughput phase: {counts}")
+    if counts["ss2d_dir_fused"] <= 0:
+        raise AssertionError(f"the fused core never launched in the throughput phase: {counts}")
+    del model
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -311,8 +486,21 @@ def main() -> int:
     train_counts = train_phase(card)
     phase("serving pipeline")
     serve_counts = serve(card)
+    phase("classifier reference checks")
+    cls_ref_counts = cls_reference_check()
+    phase("classifier training")
+    cls_train_counts = cls_train_phase(card)
+    phase("classifier throughput")
+    cls_tp_counts = cls_throughput_phase(card)
+    # each kernel's launches over the runs of its own paths: the BEM kernels
+    # over the serving and training runs, the fused core and its backward
+    # over VMamba-T's, the clamped form over the narrow reference runs
+    paths = {name: (train_counts, serve_counts) for name in smoke.BEM_KERNELS}
+    paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts),
+                 ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts),
+                 ss2d_dir_fused_g=(cls_ref_counts,))
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=train_counts[name] + serve_counts[name], **summary[name])
+                    launches=sum(c[name] for c in paths[name]), **summary[name])
                for name, (_, _, src, rep) in smoke.KERNELS.items()]
     print(f"chip_smoke: {time.perf_counter() - t_start:.0f} s")
     print(card)

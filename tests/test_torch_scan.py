@@ -13,10 +13,21 @@ import numpy as np
 import pytest
 import torch
 
+from bem_tpu.ops.scan import _linear_scan_pallas as jax_scan_pallas
 from bem_tpu.ops.scan import linear_scan as jax_scan
 from bem_tpu_torch.ops.scan import linear_scan, linear_scan_plain, scan_plain
 
 SHAPES = [(2, 300, 40), (1, 3, 64, 136), (3, 1, 5)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_interpret_traces():
+    """bem_tpu's jitted Pallas scan caches the interpret-mode traces these
+    tests make; dropping them afterwards keeps a later test in the same
+    process that lowers the same shapes for the TPU (test_tpu_lowering.py)
+    from reusing them."""
+    yield
+    jax_scan_pallas.clear_cache()
 
 
 def _inputs(shape, seed):
