@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_long
 # C entry points: (name, argtypes). Pointers and the stream are c_void_p so
 # ctypes passes them at full width.
 _SIGNATURES = {
@@ -38,6 +39,9 @@ _SIGNATURES = {
     "bem_linear_scan": [_P] * 5 + [_I] * 5 + [_P],
     "bem_ss2d_fused_fwd": [_P] * 9 + [_I] * 7 + [_P],
     "bem_ss2d_fused_bwd": [_P] * 19 + [_I] * 5 + [_P],
+    "bem_selective_scan_fused": [_P] * 8 + [_I] * 7 + [_P],
+    "bem_vpu_scan_step": [_P] * 2 + [_L] + [_I] * 2 + [_P],
+    "bem_vpu_op_rounds": [_P] * 2 + [_L] + [_I] * 2 + [_P],
 }
 
 _LIB = None

@@ -1,11 +1,12 @@
 """SS2D, the 2D selective-scan block, with bem_tpu's dispatch (ss2d.py:207-612).
 
 Counterpart of bem_tpu/nn/ss2d.py::SS2D for the cross2d forward types
-(scans 0: v01-v05, v2, v0) with the LayerNorm out-norm:
+(scans 0: v01-v05, v2, v0) and the unidi / bidi ones (scans 1, 2: v051d,
+v052d) with the LayerNorm out-norm, in bem_tpu's Pallas-backend dispatch:
 
-- **Fused core** (ss2d.py:217-389), where there is no z gate (``_noz``)
-  and no ``_oact``: the row scan pair, the column scan pair and the tail
-  kernel (merge + LN + out_proj). The column pair takes bem_tpu's dispatch
+- **Fused core** (ss2d.py:217-389), for scans 0 where there is no z gate
+  (``_noz``) and no ``_oact``: the row scan pair, the column scan pair and
+  the tail kernel (merge + LN + out_proj). The column pair takes bem_tpu's dispatch
   (ss2d.py:335-358): where ``col_pair_supported(H, W)``, the transpose-free
   column kernels merge the row pair's output; elsewhere the row pair's
   kernel runs on the transposed sequence. On the flat channel-first stream
@@ -13,16 +14,22 @@ Counterpart of bem_tpu/nn/ss2d.py::SS2D for the cross2d forward types
   pre-LN, in_proj, the depthwise 3x3 and SiLU, and the tail kernel the
   residual; on a (B, d_model, H, W) map (bem_tpu's NHWC form, run
   channel-first here) the stem is unfused.
-- **The 4-direction fused core** (ss2d.py:440-482) otherwise: unfused stem
-  (in_proj with the z split, SiLU on z, depthwise conv with ``conv_bias``,
-  SiLU), xs2 = (row, column) sequences, :func:`ss2d_dir_fused` -- clamped
+- **The 4-direction fused core** (ss2d.py:440-482) for scans 0 otherwise:
+  unfused stem (in_proj with the z split, SiLU on z, depthwise conv with
+  ``conv_bias``, SiLU), xs2 = (row, column) sequences, :func:`ss2d_dir_fused` -- clamped
   where ``pick_group(B, d_inner) > 1``, as bem_tpu takes the grouped
   kernel there -- then y_row + y_col, LayerNorm, the cast to the input
   dtype, ``y * z`` and out_proj (ss2d.py:573-612).
+- **The scan-pattern forward types** (ss2d.py:483-541), scans 1 (``v051d``,
+  four row-major scans) and 2 (``v052d``, row-major forward twice and
+  reversed twice), with or without the z gate: the unfused stem,
+  :func:`cross_scan_cf_input`, the x and dt projections as two einsums in
+  the stream dtype, :func:`selective_scan_fused` (its output in the stream
+  dtype), :func:`cross_merge_cf_output` in that dtype, then the same tail.
 
-Other out-norms, scans != 0 (v051d / v052d / v052dc), m0 and the windowed
-form raise NotImplementedError; dropout and the v1 / v2 simple inits are
-not ported (the classifier's config refuses them).
+Other out-norms, ``v052dc`` (cascade2d), m0 and the windowed form raise
+NotImplementedError; dropout and the v1 / v2 simple inits are not ported
+(the classifier's config refuses them).
 Every op is differentiable, so one module serves training and inference.
 """
 
@@ -34,7 +41,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cross_scan import cross_merge_cf_output, cross_scan_cf_input
 from ..ops.gdmlp_fused import stem_fused_cf
+from ..ops.scan_fused import selective_scan_fused
 from ..ops.ss2d_fused import pick_group, ss2d_dir_fused
 from ..ops.ss2d_seq import col_pair_supported, ss2d_col_pair, ss2d_seq_pair
 from ..ops.ss2d_tail import ss2d_tail_cf
@@ -44,8 +53,10 @@ from .layers import Conv2d, Dense, LayerNorm2d
 K_DIRS = 4
 # dt init range of the reference (vmamba.py:236-244)
 DT_MIN, DT_MAX, DT_INIT_FLOOR = 0.001, 0.1, 1e-4
-# forward-type bases with the cross2d scan (ss2d.py:88-94, scans 0)
-CROSS2D = ("v01", "v02", "v03", "v04", "v05", "v2", "v0", "v0seq")
+# forward-type bases and their scan mode (ss2d.py:88-94): cross2d (0),
+# unidi (1), bidi (2); cascade2d (v052dc, 3) is not ported
+SCAN_MODES = {"v01": 0, "v02": 0, "v03": 0, "v04": 0, "v05": 0, "v2": 0, "v0": 0, "v0seq": 0,
+              "v051d": 1, "v052d": 2}
 
 
 def parse_forward_type(forward_type: str):
@@ -79,12 +90,18 @@ class SS2D(nn.Module):
                  conv_bias: bool = False, bias: bool = False):
         super().__init__()
         base, flags = parse_forward_type(forward_type)
-        if base not in CROSS2D or flags["out_norm"] != "ln":
+        if base == "v052dc":
+            raise NotImplementedError("SS2D port: v052dc (cascade2d) is not ported yet "
+                                      "(ROADMAP.md, modules still missing)")
+        if base not in SCAN_MODES or flags["out_norm"] != "ln":
             raise NotImplementedError(
-                f"SS2D port: forward_type {forward_type!r} (only the cross2d bases "
-                f"{CROSS2D} with the LayerNorm out-norm are ported)")
+                f"SS2D port: forward_type {forward_type!r} (only the bases "
+                f"{tuple(SCAN_MODES)} with the LayerNorm out-norm are ported)")
         self.flags = flags
-        self.fused_core = flags["noz"] and not flags["oact"]
+        self.scans = SCAN_MODES[base]
+        # bem_tpu takes the fused serving core only for the cross2d scan
+        # (ss2d.py:217), and the 4-direction core likewise (ss2d.py:440)
+        self.fused_core = self.scans == 0 and flags["noz"] and not flags["oact"]
         self.d_inner = d_inner = int(ssm_ratio * d_model)
         self.R = R = math.ceil(d_model / 16) if dt_rank == "auto" else int(dt_rank)
         self.N = N = d_state
@@ -145,6 +162,19 @@ class SS2D(nn.Module):
         return ss2d_tail_cf(y_row, y_colT, self.out_norm.weight, self.out_norm.bias,
                             w_out.t(), b_out, res)
 
+    def _scan_patterns(self, xs, H, W):
+        """The unidi / bidi core (ss2d.py:483-541) on the stem's (B, C, H, W)
+        output: (B, C, H, W) in the stream dtype."""
+        R, N, dtype = self.R, self.N, xs.dtype
+        seqs = cross_scan_cf_input(xs, self.scans)                      # (B, K, C, L)
+        x_dbl = torch.einsum("bkcl,krc->bkrl", seqs, self.x_proj_weight.to(dtype))
+        dts = torch.einsum("bkrl,kdr->bkdl", x_dbl[:, :, :R], self.dt_projs_weight.to(dtype))
+        ys = selective_scan_fused(
+            seqs, dts.contiguous(), -torch.exp(self.A_logs.float()),
+            x_dbl[:, :, R:R + N].contiguous(), x_dbl[:, :, R + N:].contiguous(),
+            D=self.Ds, delta_bias=self.dt_projs_bias.reshape(-1))
+        return cross_merge_cf_output(ys, H, W, self.scans)
+
     def forward(self, x, hw=None, ln=None, residual: bool = False):
         """x: flat channel-first (B, d_model, H*W) with hw=(H, W), the BEM
         nets' stream (fused core only: ``ln`` = (weight, bias) folds the
@@ -170,14 +200,17 @@ class SS2D(nn.Module):
         if self.fused_core:
             out = self._pairs_and_tail(xs.reshape(B, self.d_inner, L).contiguous(), H, W)
             return out.reshape(B, -1, H, W)
-        # the 4-direction fused core (ss2d.py:440-482)
         C = self.d_inner
-        xs2 = torch.stack([xs.reshape(B, C, L), xs.transpose(2, 3).reshape(B, C, L)], 1)
-        y2 = ss2d_dir_fused(xs2.contiguous(), *self._scan_weights(),
-                            clamp=pick_group(B, C) > 1)
-        y_row = y2[:, 0].reshape(B, C, H, W)
-        y_col = y2[:, 1].reshape(B, C, W, H).transpose(2, 3)
-        y = self.out_norm((y_row + y_col).float()).to(x.dtype)
+        if self.scans == 0:  # the 4-direction fused core (ss2d.py:440-482)
+            xs2 = torch.stack([xs.reshape(B, C, L), xs.transpose(2, 3).reshape(B, C, L)], 1)
+            y2 = ss2d_dir_fused(xs2.contiguous(), *self._scan_weights(),
+                                clamp=pick_group(B, C) > 1)
+            y_row = y2[:, 0].reshape(B, C, H, W)
+            y_col = y2[:, 1].reshape(B, C, W, H).transpose(2, 3)
+            y = (y_row + y_col).float()
+        else:
+            y = self._scan_patterns(xs, H, W)
+        y = self.out_norm(y).to(x.dtype)
         if self.flags["oact"]:
             y = F.gelu(y)
         if z is not None:

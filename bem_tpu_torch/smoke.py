@@ -21,9 +21,12 @@ import torch
 
 from .ops import gdmlp_fused as _gd
 from .ops import scan as _scan
+from .ops import scan_fused as _sf
 from .ops import ss2d_fused as _fused
 from .ops import ss2d_seq as _seq
 from .ops import ss2d_tail as _tail
+from .ops.cross_scan import cross_scan_cf_input
+from .tools import microbench_vpu as _mb
 
 # kernel name -> (wrapper, plain version, CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -57,6 +60,13 @@ KERNELS = {
     "ss2d_dir_fused_g": (_fused.ss2d_dir_fused_g, _fused.ss2d_dir_fused_g_plain,
                          "bem_tpu_torch/csrc/ss2d_fused.cu",
                          "bem_tpu/ops/ss2d_fused_g.py:309"),
+    "selective_scan_fused": (_sf.selective_scan_fused, _sf.selective_scan_fused_plain,
+                             "bem_tpu_torch/csrc/scan_fused.cu",
+                             "bem_tpu/ops/scan_fused.py:179"),
+    "vpu_scan_step": (_mb.vpu_scan_step, _mb.vpu_scan_step_plain,
+                      "bem_tpu_torch/csrc/microbench_vpu.cu", "tools/microbench_vpu.py:51"),
+    "vpu_op_rounds": (_mb.vpu_op_rounds, _mb.vpu_op_rounds_plain,
+                      "bem_tpu_torch/csrc/microbench_vpu.cu", "tools/microbench_vpu.py:103"),
 }
 # the kernels of the BEM nets' serving and training paths, and of the VSSM
 # classifier's (the clamped core runs at narrow widths only, where
@@ -64,6 +74,9 @@ KERNELS = {
 BEM_KERNELS = ("stem_fused_cf", "ss2d_seq_pair", "ss2d_tail_cf", "gdmlp_fused_cf",
                "ss2d_col_sum", "ss2d_col_dir", "linear_scan")
 CLS_KERNELS = ("ss2d_dir_fused", "ss2d_dir_fused_bwd", "ss2d_dir_fused_g")
+# the scan-pattern forward types' core (v051d / v052d) and the microbenchmarks
+SCAN_KERNELS = ("selective_scan_fused",)
+MICROBENCH_KERNELS = ("vpu_scan_step", "vpu_op_rounds")
 
 # (label, B, C, H, W): the serving path's levels at the 448x640 IE input
 # (C = 40 / 80 / 160) and the CG's top level at 28x40, two images each
@@ -100,6 +113,9 @@ HEADLINE["linear_scan"] = ("train IE-L0 128x128 C40 bwd", "float32")
 HEADLINE["ss2d_dir_fused"] = ("VMamba-T S0 56x56 C192", "bfloat16")
 HEADLINE["ss2d_dir_fused_g"] = ("VMamba-T S0 56x56 C192", "bfloat16")
 HEADLINE["ss2d_dir_fused_bwd"] = ("VMamba-T S0 56x56 C192", "float32")
+HEADLINE["selective_scan_fused"] = ("VMamba-T S0 56x56 C192 scans2", "bfloat16")
+HEADLINE["vpu_scan_step"] = ("lanes 4096 npass 10", "float32")
+HEADLINE["vpu_op_rounds"] = ("mode exp", "float32")
 
 
 def reset_launch_counts() -> None:
@@ -120,7 +136,7 @@ PER_OUTPUT = ("ss2d_dir_fused_bwd",)
 # kernels whose (B, 2, C, L) output (the backward: its dxs2) is held per row:
 # each (image, stream, channel) against its own largest entry, the clamp
 # probe's positions (see _clamp_probe) as rows of their own
-PER_ROW = ("ss2d_dir_fused", "ss2d_dir_fused_g", "ss2d_dir_fused_bwd")
+PER_ROW = ("ss2d_dir_fused", "ss2d_dir_fused_g", "ss2d_dir_fused_bwd", "selective_scan_fused")
 GRAD_TOL = 1e-4  # of each gradient's largest entry: two fp32 orders of summation
 
 
@@ -278,9 +294,63 @@ def _cls_cases(label, B, C, H, W, R, N, device, seed):
     return out
 
 
+def _scan_fused_inputs(B, C, H, W, R, N, scans, device, seed):
+    """selective_scan_fused's fp32 inputs as the v051d / v052d SS2D makes
+    them: the cross-scan (``scans`` 1 or 2) of a SiLU output, x zero at
+    every other position of every third channel (the clamp probe: there
+    y is the decay of the neighbours' states alone), delta and B / C
+    projected from it at the v0 init's scales, the dt bias +12 on those
+    channels so dt*A < -10; returns (args, probe)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    x = rng.standard_normal((B, C, H, W)).astype(np.float32)
+    u = cross_scan_cf_input(t(x / (1.0 + np.exp(-x))), scans).contiguous()
+    probe = torch.zeros(u.shape, dtype=torch.bool, device=device)
+    probe[:, :, ::3, 1::2] = True
+    u[probe] = 0.0
+    Wx, Wdt, bias, A, D = _fused_weights(rng, C, R, N, t)
+    xdbl = torch.einsum("bkcl,krc->bkrl", u, Wx)
+    delta = torch.einsum("bkrl,kdr->bkdl", xdbl[:, :, :R], Wdt).contiguous()
+    args = (u, delta, A.reshape(4 * C, N), xdbl[:, :, R:R + N].contiguous(),
+            xdbl[:, :, R + N:].contiguous(), D.reshape(-1), bias.reshape(-1))
+    return args, probe
+
+
+def _scan_fused_cases(label, B, C, H, W, R, N, device, seed):
+    """selective_scan_fused at one stage, for scans 1 and 2, fp32 and bf16
+    (u, delta, B, C rounded to bf16), with the clamp probe."""
+    out = []
+    for scans in (1, 2):
+        args, probe = _scan_fused_inputs(B, C, H, W, R, N, scans, device, seed + scans)
+        for dtype in (torch.float32, torch.bfloat16):
+            a = tuple(x.to(dtype) if i in (0, 1, 3, 4) else x for i, x in enumerate(args))
+            out.append(Case("selective_scan_fused", f"{label} scans{scans}", dtype, a, probe))
+    return out
+
+
+def _microbench_cases(small, device):
+    """The microbenchmarks on the tool's data at every lanes / npass / mode
+    of its sweeps, or on 2 blocks of (40, 512) (``small``)."""
+    if small:
+        x = torch.from_numpy(np.random.default_rng(0).random((2, 40, 512), np.float32))
+        data = lambda lanes: x.to(device)  # noqa: E731
+        runs, modes_lanes = [(512, 10), (512, 40)], 512
+    else:  # a draw of its own, freed with the cases (the tool's data() keeps one)
+        flat = _mb.draw(device)
+        data = lambda lanes: flat.view(_mb.TOTAL // lanes, _mb.C, lanes)  # noqa: E731
+        runs = [(lanes, _mb.NPASS) for lanes in _mb.LANES_SWEEP]
+        runs += [(4096, npass) for npass in _mb.NPASS_SWEEP]
+        modes_lanes = 4096
+    out = [Case("vpu_scan_step", f"lanes {lanes} npass {npass}", torch.float32,
+                (data(lanes), npass)) for lanes, npass in runs]
+    return out + [Case("vpu_op_rounds", f"mode {mode}", torch.float32,
+                       (data(modes_lanes), mode)) for mode in _mb.MODES]
+
+
 def kernel_cases(small: bool = False, device="cuda"):
     """Every kernel at every serving, training and classifier shape, fp32 and
-    bf16, or at tiny shapes (``small``)."""
+    bf16, and the microbenchmarks at the tool's shapes; or at tiny shapes
+    (``small``)."""
     shapes = SMALL_SHAPES if small else PATH_SHAPES + TRAIN_SHAPES
     out = []
     for i, (label, B, C, H, W) in enumerate(shapes):
@@ -290,7 +360,8 @@ def kernel_cases(small: bool = False, device="cuda"):
             out += _scan_bwd_cases(label, B, C, H, W, device, seed=100 + i)
     for i, shape in enumerate(SMALL_CLS_SHAPES if small else CLS_SHAPES):
         out += _cls_cases(*shape, device, seed=300 + i)
-    return out
+        out += _scan_fused_cases(*shape, device, seed=500 + 4 * i)
+    return out + _microbench_cases(small, device)
 
 
 def _outputs(o):
@@ -347,8 +418,11 @@ def compare(case: Case):
             tol = TOL[case.dtype] * max(m, 1e-12)
         if worst is None or e / tol > worst[0]:
             worst = (e / tol, e, tol)
-    if case.name in ("ss2d_dir_fused", "ss2d_dir_fused_g"):
-        other = _fused.ss2d_dir_fused_plain(*case.args, clamp=case.name == "ss2d_dir_fused")
+    if case.name in ("ss2d_dir_fused", "ss2d_dir_fused_g", "selective_scan_fused"):
+        if case.name == "selective_scan_fused":  # a function without the clamp
+            other = _sf.selective_scan_fused_plain(*case.args, clamp=True)
+        else:
+            other = _fused.ss2d_dir_fused_plain(*case.args, clamp=case.name == "ss2d_dir_fused")
         e, tol = row_scaled(outs[0], other, TOL[case.dtype], case.probe)
         case.other_clamp = e / tol
         if e <= tol:
@@ -408,6 +482,17 @@ def work(case: Case):
             io += _nbytes(*x)
     if case.name == "linear_scan":
         return io, 0, 2 * a[0].numel()
+    if case.name == "selective_scan_fused":
+        # per element: bias add and softplus (6), dt*u (1), D*u + y (2); per
+        # state: dt*A, exp, du*B (3), the step's FMA and the readout's (4)
+        N = a[2].shape[-1]
+        return io, 0, a[0].numel() * (9 + 7 * N)
+    if case.name == "vpu_scan_step":  # per round: two selects, an FMA, a multiply
+        return io, 0, a[0].numel() * (5 * a[1] + 2)
+    if case.name == "vpu_op_rounds":  # per round: arith FMA + mul; exp mul, exp,
+        # FMA; softplus mul, max / abs / exp / log1p / add, FMA; roll FMA
+        per = {"arith": 3, "exp": 4, "softplus": 8, "roll": 2}[a[1]]
+        return io, 0, a[0].numel() * (10 * per + 2)
     if case.name in CLS_KERNELS:
         B, _, C, L = a[0].shape
         P, N = a[1].shape[1], a[4].shape[-1]
@@ -491,11 +576,28 @@ def _cls_grad_cases(small, device):
     return out
 
 
+def _scan_fused_grad_cases(device):
+    """selective_scan_fused's autograd wrapper (kernel forward, the backward
+    through the unfolded composition on linear_scan) vs autograd through
+    the plain composition, all seven inputs, at the tiny classifier shapes
+    for scans 1 and 2 (the full stages' composition is too large to hold
+    twice for a check)."""
+    out = []
+    for i, (label, B, C, H, W, R, N) in enumerate(SMALL_CLS_SHAPES):
+        for scans in (1, 2):
+            args, _ = _scan_fused_inputs(B, C, H, W, R, N, scans, device, 600 + 4 * i + scans)
+            out.append(GradCase("selective_scan_fused", f"{label} scans{scans}",
+                                _sf.selective_scan_fused, _sf.selective_scan_fused_plain,
+                                list(args), tuple(args[0].shape)))
+    return out
+
+
 def grad_cases(small: bool = False, device="cuda"):
     """The five autograd wrappers of the VSSBlock and linear_scan at the
     training shapes (``small``: tiny shapes), fp32, clamp-hitting scan
-    biases; then the classifier's fused core at its stage shapes."""
-    out = _cls_grad_cases(small, device)
+    biases; then the classifier's fused core at its stage shapes and
+    selective_scan_fused at tiny ones."""
+    out = _cls_grad_cases(small, device) + _scan_fused_grad_cases(device)
     for i, (label, B, C, H, W) in enumerate(SMALL_SHAPES if small else TRAIN_SHAPES):
         rng = np.random.default_rng(200 + i)
         L = H * W

@@ -35,17 +35,29 @@ result line):
      d_state 16, batch 128, 224x224, fp32), 1 warm-up + 5 timed steps;
  10. VMamba-T throughput (bf16 images, fp32 params, batch 128), through the
      harness's throughput() (1 warm-up + 5 timed batches), and one
-     forward's logits checked; the fused core and its backward must launch.
+     forward's logits checked; the fused core and its backward must launch;
+ 11. the scan-pattern forward types: a narrow VSSM with forward_type v052d
+     (logits and two train steps at B=2) and v051d (logits) on the card vs
+     the CPU; VMamba-T v052d training at batch 8 (1 warm-up + 3 timed
+     steps: the backward recomputes through the unfolded composition,
+     whose (4 B, d_inner, L, d_state) fp32 tensors take 19.7 GB each at
+     batch 128) and its bf16 throughput at batch 128; selective_scan_fused
+     must launch 15 times per forward;
+ 12. the microbenchmarks (bem_tpu_torch.tools.microbench_vpu): the lanes /
+     npass sweep and the four modes, each line as the tool prints it.
 The kernels' phase also holds the three classifier kernels (the fused core,
-its clamped form, its backward) against their plain versions at the four
-VMamba-T stage shapes (batch 2), each output row against its own largest
-entry, with a clamp probe (x zero at every other position of the clamped
-channels, where the clamp changes y by a factor of e or more) held apart;
-each fused forward must also fail that check against the plain version
-with the other clamp setting. The gradients' phase holds their autograd
-wrappers. The line before the last is the per-kernel JSON summary, the one
-before it the card's name and power limit; the last line is {"ok": true, ...}.
-Imports nothing of JAX or of bem_tpu.
+its clamped form, its backward) and selective_scan_fused (scans 1 and 2
+inputs) against their plain versions at the four VMamba-T stage shapes
+(batch 2), each output row against its own largest entry, with a clamp
+probe (x zero at every other position of the clamped channels, where the
+clamp changes y by a factor of e or more) held apart; each fused forward
+must also fail that check against the plain version with the other clamp
+setting (selective_scan_fused has no clamp: it must fail against the
+clamped function). The two microbenchmark kernels are held against their
+plain versions at every point of the tool's sweeps. The gradients' phase
+holds the autograd wrappers. The line before the last is the per-kernel
+JSON summary, the one before it the card's name and power limit; the last
+line is {"ok": true, ...}. Imports nothing of JAX or of bem_tpu.
 """
 
 from __future__ import annotations
@@ -69,6 +81,7 @@ from bem_tpu_torch.nn.ss2d import SS2D
 from bem_tpu_torch.enhancement.pipeline import build_pipeline, padded_size
 from bem_tpu_torch.models import build_model
 from bem_tpu_torch.options import lolv1_options
+from bem_tpu_torch.tools import microbench_vpu
 from bem_tpu_torch.train import synthetic_batch
 
 K = 16
@@ -77,11 +90,16 @@ H, W = 400, 600
 N_REQUESTS = 3
 N_TRAIN_STEPS = 5
 CLS_BATCH = 128
+# v052d trains at batch 8: its backward's unfolded composition would hold
+# several 19.7 GB tensors per stage-0 SS2D at batch 128
+SCAN_TRAIN_BATCH = 8
+SCAN_TRAIN_STEPS = 3
+T0 = time.perf_counter()
 IMAGENET_TRAIN = 1281167  # images per epoch of the harness's schedule
 
 
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - T0:.0f} s)", flush=True)
 
 
 def card_info() -> str:
@@ -311,25 +329,30 @@ def serve(card: str):
     return counts
 
 
-def _narrow_cls_config():
+def _narrow_cls_config(forward_type="v2"):
     c = get_config()
     v = c.MODEL.VSSM
     v.EMBED_DIM, v.DEPTHS, v.SSM_D_STATE = 16, [1, 1], 16
+    v.SSM_FORWARDTYPE = forward_type
     c.DATA.IMG_SIZE, c.MODEL.NUM_CLASSES, c.MODEL.DROP_PATH_RATE = 32, 10, 0.0
     return c
 
 
-def cls_reference_check():
+CLS_CORE = ("ss2d_dir_fused", "ss2d_dir_fused_g", "ss2d_dir_fused_bwd")
+
+
+def cls_reference_check(forward_type="v2", batches=(1, 2), kernels=CLS_CORE):
     """The narrow VSSM on the card vs the CPU, same weights and batch, at
-    B=1 (fused core) and B=2 (the clamped form): logits within 1e-4 of
-    their largest; two train steps (the warmup schedule's first lr is 0):
-    each loss within 1e-4 relative, every gradient leaf within 1e-3 of the
-    leaf's max, the params after the second within 1e-5 where both steps'
-    |g| > 1e-2 max|g| of the leaf, and elsewhere within 2 lr (1 + wd |p|),
-    the most two AdamW steps can differ by."""
-    c = _narrow_cls_config()
+    each batch size (v2: B=1 the fused core, B=2 its clamped form): logits
+    within 1e-4 of their largest; two train steps (the warmup schedule's
+    first lr is 0): each loss within 1e-4 relative, every gradient leaf
+    within 1e-3 of the leaf's max, the params after the second within 1e-5
+    where both steps' |g| > 1e-2 max|g| of the leaf, and elsewhere within
+    2 lr (1 + wd |p|), the most two AdamW steps can differ by. Each of
+    ``kernels`` must launch."""
+    c = _narrow_cls_config(forward_type)
     smoke.reset_launch_counts()
-    for B in (1, 2):
+    for B in batches:
         model = build_model_from_config(c, torch.Generator().manual_seed(5))
         with torch.no_grad():  # every third channel's dt bias +12: dt*A < -10
             for m in model.modules():
@@ -369,27 +392,59 @@ def cls_reference_check():
                 param_err = max(param_err, (moved[clear] / (1 + pc[k][clear].abs())).max().item())
             param_far = max(param_far, (moved - 2 * lr * (1 + 0.05 * p0[k].detach().abs())
                                         ).max().item())
-        print(f"classifier reference B={B} 32x32 fp32: logits err / max {logit_err:.2e} "
+        print(f"classifier {forward_type} reference B={B} 32x32 fp32: logits err / max "
+              f"{logit_err:.2e} "
               f"(tol 1e-4); losses card {sg} cpu {sc} (rel {loss_rel:.2e}, tol 1e-4); "
               f"grads max err / leaf max {grad_err:.2e} (tol 1e-3) over 2 x {len(gc[0])} "
               f"leaves; params after lr {lr:.1e}: max rel err {param_err:.2e} (tol 1e-5), "
               f"beyond two steps {max(param_far, 0.0):.2e} (tol 1e-6)", flush=True)
         if not (logit_err <= 1e-4 and loss_rel <= 1e-4 and grad_err <= 1e-3
                 and param_err <= 1e-5 and param_far <= 1e-6 and lr > 0):
-            raise AssertionError(f"classifier B={B} on the card disagrees with the CPU")
+            raise AssertionError(f"classifier {forward_type} B={B} on the card disagrees "
+                                 f"with the CPU")
     counts = smoke.launch_counts()
-    print(f"launches over the classifier reference checks: {counts}")
-    if counts["ss2d_dir_fused"] <= 0 or counts["ss2d_dir_fused_g"] <= 0 \
-            or counts["ss2d_dir_fused_bwd"] <= 0:
+    print(f"launches over the classifier {forward_type} reference checks: {counts}")
+    if min(counts[k] for k in kernels) <= 0:
         raise AssertionError(f"a classifier kernel never launched: {counts}")
     return counts
 
 
-def cls_train_phase(card: str):
-    """VMamba-T (the harness defaults) trained 1 + N steps at batch 128 on
-    seeded synthetic batches, with the 300-epoch schedule of an ImageNet
-    epoch at this batch."""
+def cls_logits_check(forward_type, B=2):
+    """The narrow VSSM's fp32 logits on the card vs the CPU (1e-4 of their
+    largest), every third channel's dt bias +12."""
+    model = build_model_from_config(_narrow_cls_config(forward_type),
+                                    torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, SS2D):
+                m.dt_projs_bias[:, ::3] = 12.0
+    images = torch.from_numpy(np.random.default_rng(8).random((B, 32, 32, 3), np.float32))
+    smoke.reset_launch_counts()
+    with torch.no_grad():
+        lg = copy.deepcopy(model).to("cuda")(images.to("cuda")).cpu()
+        lc = model(images)
+    counts = smoke.launch_counts()
+    err = (lg - lc).abs().max().item() / lc.abs().max().item()
+    print(f"classifier {forward_type} reference B={B} 32x32 fp32: logits err / max {err:.2e} "
+          f"(tol 1e-4); launches {counts}", flush=True)
+    if not err <= 1e-4 or counts["selective_scan_fused"] <= 0:
+        raise AssertionError(f"classifier {forward_type} on the card disagrees with the CPU")
+
+
+def _cls_config(forward_type, batch):
     c = get_config()
+    c.MODEL.VSSM.SSM_FORWARDTYPE = forward_type
+    c.DATA.BATCH_SIZE = batch or c.DATA.BATCH_SIZE
+    return c
+
+
+def cls_train_phase(card: str, forward_type="v2", batch=None, steps=N_TRAIN_STEPS,
+                    kernels=("ss2d_dir_fused", "ss2d_dir_fused_bwd")):
+    """VMamba-T (the harness defaults, ``forward_type``) trained 1 + steps
+    at ``batch`` (the config's 128 when None) on seeded synthetic batches,
+    with the 300-epoch schedule of an ImageNet epoch at this batch. Each of
+    ``kernels`` must launch."""
+    c = _cls_config(forward_type, batch)
     steps_per_epoch = -(-IMAGENET_TRAIN // c.DATA.BATCH_SIZE)
     torch.cuda.reset_peak_memory_stats()
     model = build_model_from_config(c, torch.Generator().manual_seed(c.SEED))
@@ -402,7 +457,7 @@ def cls_train_phase(card: str):
     gen = torch.Generator(device="cuda").manual_seed(1)
     smoke.reset_launch_counts()
     times = []
-    for i in range(1 + N_TRAIN_STEPS):
+    for i in range(1 + steps):
         images, labels = cls_batch(c, gen)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -410,7 +465,8 @@ def cls_train_phase(card: str):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         loss, gn, lr = float(loss), float(state.logs["grad_norm"]), state.logs["lr"]
-        print(f"VMamba-T step {i} ({'warm-up' if i == 0 else 'timed'}) {tuple(images.shape)}: "
+        print(f"VMamba-T {forward_type} step {i} ({'warm-up' if i == 0 else 'timed'}) "
+              f"{tuple(images.shape)}: "
               f"loss {loss:.6f} grad_norm {gn:.5f} lr {lr:.6e} {1e3 * dt:.1f} ms", flush=True)
         if not (np.isfinite(loss) and np.isfinite(gn)):
             raise AssertionError(f"VMamba-T step {i}: non-finite loss or grad norm")
@@ -424,25 +480,28 @@ def cls_train_phase(card: str):
     med = statistics.median(times)
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
     B, S = c.DATA.BATCH_SIZE, c.DATA.IMG_SIZE
-    print(f"VMamba-T train B={B} {S}x{S} fp32: median {1e3 * med:.1f} ms/step, "
+    print(f"VMamba-T {forward_type} train B={B} {S}x{S} fp32: median {1e3 * med:.1f} ms/step, "
           f"{B / med:.1f} images/s, peak memory {mem:.2f} GiB, "
           f"{moved}/{len(before)} params moved ({card})")
     counts = smoke.launch_counts()
-    print(f"VMamba-T launches per train step: {step_counts}; over the phase: {counts}")
-    if counts["ss2d_dir_fused"] <= 0 or counts["ss2d_dir_fused_bwd"] <= 0:
+    print(f"VMamba-T {forward_type} launches per train step: {step_counts}; "
+          f"over the phase: {counts}")
+    if min(counts[k] for k in kernels) <= 0:
         raise AssertionError(f"a kernel of the classifier's training path never launched: {counts}")
     del model, state
     torch.cuda.empty_cache()
     return counts
 
 
-def cls_throughput_phase(card: str):
-    """bf16 forward throughput of VMamba-T at batch 128 (the harness's
-    throughput(): 1 warm-up + 5 timed batches) and one forward's logits."""
-    c = get_config()
+def cls_throughput_phase(card: str, forward_type="v2", kernels=("ss2d_dir_fused",)):
+    """bf16 forward throughput of VMamba-T (``forward_type``) at batch 128
+    (the harness's throughput(): 1 warm-up + 5 timed batches) and one more
+    forward's logits, whose launches are those of one batch."""
+    c = _cls_config(forward_type, None)
     model = build_model_from_config(c, torch.Generator().manual_seed(c.SEED)).to("cuda")
     smoke.reset_launch_counts()
     ips = throughput(model, batch=CLS_BATCH, size=c.DATA.IMG_SIZE, iters=N_TRAIN_STEPS)
+    before = smoke.launch_counts()
     x = cls_batch(c, torch.Generator(device="cuda").manual_seed(2))[0].to(torch.bfloat16)
     with torch.no_grad():
         logits = model(x)
@@ -450,15 +509,30 @@ def cls_throughput_phase(card: str):
     if logits.shape != (CLS_BATCH, c.MODEL.NUM_CLASSES) or not torch.isfinite(logits.float()).all():
         raise AssertionError(f"VMamba-T throughput: bad logits {tuple(logits.shape)}")
     counts = smoke.launch_counts()
-    print(f"VMamba-T throughput B={CLS_BATCH} {c.DATA.IMG_SIZE}x{c.DATA.IMG_SIZE} bf16: "
-          f"{ips:.1f} images/s, "
+    per_batch = {k: v - before[k] for k, v in counts.items() if v - before[k]}
+    print(f"VMamba-T {forward_type} throughput B={CLS_BATCH} "
+          f"{c.DATA.IMG_SIZE}x{c.DATA.IMG_SIZE} bf16: {ips:.1f} images/s, "
           f"{1e3 * CLS_BATCH / ips:.1f} ms/batch ({card}); logits {logits.dtype} finite, "
           f"|max| {logits.float().abs().max().item():.4f}")
-    print(f"VMamba-T launches over the throughput phase: {counts}")
-    if counts["ss2d_dir_fused"] <= 0:
-        raise AssertionError(f"the fused core never launched in the throughput phase: {counts}")
+    print(f"VMamba-T {forward_type} launches per batch: {per_batch}; over the throughput "
+          f"phase: {counts}")
+    if min(counts[k] for k in kernels) <= 0:
+        raise AssertionError(f"a kernel never launched in the throughput phase: {counts}")
     del model
     torch.cuda.empty_cache()
+    return counts
+
+
+def microbench_phase():
+    """The tool's two sweeps, each line as it prints it; both kernels must launch."""
+    smoke.reset_launch_counts()
+    microbench_vpu.sweep()
+    microbench_vpu.sweep_modes()
+    counts = smoke.launch_counts()
+    print(f"launches over the microbenchmark sweeps: "
+          f"{ {k: counts[k] for k in smoke.MICROBENCH_KERNELS} }")
+    if min(counts[k] for k in smoke.MICROBENCH_KERNELS) <= 0:
+        raise AssertionError(f"a microbenchmark kernel never launched: {counts}")
     return counts
 
 
@@ -492,13 +566,27 @@ def main() -> int:
     cls_train_counts = cls_train_phase(card)
     phase("classifier throughput")
     cls_tp_counts = cls_throughput_phase(card)
+    phase("scan-pattern classifier reference checks")
+    cls_reference_check("v052d", (2,), ("selective_scan_fused", "linear_scan"))
+    cls_logits_check("v051d")
+    phase("scan-pattern classifier training")
+    scan_train_counts = cls_train_phase(card, "v052d", SCAN_TRAIN_BATCH, SCAN_TRAIN_STEPS,
+                                        ("selective_scan_fused", "linear_scan"))
+    phase("scan-pattern classifier throughput")
+    scan_tp_counts = cls_throughput_phase(card, "v052d", ("selective_scan_fused",))
+    phase("microbenchmarks")
+    mb_counts = microbench_phase()
     # each kernel's launches over the runs of its own paths: the BEM kernels
     # over the serving and training runs, the fused core and its backward
-    # over VMamba-T's, the clamped form over the narrow reference runs
+    # over VMamba-T's, the clamped form over the narrow reference runs,
+    # selective_scan_fused over VMamba-T v052d's, the microbenchmarks over
+    # their sweeps
     paths = {name: (train_counts, serve_counts) for name in smoke.BEM_KERNELS}
     paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts),
                  ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts),
-                 ss2d_dir_fused_g=(cls_ref_counts,))
+                 ss2d_dir_fused_g=(cls_ref_counts,),
+                 selective_scan_fused=(scan_train_counts, scan_tp_counts),
+                 vpu_scan_step=(mb_counts,), vpu_op_rounds=(mb_counts,))
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(c[name] for c in paths[name]), **summary[name])
                for name, (_, _, src, rep) in smoke.KERNELS.items()]

@@ -45,23 +45,26 @@ LR = 1e-3
 REPO = Path(__file__).resolve().parents[1]
 
 
-def _narrow(cfg):
+def _narrow(cfg, forward_type="v2"):
     v = cfg.MODEL.VSSM
     v.EMBED_DIM, v.DEPTHS, v.SSM_D_STATE, v.SSM_RATIO = 16, [1, 1], 4, 1.0
+    v.SSM_FORWARDTYPE = forward_type
     cfg.DATA.IMG_SIZE, cfg.MODEL.NUM_CLASSES, cfg.MODEL.DROP_PATH_RATE = 32, 10, 0.0
     return cfg
 
 
-@pytest.fixture(scope="module")
-def step_results():
+def run_train_step(forward_type="v2"):
+    """One train step and an eval of the narrow VSSM with ``forward_type``
+    on both sides, from the port's seeded weights."""
     rng = np.random.default_rng(0)
     images = rng.random((2, 32, 32, 3), np.float32)
     labels = np.array([3, 7])
-    model = build_model_from_config(_narrow(get_config()), torch.Generator().manual_seed(0))
+    model = build_model_from_config(_narrow(get_config(), forward_type),
+                                    torch.Generator().manual_seed(0))
     params = jax.tree_util.tree_map(jnp.asarray, state_dict_to_flax(model))
     p0 = {k: v.detach().clone() for k, v in model.named_parameters()}
 
-    jm = jax_build(_narrow(jax_get_config())).clone(scan_backend="pallas")
+    jm = jax_build(_narrow(jax_get_config(), forward_type)).clone(scan_backend="pallas")
     jstate, jstep, jeval = jax_make_trainer(jm, images[:1], total_steps=10, base_lr=LR,
                                             warmup_steps=2, seed=0)
     jstate = jstate.replace(params=params)
@@ -87,8 +90,12 @@ def step_results():
                 top=tuple(map(float, top)), lr=state.logs["lr"])
 
 
-def test_train_step_loss_and_gradients(step_results):
-    r = step_results
+@pytest.fixture(scope="module")
+def step_results():
+    return run_train_step("v2")
+
+
+def check_loss_and_gradients(r):
     assert r["grad_norm"] < 5.0  # below the clip: Adam's mu holds the raw gradient
     assert abs(r["loss"] - r["jloss"]) <= 1e-5 * abs(r["jloss"])
     assert r["grads"].keys() == r["jgrads"].keys()
@@ -97,8 +104,7 @@ def test_train_step_loss_and_gradients(step_results):
         assert err <= 1e-3 * max(np.abs(jg).max(), 1e-30), (k, err, np.abs(jg).max())
 
 
-def test_train_step_updates_params(step_results):
-    r = step_results
+def check_updates(r):
     lr = r["lr"]
     assert lr == pytest.approx(0.0)  # warmup from 0: the first update's lr is schedule(0)
     for k, jp in r["jparams"].items():
@@ -108,6 +114,14 @@ def test_train_step_updates_params(step_results):
         if clear.any():
             assert (moved[clear] / (1 + np.abs(jp[clear]))).max() <= 1e-6, k
         assert (moved <= 2 * LR * (1 + 1e-4 * np.abs(r["p0"][k])) + 1e-6).all(), k
+
+
+def test_train_step_loss_and_gradients(step_results):
+    check_loss_and_gradients(step_results)
+
+
+def test_train_step_updates_params(step_results):
+    check_updates(step_results)
 
 
 def test_eval_step_top1_top5(step_results):

@@ -83,3 +83,53 @@ def test_classifier_on_card_matches_cpu():
             out[dev] = (logits.detach().cpu(), g.cpu())
         for a, b in zip(out["cuda"], out["cpu"]):
             assert (a - b).abs().max() <= 1e-4 * b.abs().max(), (B, (a - b).abs().max())
+
+
+@pytest.mark.cuda
+def test_scan_fused_and_microbench_match_plain_on_card():
+    """selective_scan_fused (scans 1 and 2 inputs, fp32 and bf16, with the
+    clamp probe; it must fail against the clamped function) and the two
+    microbenchmark kernels vs their plain versions at tiny shapes, and
+    selective_scan_fused's autograd wrapper vs the plain composition."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    from bem_tpu_torch import smoke
+
+    for case in smoke.kernel_cases(small=True):
+        if case.name in smoke.SCAN_KERNELS + smoke.MICROBENCH_KERNELS:
+            err, tol = smoke.compare(case)
+            assert err <= tol, (case.name, case.label, case.dtype, err, tol)
+    for case in smoke._scan_fused_grad_cases("cuda"):
+        err, tol = smoke.compare_grads(case)
+        assert err <= tol, (case.name, case.label, err, tol)
+
+
+@pytest.mark.cuda
+def test_v052d_classifier_on_card_matches_cpu():
+    """A narrow VSSM with forward_type v052d (d_state 16) on the card vs
+    the CPU at B=2: logits and one loss gradient within 1e-4 of their
+    largest entries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    import copy
+
+    from bem_tpu_torch.classification import build_model_from_config, cross_entropy, get_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c = get_config()
+    v = c.MODEL.VSSM
+    v.EMBED_DIM, v.DEPTHS, v.SSM_FORWARDTYPE = 16, [1, 1], "v052d"
+    c.MODEL.NUM_CLASSES, c.MODEL.DROP_PATH_RATE = 10, 0.0
+    model = build_model_from_config(c, torch.Generator().manual_seed(0))
+    x = torch.rand((2, 32, 32, 3), generator=torch.Generator().manual_seed(3))
+    y = torch.arange(2)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        logits = m(x.to(dev))
+        w = m.layer0_block0.op.x_proj_weight
+        g, = torch.autograd.grad(cross_entropy(logits, y.to(dev)), [w])
+        out[dev] = (logits.detach().cpu(), g.cpu())
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max(), (a - b).abs().max()
