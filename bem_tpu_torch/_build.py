@@ -32,7 +32,8 @@ _L = ctypes.c_long
 _SIGNATURES = {
     "bem_stem_fused": [_P] * 8 + [_I] * 6 + [_P],
     "bem_gdmlp_fused": [_P] * 10 + [_I] * 8 + [_P],
-    "bem_ss2d_seq_dir": [_P] * 8 + [_I] * 7 + [_P],
+    "bem_ss2d_seq_sum": [_P] * 13 + [_I] * 6 + [_P],
+    "bem_ss2d_seq_full": [_P] * 13 + [_I] * 6 + [_P],
     "bem_ss2d_tail": [_P] * 8 + [_I] * 5 + [_P],
     "bem_ss2d_col_sum": [_P] * 13 + [_I] * 7 + [_P],
     "bem_ss2d_col_dir": [_P] * 9 + [_I] * 8 + [_P],
@@ -123,6 +124,8 @@ def load():
             fn.restype = ctypes.c_int
         lib.bem_error_string.argtypes = [ctypes.c_int]
         lib.bem_error_string.restype = ctypes.c_char_p
+        lib.bem_ss2d_seq_chunk.argtypes = [_I] * 3
+        lib.bem_ss2d_seq_chunk.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 

@@ -17,6 +17,8 @@ template <>
 struct IO<float> {
   static __device__ __forceinline__ float load(const float* p, long i) { return p[i]; }
   static __device__ __forceinline__ void store(float* p, long i, float v) { p[i] = v; }
+  // the value a store keeps
+  static __device__ __forceinline__ float round(float v) { return v; }
 };
 
 template <>
@@ -26,6 +28,9 @@ struct IO<__nv_bfloat16> {
   }
   static __device__ __forceinline__ void store(__nv_bfloat16* p, long i, float v) {
     p[i] = __float2bfloat16_rn(v);
+  }
+  static __device__ __forceinline__ float round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
   }
 };
 

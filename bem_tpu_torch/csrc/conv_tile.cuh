@@ -84,6 +84,47 @@ __device__ void project_tile(const float* xs, const float* w1s, const float* bia
   }
 }
 
+// The pixel-major bf16 form of load_tile_ln, for the tensor-core products:
+// xs[p * S + c] = x at halo pixel p, LN'd when lns != nullptr (the same fp32
+// stats as load_tile_ln), rounded to bf16; 0 at pixels outside the image,
+// at pixels NP..NPp-1 and at channels C..Kp-1 (the products' zero padding).
+// One thread per pixel; its channel loads are coalesced across the warp.
+template <typename T>
+__device__ void load_tile_ln_pm(const T* __restrict__ xb, const float* __restrict__ lns,
+                                const float* __restrict__ lnb, __nv_bfloat16* xs,
+                                const Tile& g, int C, int Kp, int S, int NPp, int H, int W,
+                                int r0, int c0) {
+  const long L = (long)H * W;
+  const float invc = 1.f / (float)C;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  for (int p = threadIdx.x; p < NPp; p += blockDim.x) {
+    __nv_bfloat16* row = xs + (long)p * S;
+    const int hy = p / g.WW, hx = p - hy * g.WW;
+    const int gy = r0 - 1 + hy, gx = c0 - 1 + hx;
+    int c0z = 0;
+    if (p < g.NP && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+      const T* xp = xb + (long)gy * W + gx;
+      if (lns == nullptr) {
+        for (int c = 0; c < C; ++c) row[c] = __float2bfloat16_rn(IO<T>::load(xp, c * L));
+      } else {
+        float s = 0.f;
+        for (int c = 0; c < C; ++c) s += IO<T>::load(xp, c * L);
+        const float m = s * invc;
+        float v = 0.f;
+        for (int c = 0; c < C; ++c) {
+          const float d = IO<T>::load(xp, c * L) - m;
+          v = fmaf(d, d, v);
+        }
+        const float inv = rsqrtf(v * invc + 1e-5f);
+        for (int c = 0; c < C; ++c)
+          row[c] = __float2bfloat16_rn((IO<T>::load(xp, c * L) - m) * inv * lns[c] + lnb[c]);
+      }
+      c0z = C;
+    }
+    for (int c = c0z; c < Kp; ++c) row[c] = zero;
+  }
+}
+
 // depthwise 3x3 of one hidden row at interior pixel (ty, tx), taps [dy][dx]
 __device__ __forceinline__ float dw3x3(const float* hrow, const float* taps, int ww, int ty,
                                        int tx) {

@@ -15,6 +15,11 @@ the image border only.
 bf16 rounding points follow the Pallas kernels as they run in interpret
 mode: the stem pre-rounds W1 to bf16 and does not round its LN output; the
 gdMlp rounds its LN output and the gate to bf16 and keeps W1/W2 in fp32.
+On the bf16 stream (C, Cout <= 256) the gdMlp's kernel runs both
+projections on the tensor cores with bf16 operands: it cuts each fp32
+weight into hi = bf16(W) and lo = bf16(W - hi) as it stages it, and
+multiplies by each into one fp32 accumulator, which keeps the weights to
+about 2^-17 relative.
 
 Both are differentiable: the backward recomputes through the jnp oracles'
 counterparts :func:`_stem_ref` and :func:`_gdmlp_ref`

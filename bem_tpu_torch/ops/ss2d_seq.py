@@ -5,10 +5,14 @@ directions of one sequence (row-major: cross2d directions 0/2; col-major,
 i.e. the transposed feature map: 1/3) with in-kernel dt/B/C projections
 and returns y_fwd + y_rev in the original positions. It is the ungrouped
 (G=1) form of bem_tpu/ops/ss2d_seq.py::ss2d_seq_pair_g; the TPU's
-sublane grouping has no counterpart here. Its CUDA kernel
-(``csrc/ss2d_seq.cu``) runs one direction per launch: the forward launch
-writes y_f in the stream dtype, the reverse launch adds it and applies
-the combined skip term (D_f + D_r) * x, as the Pallas pair does.
+sublane grouping has no counterpart here. On the card it runs as a
+chunked, parallel-in-L scan (``csrc/ss2d_seq.cu``): one summary pass over
+both directions writes every chunk's decay exp(sum of log-decays) and end
+state from 0, two :func:`..scan.linear_scan` over the chunks (forward for
+the forward direction, reverse for the reverse one) carry the state from
+chunk to chunk, and one full pass re-walks every chunk of both directions
+from its entry state and writes round(y_f) + y_r + (D_f + D_r) * x, with
+y_f rounded to the stream dtype first, as the Pallas pair does.
 
 ``ss2d_col_pair(xrow, Wx, Wdt, bias, A, D, y0, H, W)`` runs both column
 directions (1/3) on the ROW-major stream, as ss2d_col_pair_g does: one
@@ -115,14 +119,20 @@ def _seq_pair_run(xseq, Wx, Wdt, bias, A, D, pair):
     N = fwd[3].shape[-1]
     R = fwd[0].shape[0] - 2 * N
     bf16 = int(xseq.dtype == torch.bfloat16)
-    y_f = torch.empty_like(xseq)
+    nch = -(-L // _build.load().bem_ss2d_seq_chunk(C, R, N))
+    # per (image, chunk, channel * N + n): decay and end state, forward then reverse
+    a_f, b_f, a_r, b_r = (torch.empty((B, nch, C * N), dtype=torch.float32, device=xseq.device)
+                          for _ in range(4))
+    wts = [*map(ptr, fwd[:4]), *map(ptr, rev[:4])]
+    _build.call("bem_ss2d_seq_sum", ptr(xseq), *wts, ptr(a_f), ptr(b_f), ptr(a_r), ptr(b_r),
+                B, C, L, R, N, bf16)
+    ss2d_seq_pair.launches += 1
+    h_f = linear_scan(a_f, b_f, False)
+    h_r = linear_scan(a_r, b_r, True)
     y = torch.empty_like(xseq)
-    for (Wx_d, Wdt_d, b_d, A_d, D_d), yin, out, is_rev in (
-            (fwd, None, y_f, 0), (rev, y_f, y, 1)):
-        _build.call("bem_ss2d_seq_dir", ptr(xseq), ptr(Wx_d), ptr(Wdt_d),
-                    ptr(b_d), ptr(A_d), ptr(D_d), ptr(yin), ptr(out),
-                    B, C, L, R, N, is_rev, bf16)
-        ss2d_seq_pair.launches += 1
+    _build.call("bem_ss2d_seq_full", ptr(xseq), *wts, ptr(rev[4]), ptr(h_f), ptr(h_r), ptr(y),
+                B, C, L, R, N, bf16)
+    ss2d_seq_pair.launches += 1
     return y
 
 

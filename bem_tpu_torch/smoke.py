@@ -97,6 +97,12 @@ TRAIN_SHAPES = [
 ]
 SMALL_SHAPES = [("small 16x48 C16", 2, 16, 16, 48), ("small 12x20 C40", 1, 40, 12, 20),
                 ("small 2x2 C24", 2, 24, 2, 2)]
+# the IE stage of a serving request runs K * NIMG = 32 images at once: rows
+# 2 and 4 at that batch (bf16), their plain versions on slices of
+# PLAIN_SLICE images (the gdMlp's fp32 hidden map alone is 11.7 GB at B=32)
+SERVE_SHAPES = [("IE-L0 448x640 C40 B=32", 32, 40, 448, 640),
+                ("IE-L1 224x320 C80 B=32", 32, 80, 224, 320)]
+PLAIN_SLICE = 4
 # (label, B, d_inner, H, W, dt rank, d_state): the SS2D cores of the VMamba-T
 # classifier's four stages (dims 96 / 192 / 384 / 768, ssm_ratio 2) at
 # 224x224, two images each
@@ -150,6 +156,8 @@ class Case:
     # the fused forward: err / tol of the kernel against the plain version
     # with the other clamp setting (set by compare; must exceed 1)
     other_clamp: float | None = None
+    # > 0: the plain version runs on slices of this many images of args[0]
+    plain_slice: int = 0
 
     @property
     def fn(self) -> Callable:
@@ -157,7 +165,11 @@ class Case:
 
     @property
     def plain(self) -> Callable:
-        return KERNELS[self.name][1]
+        fn, n = KERNELS[self.name][1], self.plain_slice
+        if not n:
+            return fn
+        return lambda x, *rest: torch.cat([fn(x[i:i + n], *rest)
+                                           for i in range(0, x.shape[0], n)])
 
 
 def _uniform(rng, shape, bound):
@@ -227,13 +239,96 @@ def _cases_for(label, B, C, H, W, dtype, device, seed):
     cases.append(Case("ss2d_tail_cf", label, dtype, (
         s(y0), s(rng.standard_normal((B, C, L))), t(lns), t(lnb),
         t(_uniform(rng, (C, C), C ** -0.5)), None, s(rng.standard_normal((B, C, L))))))
+    cases.append(_gdmlp_case(label, dtype, rng, t, s(x), H, W, lns, lnb))
+    return cases
+
+
+def _gdmlp_case(label, dtype, rng, t, x, H, W, lns, lnb):
+    """The gdMlp block branch (mlp_ratio 4, residual) on stream x (B, C, H*W)."""
+    C = x.shape[1]
     h = 4 * C
-    cases.append(Case("gdmlp_fused_cf", label, dtype, (
-        s(x), t(_uniform(rng, (2 * h, C), C ** -0.5)), t(_uniform(rng, 2 * h, C ** -0.5)),
+    return Case("gdmlp_fused_cf", label, dtype, (
+        x, t(_uniform(rng, (2 * h, C), C ** -0.5)), t(_uniform(rng, 2 * h, C ** -0.5)),
         t(_uniform(rng, (2 * h, 9), 1 / 3)), t(_uniform(rng, 2 * h, 1 / 3)),
         t(_uniform(rng, (C, h), h ** -0.5)), t(_uniform(rng, C, h ** -0.5)), H, W,
-        t(lns), t(lnb), True)))
+        t(lns), t(lnb), True))
+
+
+def _serve_batch_cases(label, B, C, H, W, device, seed):
+    """Rows 2 (the row pair, and the clamp-hitting column pair on the same
+    stream) and 4 at the serving batch, bf16, each plain version on slices
+    of PLAIN_SLICE images."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    s = lambda a: t(a).to(torch.bfloat16)  # noqa: E731
+    x = rng.standard_normal((B, C, H * W), dtype=np.float32)
+    xs = s(x / (1.0 + np.exp(-x)))
+    lns = 1.0 + 0.1 * rng.standard_normal(C)
+    lnb = 0.1 * rng.standard_normal(C)
+    cases = [Case("ss2d_seq_pair", label, torch.bfloat16, (xs, *_scan_weights(rng, C, t), "row")),
+             Case("ss2d_seq_pair", label + " clamp", torch.bfloat16,
+                  (xs, *_scan_weights(rng, C, t, clamp=True), "col")),
+             _gdmlp_case(label, torch.bfloat16, rng, t, s(x), H, W, lns, lnb)]
+    for c in cases:
+        c.plain_slice = PLAIN_SLICE
     return cases
+
+
+def edge_cases(device="cuda", seed=800):
+    """Rows 2 and 4 where their tiling has edges, fp32 and bf16: the row
+    pair (and the clamp-hitting column pair) at L a multiple of the chunk,
+    not a multiple, shorter than one chunk, N = 1 / 2 / 4, C up to 160,
+    and C = 288, where the kernel halves its chunk;
+    the gdMlp at widths and image sizes that are no multiple of its tiles
+    (C, Cout not multiples of 16, H, W not of the tile), Cout != C, C above
+    the tensor-core form's 256 (bf16 then runs the CUDA-core form), and
+    the case only the weights' bf16 lo halves carry (_lo_carried_gdmlp)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    out = []
+    for B, C, L, N in ((2, 40, 1120, 1), (1, 40, 4, 1), (2, 24, 64, 2), (2, 24, 257, 4),
+                       (1, 16, 763, 2), (2, 160, 700, 1), (1, 288, 300, 1)):
+        for pair, clamp in (("row", False), ("col", True)):
+            w = _scan_weights(rng, C, t, clamp=clamp)
+            if N > 1:
+                w[0] = t(_uniform(rng, (4, w[0].shape[1] + 2 * (N - 1), C), 0.3))
+                w[3] = t(-np.exp(rng.standard_normal((4, C, N)) * 0.3))
+            x = rng.standard_normal((B, C, L)).astype(np.float32)
+            for dtype in (torch.float32, torch.bfloat16):
+                out.append(Case("ss2d_seq_pair", f"B{B} C{C} L{L} N{N} {pair}", dtype,
+                                (t(x / (1 + np.exp(-x))).to(dtype), *w, pair)))
+    for B, C, H, W, Cout in ((2, 40, 13, 37, 40), (1, 24, 5, 70, 24), (2, 80, 9, 33, 80),
+                             (1, 160, 6, 40, 160), (1, 48, 7, 20, 56), (1, 288, 5, 21, 288)):
+        h = 4 * C
+        x = rng.standard_normal((B, C, H * W))
+        wts = (t(_uniform(rng, (2 * h, C), C ** -0.5)), t(_uniform(rng, 2 * h, 0.1)),
+               t(_uniform(rng, (2 * h, 9), 1 / 3)), t(_uniform(rng, 2 * h, 0.3)),
+               t(_uniform(rng, (Cout, h), h ** -0.5)), t(_uniform(rng, Cout, 0.1)), H, W,
+               t(1 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C)), Cout == C)
+        for dtype in (torch.float32, torch.bfloat16):
+            out.append(Case("gdmlp_fused_cf", f"B{B} C{C} {H}x{W} Cout{Cout}", dtype,
+                            (t(x).to(dtype), *wts)))
+    out.append(Case("gdmlp_fused_cf", "lo-carried C32 9x20", torch.bfloat16,
+                    _lo_carried_gdmlp(rng, t)))
+    return out
+
+
+def _lo_carried_gdmlp(rng, t, B=1, C=32, H=9, W=20):
+    """gdMlp arguments (bf16, no LN, biases or residual) whose output only
+    the bf16 lo halves of W1 and W2 carry: x's channels c and c + C/2 are
+    equal, every W1 row is 1 + 2^-10 on the first C/2 channels and -1 on
+    the rest, so W1 . x = 2^-10 (sum of the first half); every hidden
+    channel is then equal, and every W2 row is 1 + 2^-10 on the first h/2
+    and -1 on the rest, so the output is 2^-10 (h/2) gate. bf16(1 + 2^-10)
+    is 1: with the hi halves alone both products, and the output, are 0.
+    x is scaled by 2^11 so that the output is of order 1 and more: compare
+    holds it to TOL times max(1, its largest entry), which a 0 then misses."""
+    h = 4 * C
+    half = 2.0 ** 11 * rng.standard_normal((B, C // 2, H * W)).astype(np.float32)
+    x = t(np.concatenate([half, half], 1)).to(torch.bfloat16)
+    row = lambda n: np.repeat(np.float32([1 + 2.0 ** -10, -1]), n // 2)  # noqa: E731
+    return (x, t(np.tile(row(C), (2 * h, 1))), None, t(np.tile(_uniform(rng, 9, 1 / 3), (2 * h, 1))),
+            None, t(np.tile(row(h), (C, 1))), None, H, W, None, None, False)
 
 
 def _scan_bwd_cases(label, B, C, H, W, device, seed):
@@ -349,8 +444,8 @@ def _microbench_cases(small, device):
 
 def kernel_cases(small: bool = False, device="cuda"):
     """Every kernel at every serving, training and classifier shape, fp32 and
-    bf16, and the microbenchmarks at the tool's shapes; or at tiny shapes
-    (``small``)."""
+    bf16, rows 2 and 4 at the serving batch (bf16), and the microbenchmarks
+    at the tool's shapes; or at tiny shapes (``small``)."""
     shapes = SMALL_SHAPES if small else PATH_SHAPES + TRAIN_SHAPES
     out = []
     for i, (label, B, C, H, W) in enumerate(shapes):
@@ -358,6 +453,9 @@ def kernel_cases(small: bool = False, device="cuda"):
             out += _cases_for(label, B, C, H, W, dtype, device, seed=i)
         if label.startswith("train IE") or small:
             out += _scan_bwd_cases(label, B, C, H, W, device, seed=100 + i)
+    if not small:
+        for i, shape in enumerate(SERVE_SHAPES):
+            out += _serve_batch_cases(*shape, device, seed=700 + i)
     for i, shape in enumerate(SMALL_CLS_SHAPES if small else CLS_SHAPES):
         out += _cls_cases(*shape, device, seed=300 + i)
         out += _scan_fused_cases(*shape, device, seed=500 + 4 * i)
@@ -394,9 +492,9 @@ def row_scaled(out, ref, rel, probe=None):
 
 @torch.inference_mode()
 def compare(case: Case):
-    """(max abs error of the kernel vs its plain version, the tolerance).
-    The fused forward must also fail the same check against the plain
-    version with the other clamp setting (its err / tol lands in
+    """(max abs error of the kernel vs its plain version, the tolerance). The
+    fused forward must also fail the same check against the plain version
+    with the other clamp setting (its err / tol lands in
     ``case.other_clamp``), or the check could not see the clamp flag."""
     outs = _outputs(case.fn(*case.args))
     refs = _outputs(case.plain(*case.args))

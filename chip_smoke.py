@@ -12,8 +12,13 @@ result line):
   3. each of the seven kernels vs its plain PyTorch version on the card,
      at the serving path's and the training path's shapes, fp32 and bf16
      (the scans also on clamp-hitting inputs; linear_scan also at the
-     scan pairs' backward shapes): max abs error beside its tolerance,
-     and both versions' times;
+     scan pairs' backward shapes), and the row pair and the gdMlp at the
+     serving batch (B=32, IE-L0 and IE-L1, bf16, the plain versions on
+     slices of 4 images): max abs error beside its tolerance, and both
+     versions' times; then the row pair and the gdMlp at the edges of
+     their tiles (smoke.edge_cases: chunk and tile remainders, the gdMlp's
+     CUDA-core form on bf16 above C = 256, and a case that only the bf16
+     lo halves of its split weights carry), checked only;
   4. gradients: each autograd wrapper of the VSSBlock (stem, gdMlp, tail,
      row pair, column pair) and linear_scan on the card vs its plain
      composition, at the training shapes, fp32;
@@ -141,11 +146,26 @@ def compare_kernels():
             summary[case.name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound, bound_by=by, library_ms=None)
             print(f"  headline {case.name}: bound {bound:.4f} ms ({by})")
+        elif case.plain_slice:  # the serving batch: its bound beside its time
+            bound, by = smoke.bound_ms(case)
+            print(f"  serving batch {case.name} {case.label}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
         torch.cuda.empty_cache()
     missing = set(smoke.KERNELS) - set(summary)
     if missing:
         raise AssertionError(f"no headline case for {sorted(missing)}")
     return summary
+
+
+def compare_edges():
+    for case in smoke.edge_cases():
+        err, tol = smoke.compare(case)
+        dt = str(case.dtype).replace("torch.", "")
+        ok = err <= tol
+        print(f"{case.name:15s} {case.label:34s} {dt:8s} max_abs_err {err:.3e} "
+              f"tol {tol:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"{case.name} {case.label} {dt}: {err} > {tol}")
 
 
 def compare_gradients():
@@ -551,6 +571,8 @@ def main() -> int:
     build_kernels()
     phase("kernels vs plain versions")
     summary = compare_kernels()
+    phase("kernel edge cases vs plain versions")
+    compare_edges()
     phase("gradients vs plain compositions")
     compare_gradients()
     phase("reference checks")

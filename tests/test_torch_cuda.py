@@ -133,3 +133,18 @@ def test_v052d_classifier_on_card_matches_cpu():
         out[dev] = (logits.detach().cpu(), g.cpu())
     for a, b in zip(out["cuda"], out["cpu"]):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max(), (a - b).abs().max()
+
+
+@pytest.mark.cuda
+def test_chunked_row_pair_and_tensor_core_gdmlp_edges_on_card():
+    """The chunked row pair and the gdMlp's forms (tensor cores on bf16 up
+    to C = 256, the CUDA cores on fp32 and wider bf16) vs their plain
+    versions where their tiles have edges, and on the case only the
+    weights' bf16 lo halves carry (smoke.edge_cases), at smoke.TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    from bem_tpu_torch import smoke
+
+    for case in smoke.edge_cases():
+        err, tol = smoke.compare(case)
+        assert err <= tol, (case.name, case.label, case.dtype, err, tol)
