@@ -35,11 +35,12 @@ _SIGNATURES = {
     "bem_ss2d_seq_sum": [_P] * 13 + [_I] * 6 + [_P],
     "bem_ss2d_seq_full": [_P] * 13 + [_I] * 6 + [_P],
     "bem_ss2d_tail": [_P] * 8 + [_I] * 5 + [_P],
-    "bem_ss2d_col_sum": [_P] * 13 + [_I] * 7 + [_P],
-    "bem_ss2d_col_dir": [_P] * 9 + [_I] * 8 + [_P],
+    "bem_ss2d_col_sum": [_P] * 13 + [_I] * 8 + [_P],
+    "bem_ss2d_col_full": [_P] * 14 + [_I] * 8 + [_P],
     "bem_linear_scan": [_P] * 5 + [_I] * 5 + [_P],
     "bem_ss2d_fused_fwd": [_P] * 9 + [_I] * 7 + [_P],
-    "bem_ss2d_fused_bwd": [_P] * 19 + [_I] * 5 + [_P],
+    "bem_ss2d_fused_bwd_sum": [_P] * 9 + [_I] * 5 + [_P],
+    "bem_ss2d_fused_bwd": [_P] * 21 + [_I] * 5 + [_P],
     "bem_selective_scan_fused": [_P] * 8 + [_I] * 7 + [_P],
     "bem_vpu_scan_step": [_P] * 2 + [_L] + [_I] * 2 + [_P],
     "bem_vpu_op_rounds": [_P] * 2 + [_L] + [_I] * 2 + [_P],
@@ -126,6 +127,10 @@ def load():
         lib.bem_error_string.restype = ctypes.c_char_p
         lib.bem_ss2d_seq_chunk.argtypes = [_I] * 3
         lib.bem_ss2d_seq_chunk.restype = ctypes.c_int
+        lib.bem_ss2d_col_chunk.argtypes = [_I] * 4
+        lib.bem_ss2d_col_chunk.restype = ctypes.c_int
+        lib.bem_ss2d_fused_bwd_cb.argtypes = [_I]
+        lib.bem_ss2d_fused_bwd_cb.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 

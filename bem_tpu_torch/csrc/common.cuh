@@ -19,6 +19,9 @@ struct IO<float> {
   static __device__ __forceinline__ void store(float* p, long i, float v) { p[i] = v; }
   // the value a store keeps
   static __device__ __forceinline__ float round(float v) { return v; }
+  // a value held in the stream dtype (shared-memory tiles)
+  static __device__ __forceinline__ float from(float v) { return v; }
+  static __device__ __forceinline__ float to(float v) { return v; }
 };
 
 template <>
@@ -32,6 +35,8 @@ struct IO<__nv_bfloat16> {
   static __device__ __forceinline__ float round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
+  static __device__ __forceinline__ float from(__nv_bfloat16 v) { return __bfloat162float(v); }
+  static __device__ __forceinline__ __nv_bfloat16 to(float v) { return __float2bfloat16_rn(v); }
 };
 
 // round-to-nearest-even to bf16 and back: the value a bf16 cast keeps

@@ -3,65 +3,117 @@
 // computed in-kernel as in ss2d_seq.cu:
 //   xdbl = Wx . x,  dt = softplus(Wdt . xdbl[:R] + bias)
 //   w_n  = max(dt * A_n, -10),  a_n = exp(w_n),  b_n = dt * x * B_n
-// The flattened column-major sequence carries its state from the end of one
-// column into the next, so the pair runs as three kernel passes and two
-// small scans (bem_tpu/ops/ss2d_seq.py::ss2d_col_pair_g):
-//   col_sum  one top-down walk of every column computes, for BOTH
-//            directions, the column's end state from 0 and its total
-//            log-decay: forward (dir 1, top-down) h = a*h + b, ending at
-//            the bottom; reverse (dir 3, bottom-up) its top end state as the
-//            prefix-product sum acc += P*b, P *= a of the same walk;
-//   (linear_scan over the W columns turns these into entry states;)
-//   col_dir  one direction's full walk from the entry states, writing
-//            y = sum_n C_n h_n [+ D x] [+ yin] in the stream dtype.
+// Direction 1 walks the flattened column-major sequence top-down, column by
+// column, carrying its state from the bottom of column w into the top of
+// column w+1; direction 3 walks the same sequence backwards. The pair
+// returns round(y_r + round(y_f + (D_f + D_r) x + y0)) in the stream dtype,
+// the rounding points of bem_tpu/ops/ss2d_seq.py::ss2d_col_pair_g (D2 =
+// D.at[d_f].add(D[d_r]) at :569; its first pass stores y_f + D2 x + y0,
+// the second adds y_r to that stored value, :577-580).
 //
-// Replaces bem_tpu/ops/ss2d_seq.py::_run_col_sum (Pallas body _col_sum_body)
-// and ::_run_col_dir (body _col_body). Bound: bytes at the wide levels (one
-// read of x, one write of y, the yin read) and otherwise the per-pixel
-// projection arithmetic. The Pallas grid walked th-row slabs in order with
-// the column state in scratch; here every (image, channel, column) is an
-// independent recurrence of only H steps, so a block takes 32 columns of
-// one image and a slice of its channels, one thread per (channel, column)
-// holding the state in registers. Each tile of rows is staged in shared
-// memory with all C channels (the projection needs them); the block
-// computes the tile's projection rows in parallel, then every thread walks
-// the tile's rows for its (channel, column). Loads and stores run along
-// the columns, so they are coalesced. A block of a channel slice
-// recomputes the projection for its own use, which keeps blocks independent.
+// Replaces bem_tpu/ops/ss2d_seq.py::_run_col_sum (Pallas body
+// _col_sum_body) and ::_run_col_dir (body _col_body, launched once per
+// direction). The Pallas grid walked th-row slabs in order with the column
+// state in scratch. Here each column is cut into chunks of T rows and the
+// pair runs as a chunked, parallel-in-H scan, the pattern of ss2d_seq.cu:
+//   col_sum_kernel   (row 5) one top-down walk of every column computes,
+//                    for BOTH directions and every chunk, the chunk's decay
+//                    exp(sum of clamped log-decays) and its end state from
+//                    0: forward, the state at the chunk's bottom row;
+//                    reverse (bottom-up), its state at the chunk's top row,
+//                    evaluated in the same top-down walk as the prefix sum
+//                    acc += P b, P *= a. Its grid and walk are unchanged: a
+//                    block takes 32 columns and a slice of the channels,
+//                    one thread per (channel, column), rows staged 8 at a
+//                    time; it restarts at every chunk's first row.
+//   linear_scan      (scan.cu, launched by ops/ss2d_seq.py) over the
+//                    column-major sequence of chunks, index w * nch + k,
+//                    forward for direction 1 and reverse for 3: it joins the
+//                    cross-column carry and the cross-chunk carry, giving
+//                    every chunk's inclusive state.
+//   col_full_kernel  (row 6) one block per (16 columns, chunk, image) with
+//                    ALL C channels: it stages the chunk's x tile once (in
+//                    the stream dtype) and both directions' projection rows
+//                    once, so no channel slice recomputes them; each thread
+//                    takes ceil(C / 64) channels of one column and walks
+//                    direction 1 top-down from its entry state (the
+//                    inclusive state of chunk j - 1), keeping
+//                    round(y_f + Dsum x + y0) in shared memory in the
+//                    stream dtype (the rounding point itself), then
+//                    direction 3 bottom-up from chunk j + 1's state, and
+//                    stores round(y_r + that) once.
+// Bound: bytes (one read of x in each pass, the y0 read, the y write; the
+// chunk summaries add 10 floats per chunk and (column, channel, state)).
+// What holds the passes above it is the per-pixel arithmetic: the
+// projection (2 P C FMAs a pixel, once) and, per channel and direction,
+// dt's softplus and N exps.
+//
+// The chunk length T is kColChunk = 32, halved (col_chunk) while the full
+// pass's shared memory exceeds kColSmem; bem_ss2d_col_chunk gives it to
+// the caller, which sizes the summaries by it and passes it to both passes.
 #include "common.cuh"
 
 namespace bem {
 
 constexpr float kColClamp = -10.f;
-constexpr int kColTW = 32;         // columns per block: threadIdx.x
-constexpr int kColMaxChan = 32;    // channels per block at most: threadIdx.y
+constexpr int kColTW = 32;         // col_sum: columns per block (threadIdx.x)
+constexpr int kColMaxChan = 32;    // col_sum: channels per block at most (threadIdx.y)
 constexpr size_t kColSmem = 110 * 1024;  // two blocks fit on an SM
+constexpr int kColChunk = 32;      // rows per chunk, before halving
+constexpr int kFullTW = 16;        // col_full: columns per block (threadIdx.x)
+constexpr int kFullMaxTY = 64;     // col_full: threads per column at most
 
-// channels per block: C split into ceil(C / 32) near-equal slices
+// channels per col_sum block: C split into ceil(C / 32) near-equal slices
 inline int col_chan_block(int C) {
   const int nct = (C + kColMaxChan - 1) / kColMaxChan;
   return (C + nct - 1) / nct;
 }
 
-// floats of shared memory: x tile (C, TH*TW), projection rows
-// (ndir*Q, TH*TW), Wx rows (ndir*Q, C), the block's Wdt rows (ndir, CB, R)
-inline size_t col_smem_floats(int C, int TH, int ndir, int Q, int CB, int R) {
-  return (size_t)C * TH * kColTW + (size_t)ndir * Q * TH * kColTW + (size_t)ndir * Q * C +
-         (size_t)ndir * CB * R;
+// floats of col_sum's shared memory: x tile (C, TH*TW), projection rows
+// (2Q, TH*TW), Wx rows (2Q, C), the block's Wdt rows (2, CB, R)
+inline size_t col_smem_floats(int C, int TH, int Q, int CB, int R) {
+  return (size_t)C * TH * kColTW + (size_t)2 * Q * TH * kColTW + (size_t)2 * Q * C +
+         (size_t)2 * CB * R;
 }
 
-inline int col_rows(int C, int ndir, int Q, int CB, int R) {
+inline int col_rows(int C, int Q, int CB, int R) {
   int TH = 8;
-  while (TH > 1 && col_smem_floats(C, TH, ndir, Q, CB, R) * sizeof(float) > kColSmem) TH /= 2;
+  while (TH > 1 && col_smem_floats(C, TH, Q, CB, R) * sizeof(float) > kColSmem) TH /= 2;
   return TH;
 }
 
+// col_full: threads per column, each taking ceil(C / kFullMaxTY) channels
+inline int full_threads_y(int C) {
+  const int per = (C + kFullMaxTY - 1) / kFullMaxTY;
+  return (C + per - 1) / per;
+}
+
+// the Wdt rows' stride in shared memory: odd, so the two channels of a
+// warp read distinct banks
+__host__ __device__ inline int full_rstride(int R) { return R | 1; }
+
+// bytes of col_full's shared memory at T rows: the x tile and the stored
+// first rounding point, each (C, T*TW + TW) in the stream dtype (the pad
+// puts a warp's two channels on distinct banks), both directions'
+// projection rows (2P, T*TW), their Wx rows (2P, C) and Wdt rows (2, C, Rs)
+inline size_t full_smem_bytes(int C, int T, int R, int N, size_t es) {
+  const size_t P = R + 2 * N;
+  return 2 * (size_t)C * (T + 1) * kFullTW * es +
+         sizeof(float) * (2 * P * T * kFullTW + 2 * P * C + (size_t)2 * C * full_rstride(R));
+}
+
+inline int col_chunk(int C, int R, int N, size_t es) {
+  int T = kColChunk;
+  while (T > 1 && full_smem_bytes(C, T, R, N, es) > kColSmem) T /= 2;
+  return T;
+}
+
 // Stage rows [h0, h0+nt) x columns [w0, w0+32) of every channel of one
-// image, then the ndir*Q projection rows xd[q][pix] = Wx_q . x[:, pix].
+// image, then the 2Q projection rows xd[q][pix] = Wx_q . x[:, pix].
 template <typename T>
 __device__ __forceinline__ void col_stage(const T* __restrict__ xb, float* xs, float* xd,
-                                          const float* wx, int C, int H, int W, int h0,
-                                          int nt, int w0, int TH, int nq, long L) {
+                                          const float* wx, int C, int W, int h0, int nt,
+                                          int w0, int TH, int nq, long L) {
   const int tid = threadIdx.y * kColTW + threadIdx.x;
   const int nth = kColTW * blockDim.y;
   const int tile = TH * kColTW;
@@ -81,15 +133,18 @@ __device__ __forceinline__ void col_stage(const T* __restrict__ xb, float* xs, f
   __syncthreads();
 }
 
+struct ColDir {
+  const float *Wx, *Wdt, *bias, *A;
+};
+
+// Summaries per chunk of T rows, (B, W*nch, C*N) fp32 at
+// [b][w*nch + k][c*N + n]: af / ar the chunk's decay, bf / br its end
+// state from 0 (forward: at the chunk's bottom row; reverse: at its top).
 template <typename T, int N>
 __global__ void __launch_bounds__(kColTW * kColMaxChan)
-col_sum_kernel(const T* __restrict__ x, const float* __restrict__ Wxf,
-               const float* __restrict__ Wdtf, const float* __restrict__ biasf,
-               const float* __restrict__ Af, const float* __restrict__ Wxr,
-               const float* __restrict__ Wdtr, const float* __restrict__ biasr,
-               const float* __restrict__ Ar, float* __restrict__ sendf,
-               float* __restrict__ stotf, float* __restrict__ sendr,
-               float* __restrict__ stotr, int C, int H, int W, int R, int CB, int TH) {
+col_sum_kernel(const T* __restrict__ x, ColDir f, ColDir r, float* __restrict__ af,
+               float* __restrict__ bf, float* __restrict__ ar, float* __restrict__ br, int C,
+               int H, int W, int R, int CB, int TH, int TC, int nch) {
   extern __shared__ float smem[];
   const int Q = R + N;  // dt-rank and B rows: the summary needs no C rows
   const int tile = TH * kColTW;
@@ -107,19 +162,19 @@ col_sum_kernel(const T* __restrict__ x, const float* __restrict__ Wxf,
 
   for (int i = tid; i < 2 * Q * C; i += nth) {
     const int dir = i / (Q * C), j = i - dir * Q * C;
-    wx[i] = (dir ? Wxr : Wxf)[j];
+    wx[i] = (dir ? r.Wx : f.Wx)[j];
   }
   for (int i = tid; i < 2 * CB * R; i += nth) {
     const int dir = i / (CB * R), j = i - dir * CB * R;
     const int ch = c0 + j / R;
-    wdt[i] = ch < C ? (dir ? Wdtr : Wdtf)[(long)c0 * R + j] : 0.f;
+    wdt[i] = ch < C ? (dir ? r.Wdt : f.Wdt)[(long)c0 * R + j] : 0.f;
   }
-  float bf = 0.f, br = 0.f, af[N], ar[N];
+  float bfv = 0.f, brv = 0.f, afn[N], arn[N];
   float hf[N], swf[N], pr[N], acc[N], swr[N];
 #pragma unroll
   for (int n = 0; n < N; ++n) {
-    af[n] = active ? Af[c * N + n] : 0.f;
-    ar[n] = active ? Ar[c * N + n] : 0.f;
+    afn[n] = active ? f.A[c * N + n] : 0.f;
+    arn[n] = active ? r.A[c * N + n] : 0.f;
     hf[n] = 0.f;
     swf[n] = 0.f;
     pr[n] = 1.f;
@@ -127,204 +182,262 @@ col_sum_kernel(const T* __restrict__ x, const float* __restrict__ Wxf,
     swr[n] = 0.f;
   }
   if (active) {
-    bf = biasf[c];
-    br = biasr[c];
+    bfv = f.bias[c];
+    brv = r.bias[c];
   }
   const float* wdf = wdt + ty * R;
   const float* wdr = wdt + (CB + ty) * R;
+  const long CN = (long)C * N;
+  const long obase = ((long)b * W + w) * nch * CN + (long)c * N;
 
   for (int h0 = 0; h0 < H; h0 += TH) {
     const int nt = min(TH, H - h0);
     __syncthreads();  // the previous tile's readers are done
-    col_stage<T>(xb, xs, xd, wx, C, H, W, h0, nt, w0, TH, 2 * Q, L);
+    col_stage<T>(xb, xs, xd, wx, C, W, h0, nt, w0, TH, 2 * Q, L);
     if (!active) continue;
     for (int t = 0; t < nt; ++t) {
       const int pix = t * kColTW + tx;
       const float xv = xs[c * tile + pix];
       float sf = 0.f, sr = 0.f;
-      for (int r = 0; r < R; ++r) {
-        sf = fmaf(wdf[r], xd[r * tile + pix], sf);
-        sr = fmaf(wdr[r], xd[(Q + r) * tile + pix], sr);
+      for (int k = 0; k < R; ++k) {
+        sf = fmaf(wdf[k], xd[k * tile + pix], sf);
+        sr = fmaf(wdr[k], xd[(Q + k) * tile + pix], sr);
       }
-      const float dtf = softplus(sf + bf), dtr = softplus(sr + br);
+      const float dtf = softplus(sf + bfv), dtr = softplus(sr + brv);
       const float duf = dtf * xv, dur = dtr * xv;
 #pragma unroll
       for (int n = 0; n < N; ++n) {
-        const float wf = fmaxf(dtf * af[n], kColClamp);
+        const float wf = fmaxf(dtf * afn[n], kColClamp);
         hf[n] = fmaf(expf(wf), hf[n], duf * xd[(R + n) * tile + pix]);
         swf[n] += wf;
-        const float wr = fmaxf(dtr * ar[n], kColClamp);
+        const float wr = fmaxf(dtr * arn[n], kColClamp);
         acc[n] = fmaf(pr[n], dur * xd[(Q + R + n) * tile + pix], acc[n]);
         pr[n] *= expf(wr);
         swr[n] += wr;
       }
-    }
-  }
-  if (!active) return;
+      const int row = h0 + t;
+      if ((row + 1) % TC == 0 || row + 1 == H) {  // the chunk's last row
+        const long o = obase + (long)(row / TC) * CN;
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    const long j = ((long)b * C + c) * N * W + (long)n * W + w;
-    sendf[j] = hf[n];
-    stotf[j] = swf[n];
-    sendr[j] = acc[n];
-    stotr[j] = swr[n];
+        for (int n = 0; n < N; ++n) {
+          af[o + n] = expf(swf[n]);
+          bf[o + n] = hf[n];
+          ar[o + n] = expf(swr[n]);
+          br[o + n] = acc[n];
+          hf[n] = swf[n] = acc[n] = swr[n] = 0.f;
+          pr[n] = 1.f;
+        }
+      }
+    }
   }
 }
 
+// One chunk of TC rows x 16 columns of one image, both directions, all
+// channels (see the header); hf / hr the carry's inclusive chunk states in
+// the summaries' layout, y0 may be null.
 template <typename T, int N>
-__global__ void __launch_bounds__(kColTW * kColMaxChan)
-col_dir_kernel(const T* __restrict__ x, const float* __restrict__ Wx,
-               const float* __restrict__ Wdt, const float* __restrict__ bias,
-               const float* __restrict__ A, const float* __restrict__ D,
-               const float* __restrict__ sinit, const T* __restrict__ yin,
-               T* __restrict__ y, int C, int H, int W, int R, int CB, int TH, int rev) {
+__global__ void __launch_bounds__(kFullTW * kFullMaxTY)
+col_full_kernel(const T* __restrict__ x, ColDir f, ColDir r, const float* __restrict__ Dsum,
+                const float* __restrict__ hf, const float* __restrict__ hr,
+                const T* __restrict__ y0, T* __restrict__ y, int C, int H, int W, int R,
+                int TC, int nch) {
   extern __shared__ float smem[];
-  const int P = R + 2 * N;
-  const int tile = TH * kColTW;
-  float* xs = smem;            // (C, tile)
-  float* xd = xs + C * tile;   // (P, tile)
-  float* wx = xd + P * tile;   // (P, C)
-  float* wdt = wx + P * C;     // (CB, R)
+  const int P = R + 2 * N, Rs = full_rstride(R);
+  const int TT = TC * kFullTW, XS = TT + kFullTW;
+  float* xd = smem;                    // (2P, TT): forward rows, then reverse rows
+  float* wx = xd + 2 * P * TT;         // (2P, C)
+  float* wdt = wx + 2 * P * C;         // (2, C, Rs)
+  T* xs = reinterpret_cast<T*>(wdt + 2 * C * Rs);  // (C, XS) in the stream dtype
+  T* ys = xs + C * XS;  // (C, XS): round(y_f + Dsum x + y0), the stream dtype
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kColTW + tx, nth = kColTW * blockDim.y;
-  const int w0 = blockIdx.x * kColTW, c0 = blockIdx.y * CB, b = blockIdx.z;
-  const int w = w0 + tx, c = c0 + ty;
-  const bool active = w < W && c < C;
+  const int tid = ty * kFullTW + tx, nth = kFullTW * blockDim.y;
+  const int w0 = blockIdx.x * kFullTW, k = blockIdx.y, b = blockIdx.z;
+  const int h0 = k * TC, nt = min(TC, H - h0);
   const long L = (long)H * W;
-  const long ib = (long)b * C * L;
-  const T* xb = x + ib;
-  const T* yinb = yin != nullptr ? yin + ib : nullptr;
-  T* yb = y + ib;
+  const T* xb = x + (long)b * C * L;
 
-  for (int i = tid; i < P * C; i += nth) wx[i] = Wx[i];
-  for (int i = tid; i < CB * R; i += nth) wdt[i] = c0 + i / R < C ? Wdt[(long)c0 * R + i] : 0.f;
-  float bc = 0.f, dc = 0.f, an[N], h[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    an[n] = active ? A[c * N + n] : 0.f;
-    h[n] = active ? sinit[((long)b * C + c) * N * W + (long)n * W + w] : 0.f;
+  for (int i = tid; i < 2 * P * C; i += nth) {
+    const int dir = i / (P * C), j = i - dir * P * C;
+    wx[i] = (dir ? r.Wx : f.Wx)[j];
   }
-  if (active) {
-    bc = bias[c];
-    dc = D != nullptr ? D[c] : 0.f;
+  for (int i = tid; i < 2 * C * R; i += nth) {
+    const int dir = i / (C * R), j = i - dir * C * R, c = j / R;
+    wdt[(dir * C + c) * Rs + j - c * R] = (dir ? r.Wdt : f.Wdt)[j];
   }
-  const float* wd = wdt + ty * R;
+  for (int i = tid; i < C * TT; i += nth) {
+    const int c = i / TT, pix = i - c * TT;
+    const int t = pix / kFullTW, w = w0 + pix - t * kFullTW;
+    xs[c * XS + pix] = (t < nt && w < W) ? xb[(long)c * L + (long)(h0 + t) * W + w]
+                                         : IO<T>::to(0.f);
+  }
+  __syncthreads();
+  for (int i = tid; i < 2 * P * TT; i += nth) {
+    const int q = i / TT, pix = i - q * TT;
+    const float* wr = wx + q * C;
+    float s = 0.f;
+    for (int c = 0; c < C; ++c) s = fmaf(wr[c], IO<T>::from(xs[c * XS + pix]), s);
+    xd[i] = s;
+  }
+  __syncthreads();
 
-  const int ntiles = (H + TH - 1) / TH;
-  for (int it = 0; it < ntiles; ++it) {
-    const int h0 = (rev ? ntiles - 1 - it : it) * TH;
-    const int nt = min(TH, H - h0);
-    __syncthreads();
-    col_stage<T>(xb, xs, xd, wx, C, H, W, h0, nt, w0, TH, P, L);
-    if (!active) continue;
-    for (int k = 0; k < nt; ++k) {
-      const int t = rev ? nt - 1 - k : k;
-      const int pix = t * kColTW + tx;
-      const float xv = xs[c * tile + pix];
-      float s = 0.f;
-      for (int r = 0; r < R; ++r) s = fmaf(wd[r], xd[r * tile + pix], s);
-      const float dt = softplus(s + bc), du = dt * xv;
-      float yv = 0.f;
+  const int w = w0 + tx;
+  if (w >= W) return;
+  const long CN = (long)C * N, j = (long)w * nch + k, seq = (long)W * nch;
+  const float* hfb = hf + (long)b * seq * CN;
+  const float* hrb = hr + (long)b * seq * CN;
+  for (int c = ty; c < C; c += blockDim.y) {
+    const T* xc = xs + c * XS;
+    T* yc = ys + c * XS;
+    const long yb = ((long)b * C + c) * L + (long)h0 * W + w;
+    float h[N], an[N];
+    // direction 1, top-down from the inclusive state of chunk j - 1
+    {
+      const float* wd = wdt + c * Rs;
+      const float bias = f.bias[c], ds = Dsum[c];
 #pragma unroll
       for (int n = 0; n < N; ++n) {
-        const float wv = fmaxf(dt * an[n], kColClamp);
-        h[n] = fmaf(expf(wv), h[n], du * xd[(R + n) * tile + pix]);
-        yv = fmaf(xd[(R + N + n) * tile + pix], h[n], yv);
+        an[n] = f.A[c * N + n];
+        h[n] = j > 0 ? hfb[(j - 1) * CN + c * N + n] : 0.f;
       }
-      if (D != nullptr) yv = fmaf(dc, xv, yv);
-      const long j = (long)c * L + (long)(h0 + t) * W + w;
-      if (yinb != nullptr) yv += IO<T>::load(yinb, j);
-      IO<T>::store(yb, j, yv);
+      for (int t = 0; t < nt; ++t) {
+        const int pix = t * kFullTW + tx;
+        const float xv = IO<T>::from(xc[pix]);
+        float s = bias;
+        for (int q = 0; q < R; ++q) s = fmaf(wd[q], xd[q * TT + pix], s);
+        const float dt = softplus(s), du = dt * xv;
+        float yv = 0.f;
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          const float wv = fmaxf(dt * an[n], kColClamp);
+          h[n] = fmaf(expf(wv), h[n], du * xd[(R + n) * TT + pix]);
+          yv = fmaf(xd[(R + N + n) * TT + pix], h[n], yv);
+        }
+        yv = fmaf(ds, xv, yv);
+        if (y0 != nullptr) yv += IO<T>::load(y0, yb + (long)t * W);
+        yc[pix] = IO<T>::to(yv);  // the first rounding point
+      }
+    }
+    // direction 3, bottom-up from the inclusive state of chunk j + 1
+    {
+      const float* xq = xd + P * TT;
+      const float* wd = wdt + (C + c) * Rs;
+      const float bias = r.bias[c];
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        an[n] = r.A[c * N + n];
+        h[n] = j + 1 < seq ? hrb[(j + 1) * CN + c * N + n] : 0.f;
+      }
+      for (int t = nt - 1; t >= 0; --t) {
+        const int pix = t * kFullTW + tx;
+        const float xv = IO<T>::from(xc[pix]);
+        float s = bias;
+        for (int q = 0; q < R; ++q) s = fmaf(wd[q], xq[q * TT + pix], s);
+        const float dt = softplus(s), du = dt * xv;
+        float yv = 0.f;
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          const float wv = fmaxf(dt * an[n], kColClamp);
+          h[n] = fmaf(expf(wv), h[n], du * xq[(R + n) * TT + pix]);
+          yv = fmaf(xq[(R + N + n) * TT + pix], h[n], yv);
+        }
+        IO<T>::store(y, yb + (long)t * W, yv + IO<T>::from(yc[pix]));
+      }
     }
   }
 }
 
 template <typename T, int N>
-int launch_col_sum_n(const void* x, const float* const* wf, const float* const* wr,
-                     float* const* out, int B, int C, int H, int W, int R,
-                     cudaStream_t stream) {
+int launch_col_sum_n(const void* x, ColDir f, ColDir r, float* const* out, int B, int C,
+                     int H, int W, int R, int TC, cudaStream_t stream) {
   const int CB = col_chan_block(C), Q = R + N;
-  const int TH = col_rows(C, 2, Q, CB, R);
-  const size_t smem = col_smem_floats(C, TH, 2, Q, CB, R) * sizeof(float);
+  const int TH = col_rows(C, Q, CB, R);
+  const size_t smem = col_smem_floats(C, TH, Q, CB, R) * sizeof(float);
   cudaError_t e = allow_smem(col_sum_kernel<T, N>, smem);
   if (e != cudaSuccess) return (int)e;
+  const int nch = (H + TC - 1) / TC;
   dim3 grid((W + kColTW - 1) / kColTW, (C + CB - 1) / CB, B);
   col_sum_kernel<T, N><<<grid, dim3(kColTW, CB), smem, stream>>>(
-      static_cast<const T*>(x), wf[0], wf[1], wf[2], wf[3], wr[0], wr[1], wr[2], wr[3],
-      out[0], out[1], out[2], out[3], C, H, W, R, CB, TH);
+      static_cast<const T*>(x), f, r, out[0], out[1], out[2], out[3], C, H, W, R, CB, TH, TC,
+      nch);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int N>
-int launch_col_dir_n(const void* x, const float* Wx, const float* Wdt, const float* bias,
-                     const float* A, const float* D, const float* sinit, const void* yin,
-                     void* y, int B, int C, int H, int W, int R, int rev,
-                     cudaStream_t stream) {
-  const int CB = col_chan_block(C), P = R + 2 * N;
-  const int TH = col_rows(C, 1, P, CB, R);
-  const size_t smem = col_smem_floats(C, TH, 1, P, CB, R) * sizeof(float);
-  cudaError_t e = allow_smem(col_dir_kernel<T, N>, smem);
+int launch_col_full_n(const void* x, ColDir f, ColDir r, const float* Dsum, const float* hf,
+                      const float* hr, const void* y0, void* y, int B, int C, int H, int W,
+                      int R, int TC, cudaStream_t stream) {
+  const size_t smem = full_smem_bytes(C, TC, R, N, sizeof(T));
+  if (smem > kSmemBudget) return (int)cudaErrorInvalidValue;
+  cudaError_t e = allow_smem(col_full_kernel<T, N>, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((W + kColTW - 1) / kColTW, (C + CB - 1) / CB, B);
-  col_dir_kernel<T, N><<<grid, dim3(kColTW, CB), smem, stream>>>(
-      static_cast<const T*>(x), Wx, Wdt, bias, A, D, sinit, static_cast<const T*>(yin),
-      static_cast<T*>(y), C, H, W, R, CB, TH, rev);
+  const int nch = (H + TC - 1) / TC;
+  dim3 grid((W + kFullTW - 1) / kFullTW, nch, B);
+  col_full_kernel<T, N><<<grid, dim3(kFullTW, full_threads_y(C)), smem, stream>>>(
+      static_cast<const T*>(x), f, r, Dsum, hf, hr, static_cast<const T*>(y0),
+      static_cast<T*>(y), C, H, W, R, TC, nch);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_col_sum(const void* x, const float* const* wf, const float* const* wr,
-                   float* const* out, int B, int C, int H, int W, int R, int N,
-                   cudaStream_t s) {
+int launch_col_sum(const void* x, ColDir f, ColDir r, float* const* out, int B, int C, int H,
+                   int W, int R, int N, int TC, cudaStream_t s) {
   switch (N) {
-    case 1: return launch_col_sum_n<T, 1>(x, wf, wr, out, B, C, H, W, R, s);
-    case 2: return launch_col_sum_n<T, 2>(x, wf, wr, out, B, C, H, W, R, s);
-    case 4: return launch_col_sum_n<T, 4>(x, wf, wr, out, B, C, H, W, R, s);
+    case 1: return launch_col_sum_n<T, 1>(x, f, r, out, B, C, H, W, R, TC, s);
+    case 2: return launch_col_sum_n<T, 2>(x, f, r, out, B, C, H, W, R, TC, s);
+    case 4: return launch_col_sum_n<T, 4>(x, f, r, out, B, C, H, W, R, TC, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-int launch_col_dir(const void* x, const float* Wx, const float* Wdt, const float* bias,
-                   const float* A, const float* D, const float* sinit, const void* yin,
-                   void* y, int B, int C, int H, int W, int R, int N, int rev,
-                   cudaStream_t s) {
+int launch_col_full(const void* x, ColDir f, ColDir r, const float* Dsum, const float* hf,
+                    const float* hr, const void* y0, void* y, int B, int C, int H, int W, int R,
+                    int N, int TC, cudaStream_t s) {
   switch (N) {
-    case 1: return launch_col_dir_n<T, 1>(x, Wx, Wdt, bias, A, D, sinit, yin, y, B, C, H, W, R, rev, s);
-    case 2: return launch_col_dir_n<T, 2>(x, Wx, Wdt, bias, A, D, sinit, yin, y, B, C, H, W, R, rev, s);
-    case 4: return launch_col_dir_n<T, 4>(x, Wx, Wdt, bias, A, D, sinit, yin, y, B, C, H, W, R, rev, s);
+    case 1: return launch_col_full_n<T, 1>(x, f, r, Dsum, hf, hr, y0, y, B, C, H, W, R, TC, s);
+    case 2: return launch_col_full_n<T, 2>(x, f, r, Dsum, hf, hr, y0, y, B, C, H, W, R, TC, s);
+    case 4: return launch_col_full_n<T, 4>(x, f, r, Dsum, hf, hr, y0, y, B, C, H, W, R, TC, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace bem
 
-// Both directions' column summaries. send_* / stot_* (B, C, N*W) fp32,
-// index [b][c][n*W + w].
+// Rows per chunk of both passes at C channels, R dt-rank rows, N states
+// and the stream dtype; the caller sizes the chunk summaries by it.
+extern "C" int bem_ss2d_col_chunk(int C, int R, int N, int bf16) {
+  return bem::col_chunk(C, R, N, bf16 ? 2 : 4);
+}
+
+// Pass 1: both directions' chunk summaries, each (B, W*nch, C*N) fp32 with
+// nch = ceil(H / TC): the chunk's decay and its end state from 0.
 extern "C" int bem_ss2d_col_sum(const void* x, const float* Wxf, const float* Wdtf,
                                 const float* biasf, const float* Af, const float* Wxr,
                                 const float* Wdtr, const float* biasr, const float* Ar,
-                                float* sendf, float* stotf, float* sendr, float* stotr,
-                                int B, int C, int H, int W, int R, int N, int bf16,
-                                void* stream) {
+                                float* af, float* bf, float* ar, float* br, int B, int C,
+                                int H, int W, int R, int N, int TC, int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const float* wf[4] = {Wxf, Wdtf, biasf, Af};
-  const float* wr[4] = {Wxr, Wdtr, biasr, Ar};
-  float* out[4] = {sendf, stotf, sendr, stotr};
-  if (bf16) return bem::launch_col_sum<__nv_bfloat16>(x, wf, wr, out, B, C, H, W, R, N, s);
-  return bem::launch_col_sum<float>(x, wf, wr, out, B, C, H, W, R, N, s);
+  const bem::ColDir f{Wxf, Wdtf, biasf, Af}, r{Wxr, Wdtr, biasr, Ar};
+  float* out[4] = {af, bf, ar, br};
+  if (TC < 1) return (int)cudaErrorInvalidValue;
+  if (bf16) return bem::launch_col_sum<__nv_bfloat16>(x, f, r, out, B, C, H, W, R, N, TC, s);
+  return bem::launch_col_sum<float>(x, f, r, out, B, C, H, W, R, N, TC, s);
 }
 
-// One column direction from the entry states sinit (B, C, N*W); D and yin
-// may be null. rev = 1 walks bottom-up (direction 3).
-extern "C" int bem_ss2d_col_dir(const void* x, const float* Wx, const float* Wdt,
-                                const float* bias, const float* A, const float* D,
-                                const float* sinit, const void* yin, void* y, int B, int C,
-                                int H, int W, int R, int N, int rev, int bf16, void* stream) {
+// Pass 3: both directions from the carry's inclusive chunk states hf / hr
+// (the summaries' layout), y = round(y_r + round(y_f + Dsum x + y0)); y0
+// may be null.
+extern "C" int bem_ss2d_col_full(const void* x, const float* Wxf, const float* Wdtf,
+                                 const float* biasf, const float* Af, const float* Wxr,
+                                 const float* Wdtr, const float* biasr, const float* Ar,
+                                 const float* Dsum, const float* hf, const float* hr,
+                                 const void* y0, void* y, int B, int C, int H, int W, int R,
+                                 int N, int TC, int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  const bem::ColDir f{Wxf, Wdtf, biasf, Af}, r{Wxr, Wdtr, biasr, Ar};
+  if (TC < 1) return (int)cudaErrorInvalidValue;
   if (bf16)
-    return bem::launch_col_dir<__nv_bfloat16>(x, Wx, Wdt, bias, A, D, sinit, yin, y, B, C, H,
-                                              W, R, N, rev, s);
-  return bem::launch_col_dir<float>(x, Wx, Wdt, bias, A, D, sinit, yin, y, B, C, H, W, R, N,
-                                    rev, s);
+    return bem::launch_col_full<__nv_bfloat16>(x, f, r, Dsum, hf, hr, y0, y, B, C, H, W, R, N,
+                                               TC, s);
+  return bem::launch_col_full<float>(x, f, r, Dsum, hf, hr, y0, y, B, C, H, W, R, N, TC, s);
 }

@@ -30,16 +30,43 @@
 //    y_f, the reverse one adds its rounded y_r, so the merge needs no
 //    buffer and no atomics;
 //  - the forward can write the state entering every chunk (fp32
-//    checkpoints). The backward walk runs the chunks in reverse scan
-//    order: it recomputes the chunk's states from its checkpoint, keeping
-//    the state entering each kSub-long sub-chunk in shared memory, and for
-//    each sub-chunk and state n recomputes h over kSub positions in
-//    registers and runs lambda back over them. The per-position sums over
-//    channels (dB, dC) are reduced in registers across the warp (a
-//    transposing butterfly: 31 shuffles sum 32 values) and across the
-//    block's two warps in shared memory; every cross-block sum (channel
-//    blocks, images) is a separate, ordered pass, so the results do not
-//    change from run to run.
+//    checkpoints, one per kCk positions). The backward's lambda recurrence,
+//    lambda_t = g_t C_t + a_{t+1} lambda_{t+1} per (channel, state), runs
+//    against the scan order as a chunked reverse scan, parallel along L
+//    (the pattern of ss2d_seq.cu), with the checkpoints giving h in every
+//    chunk at once:
+//      bwd_sum_kernel   per chunk, (channel, state) and both directions, mu
+//                       = a lambda at the chunk's first position, walked
+//                       back from mu = 0 at its end, and the chunk's decay
+//                       exp(sum of dt A) summed in log space. Carrying mu
+//                       instead of lambda puts the factor that carries
+//                       lambda into chunk k (a at chunk k+1's first
+//                       position, one past chunk k's end) into chunk k+1's
+//                       own summary, so each decay covers its chunk's own
+//                       positions. No -10 clamp: the backward
+//                       differentiates the unclamped function, also after a
+//                       clamped forward.
+//      linear_scan      (scan.cu, launched by ops/ss2d_fused.py) in reverse
+//                       over the chunks of (B*2*2, nck, C*N): each chunk's
+//                       mu, inclusive.
+//      bwd_full_kernel  one block per (chunk, channel block, image and
+//                       stream), one launch per direction, every chunk
+//                       independent: h from the chunk's checkpoint, lambda
+//                       from the next chunk's mu, every gradient term.
+//    A thread takes one (channel, state): its state's h and decay over a
+//    kSub-long sub-chunk sit in registers (recomputed from the sub-chunk's
+//    entering state), dt is computed once per (channel, position) by the
+//    whole block into shared memory, the sums over states (d/d dt, dx) by
+//    a transposing butterfly across the channel's lanes after each
+//    sub-chunk, the sums over channels (dB, dC) by shuffles within the
+//    warp and an ordered pass over the block's warps. The sums over L (dA,
+//    dbias, dD) are per-chunk partials; every cross-block sum (channel
+//    blocks, chunks, images) is a separate, ordered pass, so the results
+//    do not change from run to run (no atomics).
+//    Occupancy (d_state 16, VMamba-T): 16 channels x 16 states = 256
+//    threads a block; shared memory 33.4 KB at R = 6 and 41.7 KB at R = 48
+//    (bwd_smem_floats); registers (build/nvcc_ss2d_fused.log) then set the
+//    blocks per SM (PERF.md has the count).
 #include "common.cuh"
 
 namespace bem {
@@ -47,8 +74,8 @@ namespace bem {
 constexpr float kFusedClamp = -10.f;
 constexpr int kCk = 32;          // scan positions per chunk and per checkpoint
 constexpr int kFwdCB = 64;       // channels (one thread each) per forward block
-constexpr int kBwdCB = 64;       // channels per backward block: two full warps
-constexpr int kSub = 16;         // positions per backward sub-chunk (2 kSub = 32 lanes)
+constexpr int kBwdThreads = 256;  // threads of a backward block, one per (channel, state)
+constexpr int kSub = 16;         // positions per backward sub-chunk (h in registers)
 constexpr int kNSub = kCk / kSub;
 
 template <typename T>
@@ -274,182 +301,270 @@ fwd_walk_kernel(const T* __restrict__ x, const float* __restrict__ xdbl,
 }
 
 // ---------------------------------------------------------------------------
-// backward walk: one direction, one thread per (image, stream, channel)
+// backward: a chunked reverse scan, parallel along L (see the header)
 
-// lane l ends with the warp's sum of v[l] (a transposing butterfly)
-__device__ __forceinline__ void warp_transpose_sum(float (&v)[32], int lane) {
+// threads of a backward block: one per (channel, state), at most
+// kBwdThreads; channels per block at most 64
+__host__ __device__ constexpr int bwd_cb(int N) {
+  return kBwdThreads / N < 64 ? kBwdThreads / N : 64;
+}
+
+// floats of shared memory: x (full pass), g, dt tiles (CB, kCk + 1) and the
+// full pass's dt pre-activation and dx tiles; the chunk's projection rows
+// (P, kCk + 1); the block's Wdt rows (CB, R + 1); the full pass's per-warp
+// channel sums of dB | dC over a sub-chunk (warps, 2, N, kSub + 1). The
+// odd row strides put a warp's N states (rows of xd and red) on distinct
+// banks.
+inline size_t bwd_smem_floats(int R, int N, bool full) {
+  const size_t CB = bwd_cb(N), warps = (CB * N + 31) / 32;
+  return (full ? 5 : 2) * CB * (kCk + 1) + (size_t)(R + 2 * N) * (kCk + 1) + CB * (R + 1) +
+         (full ? warps * 2 * N * (kSub + 1) : 0);
+}
+
+// Lanes in groups of G (a power of 2 <= K): lane l of a group ends with the
+// group's sums of v[(l % G) * (K / G) + i] in v[i], i < K / G (a transposing
+// butterfly: K - K / G shuffles instead of K log2 G). Each stage is a
+// template of its own, so every index is a constant and v stays in
+// registers.
+template <int K, int G>
+__device__ __forceinline__ void group_transpose_sum(float (&v)[K], int lane) {
+  if constexpr (G > 1) {
+    constexpr int half = K / 2;
+    const bool upper = lane & (G / 2);
 #pragma unroll
-  for (int off = 16; off >= 1; off >>= 1) {
-    const bool upper = lane & off;
-#pragma unroll
-    for (int i = 0; i < off; ++i) {
-      const float send = upper ? v[i] : v[i + off];
-      const float keep = upper ? v[i + off] : v[i];
-      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    for (int i = 0; i < half; ++i) {
+      const float send = upper ? v[i] : v[i + half];
+      const float keep = upper ? v[i + half] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, G / 2);
     }
+    group_transpose_sum<half, G / 2>(reinterpret_cast<float(&)[half]>(v), lane);
   }
 }
 
-inline size_t bwd_smem_floats(int R, int N) {
-  return 4 * (size_t)kBwdCB * (kCk + 1) + (size_t)(R + 2 * N) * kCk + (size_t)kBwdCB * (R + 1) +
-         (size_t)(kNSub + 4) * N * kBwdCB + (size_t)(kBwdCB / 32) * N * 2 * kSub;
+// the sum over the warp's lanes of the same state (lane % N)
+template <int N>
+__device__ __forceinline__ float channel_sum(float v) {
+#pragma unroll
+  for (int off = N; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
 }
 
+struct BwdTile {
+  int bs, dir, k, ci, nck, c0, nc, i0, nt;
+};
+
+// Stage one chunk (kCk positions of scan order from i0) of one (image,
+// stream, direction) and channel block: g (and x) tiles, the projection
+// rows, the Wdt rows; then dt (and its pre-activation) of every (channel,
+// position), each once, by all threads.
 template <int N>
-__global__ void __launch_bounds__(kBwdCB)
-bwd_walk_kernel(const float* __restrict__ x, const float* __restrict__ g,
+__device__ __forceinline__ void bwd_stage(const BwdTile& tl, const float* __restrict__ x,
+                                          const float* __restrict__ g,
+                                          const float* __restrict__ xdbl,
+                                          const float* __restrict__ Wdt,
+                                          const float* __restrict__ bias, float* xs, float* gs,
+                                          float* dts, float* drs, float* xd, float* wdt, int C,
+                                          int L, int R) {
+  constexpr int CB = bwd_cb(N), NT = CB * N, TLp = kCk + 1;
+  const int tid = threadIdx.x, P = R + 2 * N;
+  for (int i = tid; i < CB * R; i += NT) {
+    const int cc = i / R, r = i - cc * R;
+    wdt[cc * (R + 1) + r] = cc < tl.nc ? Wdt[((long)tl.k * C + tl.c0 + cc) * R + r] : 0.f;
+  }
+  const long base = (long)tl.bs * C * L;
+  for (int i = tid; i < CB * kCk; i += NT) {
+    const int cc = i / kCk, j = i - cc * kCk;
+    const bool ok = cc < tl.nc && j < tl.nt;
+    const long e = base + (long)(tl.c0 + cc) * L + seq_pos(tl.dir, L, tl.i0 + j);
+    gs[cc * TLp + j] = ok ? g[e] : 0.f;
+    if (xs != nullptr) xs[cc * TLp + j] = ok ? x[e] : 0.f;
+  }
+  const float* xdb = xdbl + ((long)tl.bs * 2 + tl.dir) * P * L;
+  for (int i = tid; i < P * kCk; i += NT) {
+    const int p = i / kCk, j = i - p * kCk;
+    xd[p * TLp + j] = j < tl.nt ? xdb[(long)p * L + seq_pos(tl.dir, L, tl.i0 + j)] : 0.f;
+  }
+  __syncthreads();
+  for (int i = tid; i < CB * kCk; i += NT) {
+    const int cc = i / kCk, j = i - cc * kCk;
+    const float* wr = wdt + cc * (R + 1);
+    float dtr = cc < tl.nc ? bias[tl.k * C + tl.c0 + cc] : 0.f;
+    for (int r = 0; r < R; ++r) dtr = fmaf(wr[r], xd[r * TLp + j], dtr);
+    dts[cc * TLp + j] = softplus(dtr);
+    if (drs != nullptr) drs[cc * TLp + j] = dtr;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ BwdTile bwd_tile(int bs, int dir, int C, int L, int CB) {
+  BwdTile t;
+  t.bs = bs;
+  t.dir = dir;
+  t.k = (bs & 1) + 2 * dir;
+  t.ci = blockIdx.x;
+  t.nck = gridDim.x;
+  t.c0 = blockIdx.y * CB;
+  t.nc = min(CB, C - t.c0);
+  t.i0 = t.ci * kCk;
+  t.nt = min(kCk, L - t.i0);
+  return t;
+}
+
+// Summary pass, both directions (blockIdx.z = bs * 2 + dir): per chunk and
+// (channel, state), walked back from mu = 0 at its end, mu = a_{i0}
+// lambda_{i0} and the chunk's decay exp(sum of dt A) over its own positions.
+// Layout (B*2*2, nck, C*N): the carry's rows.
+template <int N>
+__global__ void __launch_bounds__(bwd_cb(N) * N)
+bwd_sum_kernel(const float* __restrict__ g, const float* __restrict__ xdbl,
+               const float* __restrict__ Wdt, const float* __restrict__ bias,
+               const float* __restrict__ A, float* __restrict__ aprod, float* __restrict__ msum,
+               int C, int L, int R) {
+  constexpr int CB = bwd_cb(N), TLp = kCk + 1;
+  extern __shared__ float smem[];
+  const int P = R + 2 * N, z = blockIdx.z;
+  const BwdTile tl = bwd_tile(z >> 1, z & 1, C, L, CB);
+  float* gs = smem;
+  float* dts = gs + CB * TLp;
+  float* xd = dts + CB * TLp;
+  float* wdt = xd + P * TLp;
+  bwd_stage<N>(tl, nullptr, g, xdbl, Wdt, bias, nullptr, gs, dts, nullptr, xd, wdt, C, L, R);
+  const int tc = threadIdx.x / N, tn = threadIdx.x % N, c = tl.c0 + tc;
+  if (tc >= tl.nc) return;
+  const float An = A[((long)tl.k * C + c) * N + tn];
+  float m = 0.f, sw = 0.f;
+  for (int j = tl.nt - 1; j >= 0; --j) {
+    const float w = dts[tc * TLp + j] * An;
+    m = expf(w) * fmaf(gs[tc * TLp + j], xd[(R + N + tn) * TLp + j], m);
+    sw += w;
+  }
+  const long o = ((long)z * tl.nck + tl.ci) * C * N + (long)c * N + tn;
+  aprod[o] = expf(sw);
+  msum[o] = m;
+}
+
+// Full pass of one direction: every chunk from its checkpoint (h) and from
+// mu of the chunk after it (the carry's inclusive state, 0 for the last).
+template <int N>
+__global__ void __launch_bounds__(bwd_cb(N) * N)
+bwd_full_kernel(const float* __restrict__ x, const float* __restrict__ g,
                 const float* __restrict__ xdbl, const float* __restrict__ Wdt,
                 const float* __restrict__ bias, const float* __restrict__ A,
                 const float* __restrict__ D, const float* __restrict__ ck,
-                float* __restrict__ dx, float* __restrict__ ddtr, float* __restrict__ bcpart,
-                float* __restrict__ vpart, int C, int L, int R, int dir) {
+                const float* __restrict__ carry, float* __restrict__ dx,
+                float* __restrict__ ddtr, float* __restrict__ bcpart, float* __restrict__ vpart,
+                int B, int C, int L, int R, int dir) {
+  constexpr int CB = bwd_cb(N), NT = CB * N, TLp = kCk + 1, NW = (NT + 31) / 32;
   extern __shared__ float smem[];
-  const int P = R + 2 * N, TLp = kCk + 1, nblk = gridDim.x;
-  const int bs = blockIdx.y, b = bs >> 1, s = bs & 1, k = s + 2 * dir;
-  const int blk = blockIdx.x, c0 = blk * kBwdCB, nc = min(kBwdCB, C - c0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, c = c0 + tid;
-  const bool valid = tid < nc;
-  float* xs = smem;                     // (CB, TLp): x, then this direction's dx
-  float* gs = xs + kBwdCB * TLp;        // g
-  float* dts = gs + kBwdCB * TLp;       // dt
-  float* drs = dts + kBwdCB * TLp;      // dt pre-activation, then ddtr
-  float* xd = drs + kBwdCB * TLp;       // (P, kCk)
-  float* wdt = xd + P * kCk;            // (CB, R + 1)
-  float* hb = wdt + kBwdCB * (R + 1);   // (kNSub, N, CB): state entering each sub-chunk
-  float* lamc = hb + kNSub * N * kBwdCB;  // (N, CB): lambda at the sub-chunk's end
-  float* anc = lamc + N * kBwdCB;       // (N, CB): a of the next position in scan order
-  float* Acs = anc + N * kBwdCB;        // (N, CB): A
-  float* dAs = Acs + N * kBwdCB;        // (N, CB): dA
-  float* red = dAs + N * kBwdCB;        // (2 warps, N, 2 kSub): warp sums of dB | dC
-  for (int i = tid; i < kBwdCB * R; i += kBwdCB) {
-    const int cc = i / R, r = i - cc * R;
-    wdt[cc * (R + 1) + r] = cc < nc ? Wdt[((long)k * C + c0 + cc) * R + r] : 0.f;
+  const int P = R + 2 * N, nblk = gridDim.y;
+  const BwdTile tl = bwd_tile(blockIdx.z, dir, C, L, CB);
+  const int bs = tl.bs, b = bs >> 1, blk = blockIdx.y;
+  float* xs = smem;                // x
+  float* gs = xs + CB * TLp;       // g
+  float* dts = gs + CB * TLp;      // dt, then (per sub-chunk walked) d loss / d dt
+  float* drs = dts + CB * TLp;     // dt pre-activation, then d loss / d pre-activation
+  float* dxs = drs + CB * TLp;     // the scan's part of dx
+  float* xd = dxs + CB * TLp;      // (P, TLp)
+  float* wdt = xd + P * TLp;       // (CB, R + 1)
+  float* red = wdt + CB * (R + 1);  // (NW, 2, N, kSub + 1)
+  bwd_stage<N>(tl, x, g, xdbl, Wdt, bias, xs, gs, dts, drs, xd, wdt, C, L, R);
+  const int tid = threadIdx.x, tc = tid / N, tn = tid % N, lane = tid & 31, warp = tid >> 5;
+  const int c = tl.c0 + tc;
+  const bool valid = tc < tl.nc;
+  const long row = (long)bs * 2 + dir;
+  const float An = valid ? A[((long)tl.k * C + c) * N + tn] : 0.f;
+  const float h_in = valid ? ck[((row * tl.nck + tl.ci) * C + c) * N + tn] : 0.f;
+  float m = valid && tl.ci + 1 < tl.nck ? carry[((row * tl.nck + tl.ci + 1) * C + c) * N + tn]
+                                        : 0.f;
+  const float* xr = xs + tc * TLp;
+  const float* gr = gs + tc * TLp;
+  float* dtr = dts + tc * TLp;
+  const float* Bn = xd + (R + tn) * TLp;
+  const float* Cn = xd + (R + N + tn) * TLp;
+  // positions past L hold x = g = 0 and projection rows 0: they add nothing
+  // and leave mu = 0 (they lie only in the last chunk)
+  float h_sub1 = h_in;  // the state entering the second sub-chunk
+#pragma unroll
+  for (int j = 0; j < kSub; ++j) {
+    const float dt = dtr[j];
+    h_sub1 = fmaf(expf(dt * An), h_sub1, dt * xr[j] * Bn[j]);
   }
-  for (int n = 0; n < N; ++n) {
-    lamc[n * kBwdCB + tid] = 0.f;
-    anc[n * kBwdCB + tid] = 0.f;
-    Acs[n * kBwdCB + tid] = valid ? A[((long)k * C + c) * N + n] : 0.f;
-    dAs[n * kBwdCB + tid] = 0.f;
-  }
-  const float bk = valid ? bias[k * C + c] : 0.f, dk = valid ? D[k * C + c] : 0.f;
-  const float* xb = x + (long)bs * C * L;
-  const float* gb = g + (long)bs * C * L;
-  const float* xdb = xdbl + ((long)bs * 2 + dir) * P * L;
-  float* dxb = dx + (long)bs * C * L;
-  float* ddb = ddtr + ((long)bs * 2 + dir) * C * L;
-  float dbias_acc = 0.f, dD_acc = 0.f;
-  const int nck = (L + kCk - 1) / kCk;
-  for (int ci = nck - 1; ci >= 0; --ci) {
-    const int i0 = ci * kCk, nt = min(kCk, L - i0);
-    for (int i = tid; i < kBwdCB * kCk; i += kBwdCB) {
-      const int cc = i / kCk, j = i - cc * kCk;
-      const bool ok = cc < nc && j < nt;
-      const long e = (long)(c0 + cc) * L + seq_pos(dir, L, i0 + j);
-      xs[cc * TLp + j] = ok ? xb[e] : 0.f;
-      gs[cc * TLp + j] = ok ? gb[e] : 0.f;
+  float dA = 0.f;
+  for (int sub = kNSub - 1; sub >= 0; --sub) {
+    const int jb = sub * kSub;
+    float hs[kSub], aa[kSub], pd[kSub], px[kSub];
+    const float h0 = sub ? h_sub1 : h_in;
+    float h = h0;
+#pragma unroll
+    for (int jj = 0; jj < kSub; ++jj) {
+      const float dt = dtr[jb + jj];
+      aa[jj] = expf(dt * An);
+      hs[jj] = h = fmaf(aa[jj], h, dt * xr[jb + jj] * Bn[jb + jj]);
     }
-    for (int i = tid; i < P * kCk; i += kBwdCB) {
-      const int p = i / kCk, j = i - p * kCk;
-      xd[i] = j < nt ? xdb[(long)p * L + seq_pos(dir, L, i0 + j)] : 0.f;
+#pragma unroll
+    for (int jj = kSub - 1; jj >= 0; --jj) {
+      const int j = jb + jj;
+      const float gv = gr[j], xv = xr[j], dt = dtr[j], bn = Bn[j];
+      const float lam = fmaf(gv, Cn[j], m);
+      const float a = aa[jj];
+      const float daa = lam * (jj ? hs[jj - 1] : h0) * a;
+      pd[jj] = fmaf(daa, An, lam * xv * bn);  // d loss / d dt, this state's part
+      px[jj] = lam * dt * bn;                 // dx, this state's part
+      dA = fmaf(daa, dt, dA);
+      const float vb = channel_sum<N>(lam * dt * xv);  // dB_n: lambda du over channels
+      const float vc = channel_sum<N>(gv * hs[jj]);     // dC_n: g h over channels
+      if (lane < N) {
+        red[((warp * 2) * N + tn) * (kSub + 1) + jj] = vb;
+        red[((warp * 2 + 1) * N + tn) * (kSub + 1) + jj] = vc;
+      }
+      m = a * lam;
+    }
+    // the sums over states; the warp's shuffles order this after its reads of dt
+    group_transpose_sum<kSub, N>(pd, lane);
+    group_transpose_sum<kSub, N>(px, lane);
+#pragma unroll
+    for (int i = 0; i < kSub / N; ++i) {
+      const int j = jb + tn * (kSub / N) + i;
+      dtr[j] = pd[i];
+      dxs[tc * TLp + j] = px[i];
     }
     __syncthreads();
-    {  // dt, and the chunk's states from its checkpoint, as the forward computed them
-      const float* wr = wdt + tid * (R + 1);
-      float h[N];
-      const float* cp = ck + ((((long)bs * 2 + dir) * nck + ci) * C + c) * N;
-#pragma unroll
-      for (int n = 0; n < N; ++n) h[n] = valid ? cp[n] : 0.f;
-      for (int j = 0; j < kCk; ++j) {
-        float dtr = bk;
-        for (int r = 0; r < R; ++r) dtr = fmaf(wr[r], xd[r * kCk + j], dtr);
-        const float dt = softplus(dtr), du = dt * xs[tid * TLp + j];
-        drs[tid * TLp + j] = dtr;
-        dts[tid * TLp + j] = dt;
-        if (j % kSub == 0) {
-#pragma unroll
-          for (int n = 0; n < N; ++n) hb[((j / kSub) * N + n) * kBwdCB + tid] = h[n];
-        }
-#pragma unroll
-        for (int n = 0; n < N; ++n)
-          h[n] = fmaf(expf(dt * Acs[n * kBwdCB + tid]), h[n], du * xd[(R + n) * kCk + j]);
-      }
-    }
-    // positions past L hold x = g = 0 and projection rows 0, so they add
-    // nothing and carry lambda = 0 into the chunk's last valid position
-    for (int sub = kNSub - 1; sub >= 0; --sub) {
-      const int jb = sub * kSub;
-      float ddt[kSub], dxa[kSub];
-#pragma unroll
-      for (int jj = 0; jj < kSub; ++jj) ddt[jj] = dxa[jj] = 0.f;
-#pragma unroll 1
-      for (int n = 0; n < N; ++n) {
-        const float An = Acs[n * kBwdCB + tid];
-        float hs[kSub + 1], aa[kSub], vals[2 * kSub];
-        hs[0] = hb[(sub * N + n) * kBwdCB + tid];
-#pragma unroll
-        for (int jj = 0; jj < kSub; ++jj) {
-          const int j = jb + jj;
-          const float dt = dts[tid * TLp + j];
-          aa[jj] = expf(dt * An);
-          hs[jj + 1] = fmaf(aa[jj], hs[jj], dt * xs[tid * TLp + j] * xd[(R + n) * kCk + j]);
-        }
-        float lam = lamc[n * kBwdCB + tid], an = anc[n * kBwdCB + tid], dA_n = 0.f;
-#pragma unroll
-        for (int jj = kSub - 1; jj >= 0; --jj) {
-          const int j = jb + jj;
-          const float gv = gs[tid * TLp + j], xv = xs[tid * TLp + j], dt = dts[tid * TLp + j];
-          const float Bn = xd[(R + n) * kCk + j], Cn = xd[(R + N + n) * kCk + j];
-          lam = fmaf(an, lam, gv * Cn);
-          an = aa[jj];
-          const float daa = lam * hs[jj] * aa[jj];
-          ddt[jj] = fmaf(daa, An, fmaf(lam * xv, Bn, ddt[jj]));
-          dxa[jj] = fmaf(lam * dt, Bn, dxa[jj]);
-          dA_n = fmaf(daa, dt, dA_n);
-          vals[jj] = lam * (dt * xv);      // dB_n: sum over channels of lambda du
-          vals[kSub + jj] = gv * hs[jj + 1];  // dC_n: sum over channels of g h
-        }
-        lamc[n * kBwdCB + tid] = lam;
-        anc[n * kBwdCB + tid] = an;
-        dAs[n * kBwdCB + tid] += dA_n;
-        warp_transpose_sum(vals, lane);
-        red[(warp * N + n) * 2 * kSub + lane] = vals[0];
-      }
-#pragma unroll
-      for (int jj = 0; jj < kSub; ++jj) {
-        const int j = jb + jj;
-        const float dd = ddt[jj] / (1.f + expf(-drs[tid * TLp + j]));  // * sigmoid
-        const float gv = gs[tid * TLp + j];
-        dbias_acc += dd;
-        dD_acc = fmaf(gv, xs[tid * TLp + j], dD_acc);
-        drs[tid * TLp + j] = dd;
-        xs[tid * TLp + j] = fmaf(dk, gv, dxa[jj]);
-      }
-      __syncthreads();
-      for (int e = tid; e < N * 2 * kSub; e += kBwdCB) {
-        const int n = e / (2 * kSub), q = e - n * 2 * kSub, kind = q / kSub, jj = q - kind * kSub;
-        if (jb + jj >= nt) continue;
-        float sum = 0.f;
-        for (int w = 0; w < kBwdCB / 32; ++w) sum += red[(w * N + n) * 2 * kSub + q];
-        bcpart[(((long)bs * nblk + blk) * 2 * N + kind * N + n) * L +
-               seq_pos(dir, L, i0 + jb + jj)] = sum;
-      }
-      __syncthreads();
-    }
-    for (int i = tid; i < nc * kCk; i += kBwdCB) {
-      const int cc = i / kCk, j = i - cc * kCk;
-      if (j >= nt) continue;
-      const long e = (long)(c0 + cc) * L + seq_pos(dir, L, i0 + j);
-      ddb[e] = drs[cc * TLp + j];
-      // the reverse direction's launch adds to the forward's dx
-      dxb[e] = dir ? dxb[e] + xs[cc * TLp + j] : xs[cc * TLp + j];
+    for (int e = tid; e < 2 * N * kSub; e += NT) {
+      const int jj = e % kSub, qn = e / kSub;  // qn = kind * N + n
+      if (jb + jj >= tl.nt) continue;
+      float sum = 0.f;
+      for (int w = 0; w < NW; ++w) sum += red[(w * 2 * N + qn) * (kSub + 1) + jj];
+      bcpart[((bs * (long)nblk + blk) * 2 * N + qn) * L + seq_pos(dir, L, tl.i0 + jb + jj)] = sum;
     }
     __syncthreads();
   }
-  if (valid) {
-    float* vp = vpart + ((((long)b * 2 + dir) * 2 + s) * C + c) * (N + 2);
-    for (int n = 0; n < N; ++n) vp[n] = dAs[n * kBwdCB + tid];
-    vp[N] = dbias_acc;
-    vp[N + 1] = dD_acc;
+  const long base = (long)bs * C * L;
+  float* ddb = ddtr + row * C * L;
+  for (int i = tid; i < tl.nc * kCk; i += NT) {
+    const int cc = i / kCk, j = i - cc * kCk;
+    if (j >= tl.nt) continue;
+    const float dd = dts[cc * TLp + j] / (1.f + expf(-drs[cc * TLp + j]));  // * sigmoid
+    const float dxv = fmaf(D[tl.k * C + tl.c0 + cc], gs[cc * TLp + j], dxs[cc * TLp + j]);
+    const long e = (long)(tl.c0 + cc) * L + seq_pos(dir, L, tl.i0 + j);
+    drs[cc * TLp + j] = dd;
+    ddb[e] = dd;
+    // the reverse direction's launch adds to the forward's dx
+    dx[base + e] = dir ? dx[base + e] + dxv : dxv;
+  }
+  __syncthreads();
+  if (!valid) return;
+  // per-chunk partial sums over positions: dA | dbias | dD at
+  // vpart[k][b][ci][c][N + 2]
+  float* vp = vpart + (((long)tl.k * B + b) * tl.nck + tl.ci) * C * (N + 2) + (long)c * (N + 2);
+  vp[tn] = dA;
+  if (tn == 0) {
+    float db = 0.f, dd = 0.f;
+    for (int j = 0; j < tl.nt; ++j) {
+      db += drs[tc * TLp + j];
+      dd = fmaf(gr[j], xr[j], dd);
+    }
+    vp[N] = db;
+    vp[N + 1] = dd;
   }
 }
 
@@ -493,21 +608,37 @@ int fwd_t(const void* x, const float* Wx, const float* Wdt, const float* bias, c
 }
 
 template <int N>
-int bwd_n(const float* x, const float* g, const float* Wx, const float* Wdt, const float* bias,
-          const float* A, const float* D, const float* ck, float* xdbl, float* ddtr,
-          float* bcpart, float* dxdbl, float* wpart, float* wpart2, float* vpart, float* dx,
-          float* dWx, float* dWdt, float* v, int B, int C, int L, int R, cudaStream_t st) {
-  const int P = R + 2 * N, nblk = (C + kBwdCB - 1) / kBwdCB;
-  const long PL = (long)P * L, CL = (long)C * L, PC = (long)P * C, CR = (long)C * R;
-  int e = project<float>(x, Wx, xdbl, B, C, L, P, st);
+int bwd_sum_n(const float* x, const float* g, const float* Wx, const float* Wdt,
+              const float* bias, const float* A, float* xdbl, float* aprod, float* msum, int B,
+              int C, int L, int R, cudaStream_t st) {
+  int e = project<float>(x, Wx, xdbl, B, C, L, R + 2 * N, st);
   if (e) return e;
-  const size_t smem = bwd_smem_floats(R, N) * sizeof(float);
-  cudaError_t ce = allow_smem(bwd_walk_kernel<N>, smem);
+  const size_t smem = bwd_smem_floats(R, N, false) * sizeof(float);
+  cudaError_t ce = allow_smem(bwd_sum_kernel<N>, smem);
   if (ce != cudaSuccess) return (int)ce;
-  dim3 grid(nblk, B * 2);
+  constexpr int CB = bwd_cb(N);
+  dim3 grid((L + kCk - 1) / kCk, (C + CB - 1) / CB, B * 4);
+  bwd_sum_kernel<N><<<grid, CB * N, smem, st>>>(g, xdbl, Wdt, bias, A, aprod, msum, C, L, R);
+  return (int)cudaGetLastError();
+}
+
+template <int N>
+int bwd_n(const float* x, const float* g, const float* Wx, const float* Wdt, const float* bias,
+          const float* A, const float* D, const float* ck, const float* carry, const float* xdbl,
+          float* ddtr, float* bcpart, float* dxdbl, float* wpart, float* wpart2, float* vpart,
+          float* vtmp, float* dx, float* dWx, float* dWdt, float* v, int B, int C, int L, int R,
+          cudaStream_t st) {
+  constexpr int CB = bwd_cb(N);
+  const int P = R + 2 * N, nblk = (C + CB - 1) / CB, nck = (L + kCk - 1) / kCk;
+  const long PL = (long)P * L, CL = (long)C * L, PC = (long)P * C, CR = (long)C * R;
+  int e;
+  const size_t smem = bwd_smem_floats(R, N, true) * sizeof(float);
+  cudaError_t ce = allow_smem(bwd_full_kernel<N>, smem);
+  if (ce != cudaSuccess) return (int)ce;
+  dim3 grid(nck, nblk, B * 2);
   for (int dir = 0; dir < 2; ++dir) {
-    bwd_walk_kernel<N><<<grid, kBwdCB, smem, st>>>(x, g, xdbl, Wdt, bias, A, D, ck, dx, ddtr,
-                                                  bcpart, vpart, C, L, R, dir);
+    bwd_full_kernel<N><<<grid, CB * N, smem, st>>>(x, g, xdbl, Wdt, bias, A, D, ck, carry, dx,
+                                                   ddtr, bcpart, vpart, B, C, L, R, dir);
     if ((e = (int)cudaGetLastError())) return e;
     // dB | dC rows of dxdbl[b, s, dir]: the channel blocks' partial sums
     if ((e = sum_over(bcpart, dxdbl + dir * PL + R * L, nblk, 2L * N * L, 2L * B,
@@ -537,8 +668,10 @@ int bwd_n(const float* x, const float* g, const float* Wx, const float* Wdt, con
     return e;
   if ((e = sum_over(wpart, dWx, B, 4 * PC, 1, 0, 0, 4 * PC, st))) return e;
   if ((e = sum_over(wpart2, dWdt, B, 4 * CR, 1, 0, 0, 4 * CR, st))) return e;
-  const long nv = 4L * C * (N + 2);
-  return sum_over(vpart, v, B, nv, 1, 0, 0, nv, st);
+  // dA | dbias | dD: the chunks' partial sums, then the images', each in order
+  const long nv = (long)C * (N + 2);
+  if ((e = sum_over(vpart, vtmp, nck, nv, 4L * B, nck * nv, nv, nv, st))) return e;
+  return sum_over(vtmp, v, B, nv, 4, B * nv, nv, nv, st);
 }
 
 }  // namespace bem
@@ -554,23 +687,49 @@ extern "C" int bem_ss2d_fused_fwd(const void* x, const float* Wx, const float* W
   return bem::fwd_t<float>(x, Wx, Wdt, bias, A, D, xdbl, y, ck, B, C, L, R, N, clamp, s);
 }
 
+// Channels per block of the backward passes at N states; the caller sizes
+// the per-block dB | dC partial sums by it.
+extern "C" int bem_ss2d_fused_bwd_cb(int N) { return N >= 1 ? bem::bwd_cb(N) : 0; }
+
+#define BEM_BY_N(CALL)                                         \
+  switch (N) {                                                 \
+    case 1: return CALL(1);                                    \
+    case 2: return CALL(2);                                    \
+    case 4: return CALL(4);                                    \
+    case 8: return CALL(8);                                    \
+    case 16: return CALL(16);                                  \
+    default: return (int)cudaErrorInvalidValue;                \
+  }
+
+// Backward pass 1: the projection xdbl (B, 2, 2, P, L) and both directions'
+// chunk summaries, aprod / msum (B*2*2, nck, C*N) with nck = ceil(L / 32):
+// each chunk's decay and mu from 0 (the carry's a and b, in reverse).
+extern "C" int bem_ss2d_fused_bwd_sum(const float* x, const float* g, const float* Wx,
+                                      const float* Wdt, const float* bias, const float* A,
+                                      float* xdbl, float* aprod, float* msum, int B, int C,
+                                      int L, int R, int N, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+#define BEM_SUM(NN) bem::bwd_sum_n<NN>(x, g, Wx, Wdt, bias, A, xdbl, aprod, msum, B, C, L, R, s)
+  BEM_BY_N(BEM_SUM)
+#undef BEM_SUM
+}
+
+// Backward pass 3 and the gradients: carry (B*2*2, nck, C*N), the reverse
+// linear_scan of pass 1's summaries; xdbl from pass 1. Outputs dx
+// (B, 2, C, L), dWx (4, P, C), dWdt (4, C, R), v (4, C, N + 2) = dA | dbias
+// | dD; the rest is scratch.
 extern "C" int bem_ss2d_fused_bwd(const float* x, const float* g, const float* Wx,
                                   const float* Wdt, const float* bias, const float* A,
-                                  const float* D, const float* ck, float* xdbl, float* ddtr,
-                                  float* bcpart, float* dxdbl, float* wpart, float* wpart2,
-                                  float* vpart, float* dx, float* dWx, float* dWdt, float* v,
-                                  int B, int C, int L, int R, int N, void* stream) {
+                                  const float* D, const float* ck, const float* carry,
+                                  const float* xdbl, float* ddtr, float* bcpart, float* dxdbl,
+                                  float* wpart, float* wpart2, float* vpart, float* vtmp,
+                                  float* dx, float* dWx, float* dWdt, float* v, int B, int C,
+                                  int L, int R, int N, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
 #define BEM_BWD(NN)                                                                          \
-  return bem::bwd_n<NN>(x, g, Wx, Wdt, bias, A, D, ck, xdbl, ddtr, bcpart, dxdbl, wpart,     \
-                        wpart2, vpart, dx, dWx, dWdt, v, B, C, L, R, s)
-  switch (N) {
-    case 1: BEM_BWD(1);
-    case 2: BEM_BWD(2);
-    case 4: BEM_BWD(4);
-    case 8: BEM_BWD(8);
-    case 16: BEM_BWD(16);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  bem::bwd_n<NN>(x, g, Wx, Wdt, bias, A, D, ck, carry, xdbl, ddtr, bcpart, dxdbl, wpart,      \
+                 wpart2, vpart, vtmp, dx, dWx, dWdt, v, B, C, L, R, s)
+  BEM_BY_N(BEM_BWD)
 #undef BEM_BWD
 }
+#undef BEM_BY_N

@@ -19,11 +19,15 @@ Weights: Wx (4, P, C), Wdt (4, C, R), bias (4, C), A (4, C, N) (negative,
 already -exp(A_logs)), D (4, C).
 
 The wrapper is an autograd.Function. Its backward (kernel 9,
-ss2d_fused_bwd.py::run_bwd) recomputes each CKPT-long chunk's states from
-the entering states the forward checkpoints and runs the lambda recurrence
-opposite to each scan; it differentiates the unclamped function, also after
-a clamped forward (ss2d_fused_g.py:323-339 re-runs the unclamped VJP), so a
-clamped forward writes no checkpoints and the backward recomputes them.
+ss2d_fused_bwd.py::run_bwd) runs the lambda recurrence opposite to each
+scan as a chunked reverse scan over the CKPT-long chunks whose entering
+states the forward checkpoints: a summary pass (each chunk's decay and
+mu = a lambda at its first position, from 0), a reverse
+:func:`..scan.linear_scan` over the chunks, and a full pass that takes
+every chunk at once, h from its checkpoint and lambda from the next
+chunk's mu. It differentiates the unclamped function, also after a clamped
+forward (ss2d_fused_g.py:323-339 re-runs the unclamped VJP), so a clamped
+forward writes no checkpoints and the backward recomputes them.
 
 On CPU tensors the wrappers run the plain versions below: the forward as a
 composition on the doubling scan, the backward as its formulas written out
@@ -37,7 +41,7 @@ import torch
 
 from .. import _build
 from ._common import check_stream, on_cuda, ptr, weight
-from .scan import scan_plain
+from .scan import linear_scan, scan_plain
 
 W_CLAMP = -10.0  # ss2d_fused_g.py:52
 CKPT = 32        # scan positions per state checkpoint (the CUDA kernels' chunk)
@@ -203,24 +207,33 @@ def _bwd_run(xs2, Wx, Wdt, bias, A, D, g, ck):
     B, _, C, L = xs2.shape
     P, N = w[0].shape[1], w[3].shape[-1]
     R = P - 2 * N
-    nblk = -(-C // 64)  # channel blocks of the backward walk (kBwdCB in the source)
+    nck = -(-L // CKPT)
+    nblk = -(-C // _build.load().bem_ss2d_fused_bwd_cb(N))  # channel blocks of the passes
     f32 = dict(dtype=torch.float32, device=xs2.device)
     x = xs2.float().contiguous()
     g = g.float().contiguous()
+    xdbl = torch.empty((B, 2, 2, P, L), **f32)        # the projection, recomputed
+    # per (image, stream, direction) and chunk: the decay and mu = a lambda
+    # at the chunk's first position, walked back from 0 (the carry's a, b)
+    aprod, msum = (torch.empty((B * 4, nck, C * N), **f32) for _ in range(2))
+    _build.call("bem_ss2d_fused_bwd_sum", ptr(x), ptr(g), *map(ptr, w[:4]), ptr(xdbl),
+                ptr(aprod), ptr(msum), B, C, L, R, N)
+    ss2d_dir_fused_bwd.launches += 1
+    carry = linear_scan(aprod, msum, reverse=True)
     scratch = [torch.empty(s, **f32) for s in (
-        (B, 2, 2, P, L),            # xdbl (recomputed)
         (B, 2, 2, C, L),            # ddtr: d loss / d dt pre-activation
         (B, 2, nblk, 2 * N, L),     # per-channel-block dB / dC partial sums
         (B, 2, 2, P, L),            # dxdbl
         (B, 4, P, C),               # per-image dWx
         (B, 4, C, R),               # per-image dWdt
-        (B, 4, C, N + 2))]          # per-image (dA | dbias | dD)
+        (4, B, nck, C, N + 2),      # per-chunk (dA | dbias | dD)
+        (4, B, C, N + 2))]          # per-image (dA | dbias | dD)
     dx = torch.empty((B, 2, C, L), **f32)
     dWx = torch.empty((4, P, C), **f32)
     dWdt = torch.empty((4, C, R), **f32)
     v = torch.empty((4, C, N + 2), **f32)
-    _build.call("bem_ss2d_fused_bwd", ptr(x), ptr(g), *map(ptr, w), ptr(ck),
-                *map(ptr, scratch), ptr(dx), ptr(dWx), ptr(dWdt), ptr(v), B, C, L, R, N)
+    _build.call("bem_ss2d_fused_bwd", ptr(x), ptr(g), *map(ptr, w), ptr(ck), ptr(carry),
+                ptr(xdbl), *map(ptr, scratch), ptr(dx), ptr(dWx), ptr(dWdt), ptr(v), B, C, L, R, N)
     ss2d_dir_fused_bwd.launches += 1
     return (dx.to(xs2.dtype), dWx, dWdt, v[..., N].contiguous(), v[..., :N].contiguous(),
             v[..., N + 1].contiguous())

@@ -15,12 +15,16 @@ from its entry state and writes round(y_f) + y_r + (D_f + D_r) * x, with
 y_f rounded to the stream dtype first, as the Pallas pair does.
 
 ``ss2d_col_pair(xrow, Wx, Wdt, bias, A, D, y0, H, W)`` runs both column
-directions (1/3) on the ROW-major stream, as ss2d_col_pair_g does: one
-summary pass over both directions (:func:`ss2d_col_sum`), two
-cross-column scans on :func:`..scan.linear_scan`, and one full pass per
-direction (:func:`ss2d_col_dir`); the first merges ``y0`` and the
-combined D term, the second adds the first's rounded output. Its CUDA
-kernels are in ``csrc/ss2d_col.cu``.
+directions (1/3) on the ROW-major stream, the function of
+ss2d_col_pair_g, as a chunked, parallel-in-H scan (``csrc/ss2d_col.cu``):
+one summary pass over both directions writes every chunk's decay and end
+state from 0 (:func:`ss2d_col_sum`), two :func:`..scan.linear_scan` over
+the column-major sequence of chunks carry the state across chunks and
+columns, and one full pass (:func:`ss2d_col_dir`) walks both directions
+of every chunk from its entry state and writes
+round(y_r + round(y_f + (D_f + D_r) x + y0)), bem_tpu's rounding points.
+The chunk length comes from the kernel source (:func:`col_chunk`); the
+plain pair walks one chunk per column.
 
 The forward passes clamp the log-decay at -10 (``W_CLAMP`` of the TPU
 kernels), and so do their plain versions, which match the kernels and not
@@ -45,11 +49,12 @@ def _softplus(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(v, min=0.0) + torch.log1p(torch.exp(-v.abs()))
 
 
-def _decay_input(x, Wx, Wdt, bias, A):
+def _decay_input(x, Wx, Wdt, bias, A, clamp: bool = True):
     """Per-position scan operands of one direction in fp32. x (B, C, ...)
     fp32; Wx (P, C); Wdt (C, R); bias (C,); A (C, N). Returns the
-    projection rows xdbl (B, P, ...), the clamped log-decays w and the
-    inputs b, each a list of N tensors shaped like x."""
+    projection rows xdbl (B, P, ...), the log-decays w (clamped at -10
+    unless ``clamp`` is False) and the inputs b, each a list of N tensors
+    shaped like x."""
     N = A.shape[-1]
     R = Wx.shape[0] - 2 * N
     ex = (1,) * (x.dim() - 2)
@@ -57,7 +62,9 @@ def _decay_input(x, Wx, Wdt, bias, A):
     dt = _softplus(torch.einsum("cr,br...->bc...", Wdt, xdbl[:, :R])
                    + bias.reshape(1, -1, *ex))
     du = dt * x
-    w = [torch.clamp(dt * A[:, n].reshape(1, -1, *ex), min=W_CLAMP) for n in range(N)]
+    w = [dt * A[:, n].reshape(1, -1, *ex) for n in range(N)]
+    if clamp:
+        w = [torch.clamp(wn, min=W_CLAMP) for wn in w]
     b = [du * xdbl[:, R + n:R + n + 1] for n in range(N)]
     return xdbl, w, b
 
@@ -177,108 +184,137 @@ def _col_check(name, x, H, W, *dirs):
                                  f"expected fp32 contiguous {shape} on {x.device}")
 
 
-def ss2d_col_sum_plain(x, fwd, rev, H: int, W: int):
-    """The plain PyTorch version of :func:`ss2d_col_sum`, on any device."""
+def col_chunk(C: int, R: int, N: int, dtype) -> int:
+    """Rows per chunk of the column pair's kernels at C channels, R dt-rank
+    rows, N states and the stream dtype (``kColChunk`` of csrc/ss2d_col.cu,
+    halved there where the full pass's shared memory needs it)."""
+    return _build.load().bem_ss2d_col_chunk(C, R, N, int(dtype == torch.bfloat16))
+
+
+def _chunked(t, T: int):
+    """(B, C, H, W, ...) -> (B, C, nch, T, W, ...), zero rows past H."""
+    H = t.shape[2]
+    nch = -(-H // T)
+    pad = [0, 0] * (t.dim() - 3) + [0, nch * T - H]
+    return torch.nn.functional.pad(t, pad).reshape(*t.shape[:2], nch, T, *t.shape[3:])
+
+
+def _chunk_layout(t):
+    """(B, C, nch, W, N) -> the summaries' (B, W*nch, C*N): the column-major
+    sequence of chunks, index w*nch + k."""
+    B, C, nch, W, N = t.shape
+    return t.permute(0, 3, 2, 1, 4).reshape(B, W * nch, C * N).contiguous()
+
+
+def _chunk_operands(x, Wx, Wdt, bias, A, T: int, clamp: bool):
+    """One direction's log-decays w and inputs b per row, (B, C, nch, T, W,
+    N), zero on the rows past H, and its projection rows."""
+    xdbl, w, b = _decay_input(x, Wx, Wdt, bias, A, clamp)
+    return _chunked(torch.stack(w, -1), T), _chunked(torch.stack(b, -1), T), xdbl
+
+
+def ss2d_col_sum_plain(x, fwd, rev, H: int, W: int, T: int, clamp: bool = True):
+    """The plain PyTorch version of :func:`ss2d_col_sum`, on any device
+    (``clamp`` False: the same without the -10 clamp, for the checks)."""
     _col_check("ss2d_col_sum", x, H, W, fwd, rev)
     B, C, _ = x.shape
     xi = x.float().reshape(B, C, H, W)
     out = []
     for (Wx, Wdt, bias, A), reverse in ((fwd, False), (rev, True)):
-        _, w, b = _decay_input(xi, Wx, Wdt, bias, A)
-        # forward: the state at the column bottom; reverse (bottom-up): its
-        # state at the column top, each from 0
-        row = 0 if reverse else H - 1
-        send = [scan_plain(torch.exp(wn), bn, reverse, dim=-2)[:, :, row] for wn, bn in zip(w, b)]
-        stot = [wn.sum(dim=2) for wn in w]
-        out += [torch.cat(send, -1).contiguous(), torch.cat(stot, -1).contiguous()]
+        w, b, _ = _chunk_operands(xi, Wx, Wdt, bias, A, T, clamp)
+        # each chunk from 0: forward its bottom row's state, reverse (walked
+        # bottom-up) its top row's; the decay summed in log space
+        end = scan_plain(torch.exp(w), b, reverse, dim=3)[:, :, :, 0 if reverse else T - 1]
+        out += [_chunk_layout(torch.exp(w.sum(3))), _chunk_layout(end)]
     return tuple(out)
 
 
-def ss2d_col_sum(x, fwd, rev, H: int, W: int):
-    """Both column directions' summaries in one top-down walk.
+def ss2d_col_sum(x, fwd, rev, H: int, W: int, T: int):
+    """Both column directions' chunk summaries in one top-down walk.
 
     x (B, C, H*W) row-major stream; fwd / rev = (Wx (P, C), Wdt (C, R),
-    bias (C,), A (C, N)) fp32 of directions 1 and 3. Returns (send_f,
-    stot_f, send_r, stot_r), each (B, C, N*W) fp32 at [.., n*W + w]: each
-    column's end state from 0 (forward: bottom, reverse: top) and its sum
-    of clamped log-decays."""
+    bias (C,), A (C, N)) fp32 of directions 1 and 3; T rows per chunk
+    (:func:`col_chunk` on the card). Returns (a_f, b_f, a_r, b_r), each
+    (B, W*nch, C*N) fp32 with nch = ceil(H / T), at [b, w*nch + k, c*N + n]:
+    chunk k of column w's decay exp(sum of clamped log-decays) and its end
+    state from 0 (forward: at the chunk's bottom row; reverse: at its top)."""
     if not on_cuda(x, "ss2d_col_sum"):
-        return ss2d_col_sum_plain(x, fwd, rev, H, W)
+        return ss2d_col_sum_plain(x, fwd, rev, H, W, T)
     _col_check("ss2d_col_sum", x, H, W, fwd, rev)
     B, C, _ = x.shape
     N = fwd[3].shape[-1]
     R = fwd[0].shape[0] - 2 * N
-    out = [torch.empty((B, C, N * W), dtype=torch.float32, device=x.device) for _ in range(4)]
+    out = [torch.empty((B, W * -(-H // T), C * N), dtype=torch.float32, device=x.device)
+           for _ in range(4)]
     _build.call("bem_ss2d_col_sum", ptr(x), *map(ptr, fwd), *map(ptr, rev), *map(ptr, out),
-                B, C, H, W, R, N, int(x.dtype == torch.bfloat16))
+                B, C, H, W, R, N, T, int(x.dtype == torch.bfloat16))
     ss2d_col_sum.launches += 1
     return tuple(out)
 
 
-def ss2d_col_dir_plain(x, wts, sinit, yin, H: int, W: int, reverse: bool):
-    """The plain PyTorch version of :func:`ss2d_col_dir`, on any device."""
-    _col_check("ss2d_col_dir", x, H, W, wts)
-    Wx, Wdt, bias, A, D = wts
+def ss2d_col_dir_plain(x, fwd, rev, h_f, h_r, y0, H: int, W: int, T: int,
+                       clamp: bool = True):
+    """The plain PyTorch version of :func:`ss2d_col_dir`, on any device
+    (``clamp`` False: the same without the -10 clamp, for the checks)."""
+    _col_check("ss2d_col_dir", x, H, W, fwd, rev)
     B, C, _ = x.shape
-    N = A.shape[-1]
-    R = Wx.shape[0] - 2 * N
+    N = fwd[3].shape[-1]
+    R = fwd[0].shape[0] - 2 * N
+    nch = -(-H // T)
     xi = x.float().reshape(B, C, H, W)
-    xdbl, w, b = _decay_input(xi, Wx, Wdt, bias, A)
-    y = D.reshape(1, -1, 1, 1) * xi if D is not None else torch.zeros_like(xi)
-    row = H - 1 if reverse else 0
-    for n in range(N):
-        a = torch.exp(w[n])
-        s = sinit[:, :, n * W:(n + 1) * W].float()
-        # the entry state folds into the first row walked
-        bn = b[n].clone()
-        bn[:, :, row] = bn[:, :, row] + a[:, :, row] * s
-        h = scan_plain(a, bn, reverse, dim=-2)
-        y = y + xdbl[:, R + N + n:R + N + n + 1] * h
-    y = y.reshape(B, C, H * W)
-    if yin is not None:
-        y = y + yin.float()
-    return y.to(x.dtype).contiguous()
+    zero = torch.zeros_like(h_f[:, :1])
+    ys = []
+    for (Wx, Wdt, bias, A, _), h_inc, reverse in ((fwd, h_f, False), (rev, h_r, True)):
+        # the entry state: the inclusive state of the chunk walked just before
+        hin = (torch.cat([h_inc[:, 1:], zero], 1) if reverse
+               else torch.cat([zero, h_inc[:, :-1]], 1))
+        hin = hin.float().reshape(B, W, nch, C, N).permute(0, 3, 2, 1, 4)  # (B, C, nch, W, N)
+        w, b, xdbl = _chunk_operands(xi, Wx, Wdt, bias, A, T, clamp)
+        a = torch.exp(w)
+        row = T - 1 if reverse else 0  # it folds into the first row walked
+        b[:, :, :, row] = b[:, :, :, row] + a[:, :, :, row] * hin
+        h = scan_plain(a, b, reverse, dim=3)
+        cq = _chunked(xdbl[:, R + N:], T).permute(0, 2, 3, 4, 1)   # (B, nch, T, W, N)
+        y = (h * cq[:, None]).sum(-1).reshape(B, C, nch * T, W)[:, :, :H]
+        ys.append(y.reshape(B, C, H * W))
+    y_f, y_r = ys
+    # bem_tpu's rounding points: round(y_f + (D_f + D_r) x + y0), then round(y_r + that)
+    y1 = y_f + fwd[4].reshape(1, -1, 1) * x.float()
+    if y0 is not None:
+        y1 = y1 + y0.float()
+    return (y_r + y1.to(x.dtype).float()).to(x.dtype).contiguous()
 
 
-def ss2d_col_dir(x, wts, sinit, yin, H: int, W: int, reverse: bool):
-    """One column direction's full scan from per-column entry states.
+def ss2d_col_dir(x, fwd, rev, h_f, h_r, y0, H: int, W: int, T: int):
+    """Both column directions' full scans from the carry's chunk states, in
+    one pass.
 
-    x (B, C, H*W); wts = (Wx, Wdt, bias, A, D or None) fp32; sinit
-    (B, C, N*W) fp32; yin (B, C, H*W) in x.dtype or None. Walks top-down
-    (bottom-up when ``reverse``) and returns y = sum_n C_n h_n [+ D x]
-    [+ yin] in x.dtype."""
+    x (B, C, H*W); fwd = (Wx, Wdt, bias, A, D_f + D_r), rev = (Wx, Wdt,
+    bias, A, None) fp32 of directions 1 and 3; h_f / h_r (B, W*nch, C*N)
+    fp32, the inclusive state of every chunk (the carry scans over
+    :func:`ss2d_col_sum`'s summaries, same T); y0 (B, C, H*W) in x.dtype or
+    None. Returns round(y_r + round(y_f + (D_f + D_r) x + y0)) in x.dtype."""
     if not on_cuda(x, "ss2d_col_dir"):
-        return ss2d_col_dir_plain(x, wts, sinit, yin, H, W, reverse)
-    _col_check("ss2d_col_dir", x, H, W, wts)
+        return ss2d_col_dir_plain(x, fwd, rev, h_f, h_r, y0, H, W, T)
+    _col_check("ss2d_col_dir", x, H, W, fwd, rev)
     B, C, L = x.shape
-    N = wts[3].shape[-1]
-    R = wts[0].shape[0] - 2 * N
-    if yin is not None:
-        check_stream("ss2d_col_dir", yin, x.shape)
-        if yin.dtype != x.dtype:
-            raise TypeError("ss2d_col_dir: yin dtype differs from x")
-    if sinit.shape != (B, C, N * W) or sinit.dtype != torch.float32 or not sinit.is_contiguous():
-        raise ValueError(f"ss2d_col_dir: sinit {tuple(sinit.shape)} {sinit.dtype}")
+    N = fwd[3].shape[-1]
+    R = fwd[0].shape[0] - 2 * N
+    if y0 is not None:
+        check_stream("ss2d_col_dir", y0, x.shape)
+        if y0.dtype != x.dtype:
+            raise TypeError("ss2d_col_dir: y0 dtype differs from x")
+    shape = (B, W * -(-H // T), C * N)
+    for h in (h_f, h_r):
+        if h.shape != shape or h.dtype != torch.float32 or not h.is_contiguous():
+            raise ValueError(f"ss2d_col_dir: chunk states {tuple(h.shape)} {h.dtype}, "
+                             f"expected fp32 contiguous {shape}")
     y = torch.empty_like(x)
-    _build.call("bem_ss2d_col_dir", ptr(x), *map(ptr, wts), ptr(sinit), ptr(yin), ptr(y),
-                B, C, H, W, R, N, int(reverse), int(x.dtype == torch.bfloat16))
+    _build.call("bem_ss2d_col_full", ptr(x), *map(ptr, fwd[:4]), *map(ptr, rev[:4]),
+                ptr(fwd[4]), ptr(h_f), ptr(h_r), ptr(y0), ptr(y), B, C, H, W, R, N, T,
+                int(x.dtype == torch.bfloat16))
     ss2d_col_dir.launches += 1
     return y
-
-
-def _col_cross_scan(send, stot, N: int, W: int, reverse: bool, scan=linear_scan):
-    """Column entry states from the summaries (ss2d_seq.py:429-448): the
-    W-long recurrence s(w) = exp(stot(w-/+1)) s(w-/+1) + send(w-/+1);
-    forward, column w enters with column w-1's end state (column 0 with
-    0); reverse, with column w+1's (column W-1 with 0)."""
-    B, C, _ = send.shape
-    aT = torch.exp(stot).reshape(B, C, N, W).permute(0, 3, 1, 2).reshape(B, W, C * N)
-    bT = send.reshape(B, C, N, W).permute(0, 3, 1, 2).reshape(B, W, C * N)
-    s_inc = scan(aT.contiguous(), bT.contiguous(), reverse)
-    zero = torch.zeros_like(s_inc[:, :1])
-    s_init = (torch.cat([s_inc[:, 1:], zero], 1) if reverse
-              else torch.cat([zero, s_inc[:, :-1]], 1))
-    return s_init.reshape(B, W, C, N).permute(0, 2, 3, 1).reshape(B, C, N * W).contiguous()
 
 
 def _col_args(xrow, Wx, Wdt, bias, A, D, y0, H, W):
@@ -290,31 +326,37 @@ def _col_args(xrow, Wx, Wdt, bias, A, D, y0, H, W):
     d_f, d_r = PAIRS["col"]
     Wx, Wdt, bias, A, D = _dir_weights(Wx, Wdt, bias, A, D, xrow.device, xrow.shape[1])
     # both directions scan the same x: the D*x terms fold into the first
-    # full pass, as in ss2d_col_pair_g
+    # rounding point, as in ss2d_col_pair_g
     fwd = (Wx[d_f], Wdt[d_f], bias[d_f], A[d_f], (D[d_f] + D[d_r]).contiguous())
     rev = (Wx[d_r], Wdt[d_r], bias[d_r], A[d_r], None)
     return fwd, rev
 
 
-def _col_pair(xrow, fwd, rev, y0, H, W, col_sum, col_dir, scan):
-    N = fwd[3].shape[-1]
-    send_f, stot_f, send_r, stot_r = col_sum(xrow, fwd[:4], rev[:4], H, W)
-    sinit_f = _col_cross_scan(send_f, stot_f, N, W, False, scan)
-    sinit_r = _col_cross_scan(send_r, stot_r, N, W, True, scan)
-    y = col_dir(xrow, fwd, sinit_f, y0, H, W, False)
-    return col_dir(xrow, rev, sinit_r, y, H, W, True)
+def _col_pair(xrow, fwd, rev, y0, H, W, T, col_sum, col_dir, scan):
+    """Summaries, the two carries over the column-major chunk sequence, the
+    full pass."""
+    a_f, b_f, a_r, b_r = col_sum(xrow, fwd[:4], rev[:4], H, W, T)
+    h_f = scan(a_f, b_f, False)
+    h_r = scan(a_r, b_r, True)
+    return col_dir(xrow, fwd, rev, h_f, h_r, y0, H, W, T)
 
 
 def ss2d_col_pair_plain(xrow, Wx, Wdt, bias, A, D, y0, H: int, W: int):
-    """The plain PyTorch version of :func:`ss2d_col_pair`, on any device."""
+    """The plain PyTorch version of :func:`ss2d_col_pair`, on any device
+    (one chunk per column)."""
     fwd, rev = _col_args(xrow, Wx, Wdt, bias, A, D, y0, H, W)
-    return _col_pair(xrow, fwd, rev, y0, H, W, ss2d_col_sum_plain, ss2d_col_dir_plain,
+    return _col_pair(xrow, fwd, rev, y0, H, W, H, ss2d_col_sum_plain, ss2d_col_dir_plain,
                      linear_scan_plain)
 
 
 def _col_pair_run(xrow, Wx, Wdt, bias, A, D, y0, H, W):
     fwd, rev = _col_args(xrow, Wx, Wdt, bias, A, D, y0, H, W)
-    return _col_pair(xrow, fwd, rev, y0, H, W, ss2d_col_sum, ss2d_col_dir, linear_scan)
+    if not on_cuda(xrow, "ss2d_col_pair"):
+        T = H
+    else:
+        N = fwd[3].shape[-1]
+        T = col_chunk(xrow.shape[1], fwd[0].shape[0] - 2 * N, N, xrow.dtype)
+    return _col_pair(xrow, fwd, rev, y0, H, W, T, ss2d_col_sum, ss2d_col_dir, linear_scan)
 
 
 # ---------------------------------------------------------------------------

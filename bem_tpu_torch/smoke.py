@@ -12,6 +12,7 @@ and operations a case must move and do, for its bound on the card.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Callable
@@ -77,6 +78,7 @@ CLS_KERNELS = ("ss2d_dir_fused", "ss2d_dir_fused_bwd", "ss2d_dir_fused_g")
 # the scan-pattern forward types' core (v051d / v052d) and the microbenchmarks
 SCAN_KERNELS = ("selective_scan_fused",)
 MICROBENCH_KERNELS = ("vpu_scan_step", "vpu_op_rounds")
+COL_KERNELS = ("ss2d_col_sum", "ss2d_col_dir")
 
 # (label, B, C, H, W): the serving path's levels at the 448x640 IE input
 # (C = 40 / 80 / 160) and the CG's top level at 28x40, two images each
@@ -112,6 +114,8 @@ CLS_SHAPES = [
     ("VMamba-T S2 14x14 C768", 2, 768, 14, 14, 24, 16),
     ("VMamba-T S3 7x7 C1536", 2, 1536, 7, 7, 48, 16),
 ]
+# the classifier's training batch (the harness's default): row 9 at stage 0
+CLS_TRAIN_BATCH = 128
 SMALL_CLS_SHAPES = [("small 6x10 C24", 2, 24, 6, 10, 2, 16), ("small 5x7 C70", 1, 70, 5, 7, 3, 4)]
 # the case whose numbers the summary reports: (label, dtype) per kernel
 HEADLINE = {name: ("IE-L0 448x640 C40", "bfloat16") for name in KERNELS}
@@ -144,6 +148,9 @@ PER_OUTPUT = ("ss2d_dir_fused_bwd",)
 # probe's positions (see _clamp_probe) as rows of their own
 PER_ROW = ("ss2d_dir_fused", "ss2d_dir_fused_g", "ss2d_dir_fused_bwd", "selective_scan_fused")
 GRAD_TOL = 1e-4  # of each gradient's largest entry: two fp32 orders of summation
+# kernels whose every output must be bit-identical over two launches (no
+# atomics: each cross-block sum is an ordered pass)
+BIT_EXACT = ("ss2d_dir_fused_bwd",)
 
 
 @dataclass
@@ -156,8 +163,17 @@ class Case:
     # the fused forward: err / tol of the kernel against the plain version
     # with the other clamp setting (set by compare; must exceed 1)
     other_clamp: float | None = None
-    # > 0: the plain version runs on slices of this many images of args[0]
+    # > 0: the plain version runs on slices of this many images of the
+    # args at ``batch_args`` (the stream first)
     plain_slice: int = 0
+    batch_args: tuple = (0,)
+    # the plain version's outputs after the first are sums over images
+    # (the backward's weight gradients): added over the slices
+    sum_rest: bool = False
+    probe_out: int = 0  # the output the probe's elements belong to
+    row_axis: int = -1  # PER_ROW / probe checks: the axis a row runs along
+    # BIT_EXACT kernels: whether a second launch gave the same bits (compare)
+    repeatable: bool | None = None
 
     @property
     def fn(self) -> Callable:
@@ -165,11 +181,26 @@ class Case:
 
     @property
     def plain(self) -> Callable:
+        return self.plain_with()
+
+    def plain_with(self, **kw) -> Callable:
+        """The plain version (with keyword arguments ``kw``), on slices of
+        ``plain_slice`` images where that is set."""
         fn, n = KERNELS[self.name][1], self.plain_slice
+        if kw:
+            fn = functools.partial(fn, **kw)
         if not n:
             return fn
-        return lambda x, *rest: torch.cat([fn(x[i:i + n], *rest)
-                                           for i in range(0, x.shape[0], n)])
+
+        def sliced(*args):
+            B = args[0].shape[0]
+            parts = [_outputs(fn(*(a[i:i + n] if j in self.batch_args and a is not None else a
+                                   for j, a in enumerate(args))))
+                     for i in range(0, B, n)]
+            outs = tuple(torch.cat(o) if j == 0 or not self.sum_rest else sum(o)
+                         for j, o in enumerate(zip(*parts)))
+            return outs if len(outs) > 1 else outs[0]
+        return sliced
 
 
 def _uniform(rng, shape, bound):
@@ -219,17 +250,10 @@ def _cases_for(label, B, C, H, W, dtype, device, seed):
     clamp_w = _scan_weights(rng, C, t, clamp=True)
     cases.append(Case("ss2d_seq_pair", label, dtype, (s(xs), *scan_w, "row")))
     cases.append(Case("ss2d_seq_pair", label + " clamp", dtype, (s(xs), *clamp_w, "col")))
-    for w, tag in ((scan_w, ""), (clamp_w, " clamp")):
-        cases.append(Case("ss2d_col_sum", label + tag, dtype,
-                          (s(xs), _dir(w, 1)[:4], _dir(w, 3)[:4], H, W)))
+    cases += _col_cases(label, dtype, rng, t, xs, H, W, scan_w, False, device)
+    cases += _col_cases(label, dtype, rng, t, xs, H, W, clamp_w, True, device)
     N = scan_w[3].shape[-1]
-    sinit = t(rng.standard_normal((B, C, N * W)))
-    yin = s(rng.standard_normal((B, C, L)))
-    cases.append(Case("ss2d_col_dir", label, dtype,
-                      (s(xs), _dir(scan_w, 1), sinit, yin, H, W, False)))
-    cases.append(Case("ss2d_col_dir", label + " clamp", dtype,
-                      (s(xs), _dir(clamp_w, 3, with_d=False), sinit, yin, H, W, True)))
-    if dtype == torch.float32:  # the cross-column carry: (B, W, C*N) fp32
+    if dtype == torch.float32:  # a carry over (B, W, C*N) fp32
         a = t(np.exp(-rng.uniform(0.0, 3.0, (B, W, C * N))))
         b = t(rng.standard_normal((B, W, C * N)))
         for rev in (False, True):
@@ -240,6 +264,64 @@ def _cases_for(label, B, C, H, W, dtype, device, seed):
         s(y0), s(rng.standard_normal((B, C, L))), t(lns), t(lnb),
         t(_uniform(rng, (C, C), C ** -0.5)), None, s(rng.standard_normal((B, C, L))))))
     cases.append(_gdmlp_case(label, dtype, rng, t, s(x), H, W, lns, lnb))
+    return cases
+
+
+def _col_dirs(w):
+    """The column pair's (forward, reverse) weights as the pair hands them
+    to its passes: directions 1 and 3, D_1 + D_3 on the forward."""
+    fwd = _dir(w, 1, with_d=False)[:4] + ((w[4][1] + w[4][3]).contiguous(),)
+    return fwd, _dir(w, 3, with_d=False)
+
+
+def col_chunk_for(C, w, dtype, device, H):
+    """The column pair's chunk length on the card (csrc/ss2d_col.cu);
+    one chunk per column for CPU cases."""
+    N = w[3].shape[-1]
+    if torch.device(device).type != "cuda":
+        return H
+    return _seq.col_chunk(C, w[0].shape[1] - 2 * N, N, dtype)
+
+
+def _col_cases(label, dtype, rng, t, xs, H, W, w, probe, device, y0=True):
+    """Rows 5 and 6 (the column pair's summary and full pass) on the stream
+    xs (numpy (B, C, H*W)) with weights w, at the card's chunk length; the
+    full pass from random chunk states, with y0 unless ``probe``. ``probe``
+    (w the clamp-hitting weights): x zero at the odd rows of the clamped
+    channels, where b = 0 and the state is the decay of the row above's
+    alone (exp(-10) clamped, <= exp(-11) unclamped): the full pass's
+    output there (rows along H*W), and the forward summaries of chunks
+    ending on such a row (rows along the chunk sequence: a chunk's sum
+    over its rows may cancel to far below its channel's scale), are held
+    apart as rows of their own, and must fail the check against the
+    unclamped function."""
+    B, C, L = xs.shape
+    N = w[3].shape[-1]
+    fwd, rev = _col_dirs(w)
+    T = col_chunk_for(C, w, dtype, device, H)
+    nch = -(-H // T)
+    x = xs.copy()
+    if probe:
+        mask = np.zeros((B, C, H, W), bool)
+        mask[:, ::3, 1::2] = True
+        x[mask.reshape(B, C, L)] = 0.0
+    xt = t(x).to(dtype)
+    h_f, h_r = (t(rng.standard_normal((B, W * nch, C * N))) for _ in range(2))
+    yin = t(rng.standard_normal((B, C, L))).to(dtype) if y0 and not probe else None
+    tag = " clamp" if probe else ""
+    cases = [Case("ss2d_col_sum", label + tag, dtype, (xt, fwd[:4], rev[:4], H, W, T)),
+             Case("ss2d_col_dir", label + tag, dtype, (xt, fwd, rev, h_f, h_r, yin, H, W, T),
+                  batch_args=(0, 3, 4, 5))]
+    if probe:
+        ends = np.minimum(np.arange(1, nch + 1) * T, H) - 1
+        if not (ends % 2 == 1).any():
+            raise ValueError(f"column probe at H={H}, T={T}: no chunk ends on a zeroed row")
+        m = np.zeros((B, W, nch, C, N), bool)
+        m[:, :, ends % 2 == 1, ::3] = True
+        cases[0].probe = torch.from_numpy(m.reshape(B, W * nch, C * N)).to(device)
+        cases[0].probe_out = 1  # b_f, a row per (image, channel, state) over its chunks
+        cases[0].row_axis = 1
+        cases[1].probe = torch.from_numpy(mask.reshape(B, C, L)).to(device)
     return cases
 
 
@@ -256,26 +338,32 @@ def _gdmlp_case(label, dtype, rng, t, x, H, W, lns, lnb):
 
 def _serve_batch_cases(label, B, C, H, W, device, seed):
     """Rows 2 (the row pair, and the clamp-hitting column pair on the same
-    stream) and 4 at the serving batch, bf16, each plain version on slices
-    of PLAIN_SLICE images."""
+    stream), 4, 5 and 6 (plain and with the clamp probe) at the serving
+    batch, bf16, each plain version on slices of PLAIN_SLICE images."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
     s = lambda a: t(a).to(torch.bfloat16)  # noqa: E731
     x = rng.standard_normal((B, C, H * W), dtype=np.float32)
-    xs = s(x / (1.0 + np.exp(-x)))
+    xs_np = (x / (1.0 + np.exp(-x))).astype(np.float32)
+    xs = s(xs_np)
     lns = 1.0 + 0.1 * rng.standard_normal(C)
     lnb = 0.1 * rng.standard_normal(C)
     cases = [Case("ss2d_seq_pair", label, torch.bfloat16, (xs, *_scan_weights(rng, C, t), "row")),
              Case("ss2d_seq_pair", label + " clamp", torch.bfloat16,
                   (xs, *_scan_weights(rng, C, t, clamp=True), "col")),
              _gdmlp_case(label, torch.bfloat16, rng, t, s(x), H, W, lns, lnb)]
+    cases += _col_cases(label, torch.bfloat16, rng, t, xs_np, H, W, _scan_weights(rng, C, t),
+                        False, device)
+    cases += _col_cases(label, torch.bfloat16, rng, t, xs_np, H, W,
+                        _scan_weights(rng, C, t, clamp=True), True, device)
     for c in cases:
         c.plain_slice = PLAIN_SLICE
     return cases
 
 
 def edge_cases(device="cuda", seed=800):
-    """Rows 2 and 4 where their tiling has edges, fp32 and bf16: the row
+    """Rows 2, 4, 5, 6 and 9 where their tiling has edges (rows 5 and 6 as
+    _col_cases, row 9 as _fused_bwd_case, both below), fp32 and bf16: the row
     pair (and the clamp-hitting column pair) at L a multiple of the chunk,
     not a multiple, shorter than one chunk, N = 1 / 2 / 4, C up to 160,
     and C = 288, where the kernel halves its chunk;
@@ -310,6 +398,24 @@ def edge_cases(device="cuda", seed=800):
                             (t(x).to(dtype), *wts)))
     out.append(Case("gdmlp_fused_cf", "lo-carried C32 9x20", torch.bfloat16,
                     _lo_carried_gdmlp(rng, t)))
+    # the column pair (rows 5 and 6): H a multiple of the chunk, not a
+    # multiple, shorter than it; W no multiple of 16 or 32; N = 1 / 2 / 4;
+    # C = 160 and 288, where the chunk halves (to 8 / 4 and 2 / 1 rows)
+    for B, C, H, W, N in ((2, 40, 64, 50, 1), (1, 40, 37, 21, 2), (2, 24, 7, 33, 4),
+                          (1, 160, 21, 40, 1), (1, 288, 10, 19, 1)):
+        w = _scan_weights(rng, C, t, clamp=True)
+        if N > 1:
+            w[0] = t(_uniform(rng, (4, w[0].shape[1] + 2 * (N - 1), C), 0.3))
+            w[3] = t(-np.exp(rng.standard_normal((4, C, N)) * 0.3))
+        x = rng.standard_normal((B, C, H * W)).astype(np.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            out += _col_cases(f"B{B} C{C} {H}x{W} N{N}", dtype, rng, t, x / (1 + np.exp(-x)),
+                              H, W, w, False, device)
+    # row 9: L a multiple of its 32-position chunk, not a multiple, shorter
+    # than it; N = 1 / 4 / 16; C = 288 (nine channel blocks of 32 at N = 16)
+    for i, (B, C, L, R, N) in enumerate(((2, 40, 64, 3, 16), (1, 70, 70, 3, 1), (2, 24, 20, 2, 4),
+                                         (1, 288, 33, 18, 16))):
+        out.append(_fused_bwd_case(f"B{B} C{C} L{L} N{N}", B, C, L, R, N, device, seed + i))
     return out
 
 
@@ -389,6 +495,21 @@ def _cls_cases(label, B, C, H, W, R, N, device, seed):
     return out
 
 
+def _fused_bwd_case(label, B, C, L, R, N, device, seed, plain_slice=0):
+    """Row 9 alone on (B, 2, C, L) sequences of a SiLU output with the clamp
+    probe, fp32, the plain version on slices of ``plain_slice`` images
+    (its weight gradients added over the slices)."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    x = rng.standard_normal((B, 2, C, L)).astype(np.float32)
+    xs2 = x / (1.0 + np.exp(-x))
+    probe = torch.from_numpy(_clamp_probe(xs2)).to(device)
+    w = _fused_weights(rng, C, R, N, t)
+    g = t(rng.standard_normal(xs2.shape))
+    return Case("ss2d_dir_fused_bwd", label, torch.float32, (t(xs2), *w, g), probe,
+                plain_slice=plain_slice, batch_args=(0, 6), sum_rest=True)
+
+
 def _scan_fused_inputs(B, C, H, W, R, N, scans, device, seed):
     """selective_scan_fused's fp32 inputs as the v051d / v052d SS2D makes
     them: the cross-scan (``scans`` 1 or 2) of a SiLU output, x zero at
@@ -459,6 +580,10 @@ def kernel_cases(small: bool = False, device="cuda"):
     for i, shape in enumerate(SMALL_CLS_SHAPES if small else CLS_SHAPES):
         out += _cls_cases(*shape, device, seed=300 + i)
         out += _scan_fused_cases(*shape, device, seed=500 + 4 * i)
+        if i == 0 and not small:  # row 9 at the training batch
+            label, _, C, H, W, R, N = shape
+            out.append(_fused_bwd_case(f"{label} B={CLS_TRAIN_BATCH}", CLS_TRAIN_BATCH, C,
+                                       H * W, R, N, device, 350, PLAIN_SLICE))
     return out + _microbench_cases(small, device)
 
 
@@ -471,11 +596,14 @@ def _sync(t: torch.Tensor) -> None:
         torch.cuda.synchronize()
 
 
-def row_scaled(out, ref, rel, probe=None):
+def row_scaled(out, ref, rel, probe=None, axis=-1):
     """(error, tolerance) at the element of ``out`` worst against ``ref``,
     each element's tolerance ``rel`` times the largest |ref| of its row
-    (the last axis) -- with ``probe`` (a bool mask), the largest over the
+    (along ``axis``) -- with ``probe`` (a bool mask), the largest over the
     probe's or the other elements of that row, whichever it belongs to."""
+    if axis != -1:
+        out, ref = out.movedim(axis, -1), ref.movedim(axis, -1)
+        probe = None if probe is None else probe.movedim(axis, -1)
     d = (out.float() - ref.float()).abs()
     r = ref.float().abs()
     worst = (-1.0, 0.0, 0.0)
@@ -493,12 +621,18 @@ def row_scaled(out, ref, rel, probe=None):
 @torch.inference_mode()
 def compare(case: Case):
     """(max abs error of the kernel vs its plain version, the tolerance). The
-    fused forward must also fail the same check against the plain version
-    with the other clamp setting (its err / tol lands in
-    ``case.other_clamp``), or the check could not see the clamp flag."""
+    fused forward, and the column pair on its clamp probe, must also fail
+    the same check against the plain version with the other clamp setting
+    (its err / tol lands in ``case.other_clamp``), or the check could not
+    see the clamp."""
     outs = _outputs(case.fn(*case.args))
     refs = _outputs(case.plain(*case.args))
     _sync(outs[0])
+    if case.name in BIT_EXACT:
+        again = _outputs(case.fn(*case.args))
+        case.repeatable = all(torch.equal(a, b) for a, b in zip(outs, again, strict=True))
+        if not case.repeatable:
+            raise AssertionError(f"{case.name} {case.label}: two launches differ")
     err, scale = 0.0, 1.0
     worst = None  # PER_OUTPUT: (err / tol, err, tol) of the worst output
     for j, (out, ref) in enumerate(zip(outs, refs, strict=True)):
@@ -507,8 +641,9 @@ def compare(case: Case):
                                  f"{ref.shape}/{ref.dtype}")
         if not torch.isfinite(out).all():
             raise AssertionError(f"{case.name} {case.label}: non-finite kernel output")
-        if case.name in PER_ROW and j == 0:
-            e, tol = row_scaled(out, ref, TOL[case.dtype], case.probe)
+        if (case.name in PER_ROW and j == 0) or (case.probe is not None and j == case.probe_out):
+            e, tol = row_scaled(out, ref, TOL[case.dtype],
+                                case.probe if j == case.probe_out else None, case.row_axis)
         else:
             e = (out.float() - ref.float()).abs().max().item()
             m = ref.float().abs().max().item()
@@ -516,17 +651,22 @@ def compare(case: Case):
             tol = TOL[case.dtype] * max(m, 1e-12)
         if worst is None or e / tol > worst[0]:
             worst = (e / tol, e, tol)
+    other = None
     if case.name in ("ss2d_dir_fused", "ss2d_dir_fused_g", "selective_scan_fused"):
         if case.name == "selective_scan_fused":  # a function without the clamp
             other = _sf.selective_scan_fused_plain(*case.args, clamp=True)
         else:
             other = _fused.ss2d_dir_fused_plain(*case.args, clamp=case.name == "ss2d_dir_fused")
-        e, tol = row_scaled(outs[0], other, TOL[case.dtype], case.probe)
+    elif case.probe is not None and case.name in COL_KERNELS:  # against the unclamped plain
+        other = _outputs(case.plain_with(clamp=False)(*case.args))[case.probe_out]
+    if other is not None:
+        e, tol = row_scaled(outs[case.probe_out], other, TOL[case.dtype], case.probe,
+                            case.row_axis)
         case.other_clamp = e / tol
         if e <= tol:
             raise AssertionError(f"{case.name} {case.label}: the check cannot tell the "
                                  f"clamped function from the unclamped ({e} <= {tol})")
-    if case.name in PER_OUTPUT or case.name in PER_ROW:
+    if case.name in PER_OUTPUT or case.name in PER_ROW or case.probe is not None:
         return worst[1], worst[2]
     return err, TOL[case.dtype] * scale
 
@@ -621,7 +761,8 @@ def work(case: Case):
     R = P - 2 * N
     if case.name == "ss2d_col_sum":  # both directions, no readout rows
         return io, 2 * 2 * B * L * (R + N) * C, 2 * _scan_dir_ops(B, C, L, R, N, False)
-    return io, 2 * B * L * P * C, _scan_dir_ops(B, C, L, R, N, True)  # ss2d_col_dir
+    # ss2d_col_dir: both directions' full walks
+    return io, 2 * 2 * B * L * P * C, 2 * _scan_dir_ops(B, C, L, R, N, True)
 
 
 def bound_ms(case: Case):

@@ -11,14 +11,18 @@ result line):
      nvcc per source, all started together) and load them;
   3. each of the seven kernels vs its plain PyTorch version on the card,
      at the serving path's and the training path's shapes, fp32 and bf16
-     (the scans also on clamp-hitting inputs; linear_scan also at the
-     scan pairs' backward shapes), and the row pair and the gdMlp at the
-     serving batch (B=32, IE-L0 and IE-L1, bf16, the plain versions on
-     slices of 4 images): max abs error beside its tolerance, and both
-     versions' times; then the row pair and the gdMlp at the edges of
-     their tiles (smoke.edge_cases: chunk and tile remainders, the gdMlp's
-     CUDA-core form on bf16 above C = 256, and a case that only the bf16
-     lo halves of its split weights carry), checked only;
+     (the scans also on clamp-hitting inputs, the column pair's with its
+     clamp probe, which must fail against the unclamped function;
+     linear_scan also at the scan pairs' backward shapes), and the row
+     pair, the gdMlp and the column pair's two passes at the serving
+     batch (B=32, IE-L0 and IE-L1, bf16, the plain versions on slices of
+     4 images): max abs error beside its tolerance, and both versions'
+     times; then the row pair, the gdMlp, the column pair and the fused
+     core's backward at the edges of their tiles (smoke.edge_cases: chunk
+     and tile remainders, C = 288 where the column chunk halves and the
+     backward takes many channel blocks, the gdMlp's CUDA-core form on
+     bf16 above C = 256, and a case that only the bf16 lo halves of its
+     split weights carry), checked only;
   4. gradients: each autograd wrapper of the VSSBlock (stem, gdMlp, tail,
      row pair, column pair) and linear_scan on the card vs its plain
      composition, at the training shapes, fp32;
@@ -53,7 +57,9 @@ result line):
 The kernels' phase also holds the three classifier kernels (the fused core,
 its clamped form, its backward) and selective_scan_fused (scans 1 and 2
 inputs) against their plain versions at the four VMamba-T stage shapes
-(batch 2), each output row against its own largest entry, with a clamp
+(batch 2; the backward also at stage 0 and the training batch 128, its
+plain version on slices of 4 images; every backward case launched twice,
+its outputs bit-identical), each output row against its own largest entry, with a clamp
 probe (x zero at every other position of the clamped channels, where the
 clamp changes y by a factor of e or more) held apart; each fused forward
 must also fail that check against the plain version with the other clamp
@@ -120,10 +126,13 @@ def build_kernels():
     _build.load()
     print(f"built {so.name} in {time.perf_counter() - t0:.1f} s")
     for log in sorted(_build.BUILD_DIR.glob("nvcc*.log")):
+        fn = ""
         for line in log.read_text().splitlines():
+            if "Compiling entry function" in line:  # the kernel the next lines describe
+                fn = line.split("'")[1] if "'" in line else ""
             spills = "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
             if "Used" in line or spills:
-                print("  ptxas:", line.split("ptxas info    :")[-1].strip())
+                print(f"  ptxas {fn[:72]}:", line.split("ptxas info    :")[-1].strip())
 
 
 def compare_kernels():
@@ -134,11 +143,9 @@ def compare_kernels():
         plain_ms = smoke.time_ms(case.plain, case.args)
         dt = str(case.dtype).replace("torch.", "")
         ok = err <= tol
-        other = "" if case.other_clamp is None else \
-            f"  vs other clamp err/tol {case.other_clamp:.3g}"
         print(f"{case.name:15s} {case.label:34s} {dt:8s} max_abs_err {err:.3e} "
               f"tol {tol:.3e} {'ok' if ok else 'FAIL'}  kernel {ms:.3f} ms  "
-              f"plain {plain_ms:.3f} ms{other}", flush=True)
+              f"plain {plain_ms:.3f} ms{_notes(case)}", flush=True)
         if not ok:
             raise AssertionError(f"{case.name} {case.label} {dt}: {err} > {tol}")
         if (case.label, dt) == smoke.HEADLINE[case.name] and case.name not in summary:
@@ -146,9 +153,9 @@ def compare_kernels():
             summary[case.name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound, bound_by=by, library_ms=None)
             print(f"  headline {case.name}: bound {bound:.4f} ms ({by})")
-        elif case.plain_slice:  # the serving batch: its bound beside its time
+        elif case.plain_slice:  # the serving / training batch: its bound beside its time
             bound, by = smoke.bound_ms(case)
-            print(f"  serving batch {case.name} {case.label}: kernel {ms:.4f} ms, "
+            print(f"  large batch {case.name} {case.label}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
         torch.cuda.empty_cache()
     missing = set(smoke.KERNELS) - set(summary)
@@ -157,13 +164,23 @@ def compare_kernels():
     return summary
 
 
+def _notes(case):
+    """The clamp check's and the repeat check's results, where a case has them."""
+    out = ""
+    if case.other_clamp is not None:
+        out += f"  vs other clamp err/tol {case.other_clamp:.3g}"
+    if case.repeatable is not None:
+        out += "  bit-identical over 2 launches" if case.repeatable else "  NOT repeatable"
+    return out
+
+
 def compare_edges():
     for case in smoke.edge_cases():
         err, tol = smoke.compare(case)
         dt = str(case.dtype).replace("torch.", "")
         ok = err <= tol
         print(f"{case.name:15s} {case.label:34s} {dt:8s} max_abs_err {err:.3e} "
-              f"tol {tol:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+              f"tol {tol:.3e} {'ok' if ok else 'FAIL'}{_notes(case)}", flush=True)
         if not ok:
             raise AssertionError(f"{case.name} {case.label} {dt}: {err} > {tol}")
 

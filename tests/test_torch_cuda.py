@@ -148,3 +148,42 @@ def test_chunked_row_pair_and_tensor_core_gdmlp_edges_on_card():
     for case in smoke.edge_cases():
         err, tol = smoke.compare(case)
         assert err <= tol, (case.name, case.label, case.dtype, err, tol)
+
+
+@pytest.mark.cuda
+def test_chunked_column_pair_and_fused_backward_on_card():
+    """The redesigned column pair (per-chunk summaries, the carry over the
+    chunk sequence, the two-direction full pass) and the fused core's
+    chunked backward at small shapes: each pass vs its plain version, the
+    column clamp-probe cases failing against the unclamped function, the
+    backward bit-identical over two launches, and the whole column pair on
+    the card vs its plain composition (one chunk per column) at smoke.TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    import numpy as np
+
+    from bem_tpu_torch import smoke
+    from bem_tpu_torch.ops import ss2d_seq
+
+    rng = np.random.default_rng(5)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()  # noqa: E731
+    for B, C, H, W in ((2, 40, 37, 21), (1, 24, 6, 33)):  # H off the chunk, H under it
+        x = rng.standard_normal((B, C, H * W)).astype(np.float32)
+        xs = x / (1.0 + np.exp(-x))
+        for dtype in (torch.float32, torch.bfloat16):
+            for probe in (False, True):
+                w = smoke._scan_weights(rng, C, t, clamp=True)
+                for case in smoke._col_cases(f"{H}x{W}", dtype, rng, t, xs, H, W, w, probe, "cuda"):
+                    err, tol = smoke.compare(case)
+                    assert err <= tol, (case.name, case.label, dtype, err, tol)
+                    assert not probe or case.other_clamp > 1, (case.name, case.other_clamp)
+            xt = t(xs).to(dtype)
+            y0 = t(rng.standard_normal((B, C, H * W))).to(dtype)
+            got = ss2d_seq.ss2d_col_pair(xt, *w, y0, H, W)
+            want = ss2d_seq.ss2d_col_pair_plain(xt, *w, y0, H, W)
+            assert (got.float() - want.float()).abs().max() <= \
+                smoke.TOL[dtype] * max(1.0, want.float().abs().max().item())
+    for i, (B, C, L, R, N) in enumerate(((2, 40, 70, 3, 16), (1, 24, 20, 2, 4))):
+        case = smoke._fused_bwd_case("small", B, C, L, R, N, "cuda", 900 + i)
+        err, tol = smoke.compare(case)
+        assert err <= tol and case.repeatable, (case.label, err, tol)
