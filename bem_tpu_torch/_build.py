@@ -38,7 +38,9 @@ _SIGNATURES = {
     "bem_ss2d_col_sum": [_P] * 13 + [_I] * 8 + [_P],
     "bem_ss2d_col_full": [_P] * 14 + [_I] * 8 + [_P],
     "bem_linear_scan": [_P] * 5 + [_I] * 5 + [_P],
-    "bem_ss2d_fused_fwd": [_P] * 9 + [_I] * 7 + [_P],
+    "bem_ss2d_fused_project": [_P] * 3 + [_I] * 5 + [_P],
+    "bem_ss2d_fused_fwd_sum": [_P] * 7 + [_I] * 8 + [_P],
+    "bem_ss2d_fused_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "bem_ss2d_fused_bwd_sum": [_P] * 9 + [_I] * 5 + [_P],
     "bem_ss2d_fused_bwd": [_P] * 21 + [_I] * 5 + [_P],
     "bem_selective_scan_fused": [_P] * 8 + [_I] * 7 + [_P],
@@ -129,6 +131,8 @@ def load():
         lib.bem_ss2d_seq_chunk.restype = ctypes.c_int
         lib.bem_ss2d_col_chunk.argtypes = [_I] * 4
         lib.bem_ss2d_col_chunk.restype = ctypes.c_int
+        lib.bem_ss2d_fused_chunk.argtypes = [_I] * 4
+        lib.bem_ss2d_fused_chunk.restype = ctypes.c_int
         lib.bem_ss2d_fused_bwd_cb.argtypes = [_I]
         lib.bem_ss2d_fused_bwd_cb.restype = ctypes.c_int
         _LIB = lib

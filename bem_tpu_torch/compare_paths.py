@@ -1,15 +1,17 @@
-"""Time the BEM nets' paths of two checkouts in turns on one card.
+"""Time the BEM nets' and VMamba-T's paths of two checkouts in turns on one card.
 
     python -m bem_tpu_torch.compare_paths PARENT_DIR CHANGE_DIR
 
 Each of 8 runs is a fresh process in one checkout (each with its own
 kernel build) that calls that checkout's ``chip_smoke.train_phase`` (IE and
-CG, 1 warm-up + 5 timed steps each) and ``chip_smoke.serve`` (the flagship
-K=16 pipeline, 3 requests), with chip_smoke's own settings; runs alternate
-parent, change, parent, ... Prints each run's medians, then per metric the
-medians over the runs of each side, beside the card's name and power
-limit. Compares two versions inside one call, where the host's share of a
-step varies least.
+CG, 1 warm-up + 5 timed steps each), ``chip_smoke.serve`` (the flagship
+K=16 pipeline, 3 requests), ``chip_smoke.cls_train_phase`` (VMamba-T v2,
+batch 128, 1 warm-up + 5 timed steps) and ``chip_smoke.cls_throughput_phase``
+(bf16, batch 128), with chip_smoke's own settings; runs alternate parent,
+change, parent, ... Prints each run's numbers, then per metric the medians
+over the runs of each side, beside the card's name and power limit.
+Compares two versions inside one call, where the host's share of a step
+varies least.
 """
 
 from __future__ import annotations
@@ -28,11 +30,17 @@ card = cs.card_info()
 cs.build_kernels()
 cs.train_phase(card)
 cs.serve(card)
+cs.cls_train_phase(card)
+cs.cls_throughput_phase(card)
 """
 METRICS = {
     "IE ms/step": r"ImageEnhancer train .*median ([\d.]+) ms/step",
     "CG ms/step": r"ConditionGenerator train .*median ([\d.]+) ms/step",
     "serving ms/request": r"pipeline K=.*median ([\d.]+) ms/request",
+    "VMamba-T ms/step": r"VMamba-T v2 train B=.*median ([\d.]+) ms/step",
+    "VMamba-T train images/s": r"VMamba-T v2 train B=.* ms/step, ([\d.]+) images/s",
+    "VMamba-T peak GiB": r"VMamba-T v2 train B=.*peak memory ([\d.]+) GiB",
+    "VMamba-T bf16 images/s": r"VMamba-T v2 throughput B=.*bf16: ([\d.]+) images/s",
 }
 
 
@@ -48,7 +56,7 @@ def main(argv=None):
     for i in range(RUNS):
         side = "parent" if i % 2 == 0 else "change"
         out = subprocess.run([sys.executable, "-c", RUN], cwd=dirs[side],
-                             capture_output=True, text=True, timeout=600)
+                             capture_output=True, text=True, timeout=900)
         if out.returncode != 0:
             sys.exit(f"run {i + 1} ({side}) failed:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
         vals = {m: float(re.search(rx, out.stdout).group(1)) for m, rx in METRICS.items()}

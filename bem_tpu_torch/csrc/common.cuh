@@ -61,4 +61,7 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
 // Shared-memory budget a block may plan for (the card allows 227 KB).
 constexpr size_t kSmemBudget = 200 * 1024;
 
+// Streaming multiprocessors of an H100 SXM: the grids' fill rules.
+constexpr int kCardSMs = 132;
+
 }  // namespace bem

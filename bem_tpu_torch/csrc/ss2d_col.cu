@@ -16,16 +16,22 @@
 // direction). The Pallas grid walked th-row slabs in order with the column
 // state in scratch. Here each column is cut into chunks of T rows and the
 // pair runs as a chunked, parallel-in-H scan, the pattern of ss2d_seq.cu:
-//   col_sum_kernel   (row 5) one top-down walk of every column computes,
-//                    for BOTH directions and every chunk, the chunk's decay
+//   col_sum_kernel   (row 5) one block per (16 columns, chunk(s), image)
+//                    with ALL C channels: it stages a chunk's x tile once
+//                    and computes both directions' dt-rank and B rows once
+//                    per pixel; each thread takes ceil(C / 32) channels of
+//                    one column (at most 512 threads: two blocks an SM)
+//                    and walks the chunk's rows top-down,
+//                    computing for BOTH directions the chunk's decay
 //                    exp(sum of clamped log-decays) and its end state from
 //                    0: forward, the state at the chunk's bottom row;
 //                    reverse (bottom-up), its state at the chunk's top row,
 //                    evaluated in the same top-down walk as the prefix sum
-//                    acc += P b, P *= a. Its grid and walk are unchanged: a
-//                    block takes 32 columns and a slice of the channels,
-//                    one thread per (channel, column), rows staged 8 at a
-//                    time; it restarts at every chunk's first row.
+//                    acc += P b, P *= a. Where chunks are short (C160), a
+//                    block takes col_sum_cpb consecutive chunks of its
+//                    columns, staging the weights once, and restarts the
+//                    summary at each. The lanes of a warp are channels of
+//                    one column, so the summaries' stores are coalesced.
 //   linear_scan      (scan.cu, launched by ops/ss2d_seq.py) over the
 //                    column-major sequence of chunks, index w * nch + k,
 //                    forward for direction 1 and reverse for 3: it joins the
@@ -56,35 +62,16 @@
 namespace bem {
 
 constexpr float kColClamp = -10.f;
-constexpr int kColTW = 32;         // col_sum: columns per block (threadIdx.x)
-constexpr int kColMaxChan = 32;    // col_sum: channels per block at most (threadIdx.y)
 constexpr size_t kColSmem = 110 * 1024;  // two blocks fit on an SM
 constexpr int kColChunk = 32;      // rows per chunk, before halving
-constexpr int kFullTW = 16;        // col_full: columns per block (threadIdx.x)
+constexpr int kFullTW = 16;        // both passes: columns per block
 constexpr int kFullMaxTY = 64;     // col_full: threads per column at most
+constexpr int kSumMaxTY = 32;      // col_sum: threads per column at most
+constexpr int kSumRows = 8;        // col_sum: rows a block takes at least, in whole chunks
 
-// channels per col_sum block: C split into ceil(C / 32) near-equal slices
-inline int col_chan_block(int C) {
-  const int nct = (C + kColMaxChan - 1) / kColMaxChan;
-  return (C + nct - 1) / nct;
-}
-
-// floats of col_sum's shared memory: x tile (C, TH*TW), projection rows
-// (2Q, TH*TW), Wx rows (2Q, C), the block's Wdt rows (2, CB, R)
-inline size_t col_smem_floats(int C, int TH, int Q, int CB, int R) {
-  return (size_t)C * TH * kColTW + (size_t)2 * Q * TH * kColTW + (size_t)2 * Q * C +
-         (size_t)2 * CB * R;
-}
-
-inline int col_rows(int C, int Q, int CB, int R) {
-  int TH = 8;
-  while (TH > 1 && col_smem_floats(C, TH, Q, CB, R) * sizeof(float) > kColSmem) TH /= 2;
-  return TH;
-}
-
-// col_full: threads per column, each taking ceil(C / kFullMaxTY) channels
-inline int full_threads_y(int C) {
-  const int per = (C + kFullMaxTY - 1) / kFullMaxTY;
+// threads per column, each taking ceil(C / cap) channels
+inline int threads_y(int C, int cap) {
+  const int per = (C + cap - 1) / cap;
   return (C + per - 1) / per;
 }
 
@@ -108,125 +95,126 @@ inline int col_chunk(int C, int R, int N, size_t es) {
   return T;
 }
 
-// Stage rows [h0, h0+nt) x columns [w0, w0+32) of every channel of one
-// image, then the 2Q projection rows xd[q][pix] = Wx_q . x[:, pix].
-template <typename T>
-__device__ __forceinline__ void col_stage(const T* __restrict__ xb, float* xs, float* xd,
-                                          const float* wx, int C, int W, int h0, int nt,
-                                          int w0, int TH, int nq, long L) {
-  const int tid = threadIdx.y * kColTW + threadIdx.x;
-  const int nth = kColTW * blockDim.y;
-  const int tile = TH * kColTW;
-  for (int i = tid; i < C * tile; i += nth) {
-    const int c = i / tile, pix = i - c * tile;
-    const int t = pix / kColTW, w = w0 + pix - t * kColTW;
-    xs[i] = (t < nt && w < W) ? IO<T>::load(xb, (long)c * L + (long)(h0 + t) * W + w) : 0.f;
-  }
-  __syncthreads();
-  for (int i = tid; i < nq * tile; i += nth) {
-    const int q = i / tile, pix = i - q * tile;
-    const float* wr = wx + q * C;
-    float s = 0.f;
-    for (int c = 0; c < C; ++c) s = fmaf(wr[c], xs[c * tile + pix], s);
-    xd[i] = s;
-  }
-  __syncthreads();
+// col_sum's x tile row stride in stream-dtype elements: T*TW and a pad
+// that makes it odd in 32-bit words, so the channels of a warp (one
+// column) read distinct banks
+inline __host__ __device__ int sum_xstride(int TT, size_t es) {
+  return es == 2 ? TT + 2 : TT + 1;
+}
+
+// bytes of col_sum's shared memory at T rows: both directions' dt-rank and
+// B rows (2Q, T*TW), their Wx rows (2Q, C) and Wdt rows (2, C, Rs) fp32,
+// the x tile (C, sum_xstride) in the stream dtype; at most col_full's
+inline size_t sum_smem_bytes(int C, int T, int R, int N, size_t es) {
+  const size_t Q = R + N, TT = (size_t)T * kFullTW;
+  return sizeof(float) * (2 * Q * TT + 2 * Q * C + (size_t)2 * C * full_rstride(R)) +
+         (size_t)C * sum_xstride((int)TT, es) * es;
+}
+
+// chunks of TC rows a col_sum block takes: kSumRows rows' worth, halved
+// while the grid would hold fewer than two blocks an SM
+inline int col_sum_cpb(int TC, int nch, int W, int B) {
+  int cpb = TC < kSumRows ? kSumRows / TC : 1;
+  const long tiles = (long)((W + kFullTW - 1) / kFullTW) * B;
+  while (cpb > 1 && tiles * ((nch + cpb - 1) / cpb) < 2L * kCardSMs) cpb /= 2;
+  return cpb;
 }
 
 struct ColDir {
   const float *Wx, *Wdt, *bias, *A;
 };
 
-// Summaries per chunk of T rows, (B, W*nch, C*N) fp32 at
+// Summaries per chunk of TC rows, (B, W*nch, C*N) fp32 at
 // [b][w*nch + k][c*N + n]: af / ar the chunk's decay, bf / br its end
 // state from 0 (forward: at the chunk's bottom row; reverse: at its top).
+// One block per (16 columns, cpb consecutive chunks, image), all channels.
 template <typename T, int N>
-__global__ void __launch_bounds__(kColTW * kColMaxChan)
+__global__ void __launch_bounds__(kFullTW * kSumMaxTY, 2)
 col_sum_kernel(const T* __restrict__ x, ColDir f, ColDir r, float* __restrict__ af,
                float* __restrict__ bf, float* __restrict__ ar, float* __restrict__ br, int C,
-               int H, int W, int R, int CB, int TH, int TC, int nch) {
+               int H, int W, int R, int TC, int nch, int cpb) {
   extern __shared__ float smem[];
-  const int Q = R + N;  // dt-rank and B rows: the summary needs no C rows
-  const int tile = TH * kColTW;
-  float* xs = smem;              // (C, tile)
-  float* xd = xs + C * tile;     // (2*Q, tile): forward rows, then reverse rows
-  float* wx = xd + 2 * Q * tile; // (2*Q, C)
-  float* wdt = wx + 2 * Q * C;   // (2, CB, R)
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kColTW + tx, nth = kColTW * blockDim.y;
-  const int w0 = blockIdx.x * kColTW, c0 = blockIdx.y * CB, b = blockIdx.z;
-  const int w = w0 + tx, c = c0 + ty;
-  const bool active = w < W && c < C;
-  const long L = (long)H * W;
+  const int Q = R + N, Rs = full_rstride(R);  // dt-rank and B rows: no C rows needed
+  const int TT = TC * kFullTW, XS = sum_xstride(TT, sizeof(T));
+  float* xd = smem;                // (2Q, TT): forward rows, then reverse rows
+  float* wx = xd + 2 * Q * TT;     // (2Q, C)
+  float* wdt = wx + 2 * Q * C;     // (2, C, Rs)
+  T* xs = reinterpret_cast<T*>(wdt + 2 * C * Rs);  // (C, XS) in the stream dtype
+  const int tid = threadIdx.x, nth = blockDim.x, TY = nth / kFullTW;
+  const int col = tid / TY, slot = tid - col * TY;  // a warp's lanes: channels of one column
+  const int w0 = blockIdx.x * kFullTW, b = blockIdx.z, w = w0 + col;
+  const long L = (long)H * W, CN = (long)C * N;
   const T* xb = x + (long)b * C * L;
 
   for (int i = tid; i < 2 * Q * C; i += nth) {
     const int dir = i / (Q * C), j = i - dir * Q * C;
     wx[i] = (dir ? r.Wx : f.Wx)[j];
   }
-  for (int i = tid; i < 2 * CB * R; i += nth) {
-    const int dir = i / (CB * R), j = i - dir * CB * R;
-    const int ch = c0 + j / R;
-    wdt[i] = ch < C ? (dir ? r.Wdt : f.Wdt)[(long)c0 * R + j] : 0.f;
+  for (int i = tid; i < 2 * C * R; i += nth) {
+    const int dir = i / (C * R), j = i - dir * C * R, c = j / R;
+    wdt[(dir * C + c) * Rs + j - c * R] = (dir ? r.Wdt : f.Wdt)[j];
   }
-  float bfv = 0.f, brv = 0.f, afn[N], arn[N];
-  float hf[N], swf[N], pr[N], acc[N], swr[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    afn[n] = active ? f.A[c * N + n] : 0.f;
-    arn[n] = active ? r.A[c * N + n] : 0.f;
-    hf[n] = 0.f;
-    swf[n] = 0.f;
-    pr[n] = 1.f;
-    acc[n] = 0.f;
-    swr[n] = 0.f;
-  }
-  if (active) {
-    bfv = f.bias[c];
-    brv = r.bias[c];
-  }
-  const float* wdf = wdt + ty * R;
-  const float* wdr = wdt + (CB + ty) * R;
-  const long CN = (long)C * N;
-  const long obase = ((long)b * W + w) * nch * CN + (long)c * N;
-
-  for (int h0 = 0; h0 < H; h0 += TH) {
-    const int nt = min(TH, H - h0);
-    __syncthreads();  // the previous tile's readers are done
-    col_stage<T>(xb, xs, xd, wx, C, W, h0, nt, w0, TH, 2 * Q, L);
-    if (!active) continue;
-    for (int t = 0; t < nt; ++t) {
-      const int pix = t * kColTW + tx;
-      const float xv = xs[c * tile + pix];
-      float sf = 0.f, sr = 0.f;
-      for (int k = 0; k < R; ++k) {
-        sf = fmaf(wdf[k], xd[k * tile + pix], sf);
-        sr = fmaf(wdr[k], xd[(Q + k) * tile + pix], sr);
-      }
-      const float dtf = softplus(sf + bfv), dtr = softplus(sr + brv);
-      const float duf = dtf * xv, dur = dtr * xv;
+  for (int kk = 0; kk < cpb; ++kk) {
+    const int k = blockIdx.y * cpb + kk;
+    if (k >= nch) break;  // the same for the whole block
+    const int h0 = k * TC, nt = min(TC, H - h0);
+    __syncthreads();  // the weights are staged; the previous chunk's readers are done
+    for (int i = tid; i < C * TT; i += nth) {
+      const int c = i / TT, pix = i - c * TT;
+      const int t = pix / kFullTW, ww = w0 + pix - t * kFullTW;
+      xs[c * XS + pix] = (t < nt && ww < W) ? xb[(long)c * L + (long)(h0 + t) * W + ww]
+                                             : IO<T>::to(0.f);
+    }
+    __syncthreads();
+    for (int i = tid; i < 2 * Q * TT; i += nth) {
+      const int q = i / TT, pix = i - q * TT;
+      const float* wr = wx + q * C;
+      float s = 0.f;
+      for (int c = 0; c < C; ++c) s = fmaf(wr[c], IO<T>::from(xs[c * XS + pix]), s);
+      xd[i] = s;
+    }
+    __syncthreads();
+    if (w >= W) continue;
+    for (int c = slot; c < C; c += TY) {
+      const float* wdf = wdt + c * Rs;
+      const float* wdr = wdt + (C + c) * Rs;
+      const float bfv = f.bias[c], brv = r.bias[c];
+      float afn[N], arn[N], hf[N], swf[N], pr[N], acc[N], swr[N];
 #pragma unroll
       for (int n = 0; n < N; ++n) {
-        const float wf = fmaxf(dtf * afn[n], kColClamp);
-        hf[n] = fmaf(expf(wf), hf[n], duf * xd[(R + n) * tile + pix]);
-        swf[n] += wf;
-        const float wr = fmaxf(dtr * arn[n], kColClamp);
-        acc[n] = fmaf(pr[n], dur * xd[(Q + R + n) * tile + pix], acc[n]);
-        pr[n] *= expf(wr);
-        swr[n] += wr;
+        afn[n] = f.A[c * N + n];
+        arn[n] = r.A[c * N + n];
+        hf[n] = swf[n] = acc[n] = swr[n] = 0.f;
+        pr[n] = 1.f;
       }
-      const int row = h0 + t;
-      if ((row + 1) % TC == 0 || row + 1 == H) {  // the chunk's last row
-        const long o = obase + (long)(row / TC) * CN;
+      for (int t = 0; t < nt; ++t) {
+        const int pix = t * kFullTW + col;
+        const float xv = IO<T>::from(xs[c * XS + pix]);
+        float sf = 0.f, sr = 0.f;
+        for (int q = 0; q < R; ++q) {
+          sf = fmaf(wdf[q], xd[q * TT + pix], sf);
+          sr = fmaf(wdr[q], xd[(Q + q) * TT + pix], sr);
+        }
+        const float dtf = softplus(sf + bfv), dtr = softplus(sr + brv);
+        const float duf = dtf * xv, dur = dtr * xv;
 #pragma unroll
         for (int n = 0; n < N; ++n) {
-          af[o + n] = expf(swf[n]);
-          bf[o + n] = hf[n];
-          ar[o + n] = expf(swr[n]);
-          br[o + n] = acc[n];
-          hf[n] = swf[n] = acc[n] = swr[n] = 0.f;
-          pr[n] = 1.f;
+          const float wf = fmaxf(dtf * afn[n], kColClamp);
+          hf[n] = fmaf(expf(wf), hf[n], duf * xd[(R + n) * TT + pix]);
+          swf[n] += wf;
+          const float wr = fmaxf(dtr * arn[n], kColClamp);
+          acc[n] = fmaf(pr[n], dur * xd[(Q + R + n) * TT + pix], acc[n]);
+          pr[n] *= expf(wr);
+          swr[n] += wr;
         }
+      }
+      const long o = (((long)b * W + w) * nch + k) * CN + (long)c * N;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        af[o + n] = expf(swf[n]);
+        bf[o + n] = hf[n];
+        ar[o + n] = expf(swr[n]);
+        br[o + n] = acc[n];
       }
     }
   }
@@ -349,16 +337,14 @@ col_full_kernel(const T* __restrict__ x, ColDir f, ColDir r, const float* __rest
 template <typename T, int N>
 int launch_col_sum_n(const void* x, ColDir f, ColDir r, float* const* out, int B, int C,
                      int H, int W, int R, int TC, cudaStream_t stream) {
-  const int CB = col_chan_block(C), Q = R + N;
-  const int TH = col_rows(C, Q, CB, R);
-  const size_t smem = col_smem_floats(C, TH, Q, CB, R) * sizeof(float);
+  const size_t smem = sum_smem_bytes(C, TC, R, N, sizeof(T));
+  if (smem > kSmemBudget) return (int)cudaErrorInvalidValue;
   cudaError_t e = allow_smem(col_sum_kernel<T, N>, smem);
   if (e != cudaSuccess) return (int)e;
-  const int nch = (H + TC - 1) / TC;
-  dim3 grid((W + kColTW - 1) / kColTW, (C + CB - 1) / CB, B);
-  col_sum_kernel<T, N><<<grid, dim3(kColTW, CB), smem, stream>>>(
-      static_cast<const T*>(x), f, r, out[0], out[1], out[2], out[3], C, H, W, R, CB, TH, TC,
-      nch);
+  const int nch = (H + TC - 1) / TC, cpb = col_sum_cpb(TC, nch, W, B);
+  dim3 grid((W + kFullTW - 1) / kFullTW, (nch + cpb - 1) / cpb, B);
+  col_sum_kernel<T, N><<<grid, kFullTW * threads_y(C, kSumMaxTY), smem, stream>>>(
+      static_cast<const T*>(x), f, r, out[0], out[1], out[2], out[3], C, H, W, R, TC, nch, cpb);
   return (int)cudaGetLastError();
 }
 
@@ -372,7 +358,7 @@ int launch_col_full_n(const void* x, ColDir f, ColDir r, const float* Dsum, cons
   if (e != cudaSuccess) return (int)e;
   const int nch = (H + TC - 1) / TC;
   dim3 grid((W + kFullTW - 1) / kFullTW, nch, B);
-  col_full_kernel<T, N><<<grid, dim3(kFullTW, full_threads_y(C)), smem, stream>>>(
+  col_full_kernel<T, N><<<grid, dim3(kFullTW, threads_y(C, kFullMaxTY)), smem, stream>>>(
       static_cast<const T*>(x), f, r, Dsum, hf, hr, static_cast<const T*>(y0),
       static_cast<T*>(y), C, H, W, R, TC, nch);
   return (int)cudaGetLastError();

@@ -23,14 +23,39 @@
 //    on a batched, strided fp32 GEMM kernel (64x64 tiles through shared
 //    memory), once per (image, stream, direction) instead of once per
 //    channel block;
-//  - the walk puts one thread on each (image, stream, channel) of one
-//    direction, its N states in registers, and walks the sequence in
-//    kCk-long chunks staged through shared memory (x, the chunk's
-//    projection rows); the forward direction's launch writes the rounded
-//    y_f, the reverse one adds its rounded y_r, so the merge needs no
-//    buffer and no atomics;
-//  - the forward can write the state entering every chunk (fp32
-//    checkpoints, one per kCk positions). The backward's lambda recurrence,
+//  - the forward scan is a chunked scan, parallel along L (the pattern of
+//    ss2d_seq.cu and of the backward below), over super-chunks of S
+//    positions of each direction's scan order (S a multiple of kCk):
+//      fwd_sum_kernel   per super-chunk, (image, stream, direction) and
+//                       (channel, state): the decay exp(sum of dt A_n)
+//                       (clamped terms under `clamp`) and the end state
+//                       from h = 0, in the (B*2*2, nsc, C*N) layout of the
+//                       backward's carry;
+//      linear_scan      (scan.cu, launched by ops/ss2d_fused.py) forward
+//                       over the super-chunks: the state leaving each;
+//      fwd_full_kernel  one launch per direction, every super-chunk at
+//                       once from the state entering it (0 for the first);
+//                       the forward direction's launch writes the rounded
+//                       y_f, the reverse one adds its rounded y_r, so the
+//                       merge needs no buffer and no atomics.
+//    Both passes walk kCk-long chunks staged through shared memory (x, the
+//    chunk's projection rows), dt computed once per (channel, position) by
+//    the whole block before the walk, so a step's chain is the states'
+//    alone. A channel's N states are split over fwd_groups(N) adjacent
+//    lanes, kFwdStates each in registers (y summed over them by
+//    shuffles): at d_state 16 four times the walkers of one thread per
+//    channel, without a second exp pass. A decay is one special-function
+//    instruction, 2^(dt A_n log2 e) by ex2.approx.ftz (the clamp at
+//    -10 log2 e, the same point; results below 2^-126 flush to 0), instead
+//    of expf's eight. The summary pass evaluates every decay a second
+//    time, so the super-chunks are as long as fill the card: fwd_chunk
+//    picks the fewest whose full-pass threads reach kFwdFill, at least
+//    kFwdMinChunks chunks long (a shorter one costs more in launches and
+//    barriers than it gains). Where B*2*C*fwd_groups(N) threads already
+//    reach it (batch 128), S >= L: no summary pass, no carry, the full
+//    pass walks each sequence from 0;
+//  - the full pass can write the state entering every kCk-long chunk (fp32
+//    checkpoints). The backward's lambda recurrence,
 //    lambda_t = g_t C_t + a_{t+1} lambda_{t+1} per (channel, state), runs
 //    against the scan order as a chunked reverse scan, parallel along L
 //    (the pattern of ss2d_seq.cu), with the checkpoints giving h in every
@@ -73,7 +98,11 @@ namespace bem {
 
 constexpr float kFusedClamp = -10.f;
 constexpr int kCk = 32;          // scan positions per chunk and per checkpoint
-constexpr int kFwdCB = 64;       // channels (one thread each) per forward block
+constexpr int kFwdCB = 64;       // channels per forward block
+constexpr int kFwdStates = 4;    // states a forward thread holds
+constexpr long kFwdFill = kCardSMs * 768L;  // threads a full-pass launch aims for (fwd_chunk)
+constexpr int kFwdMinChunks = 2;  // kCk-long chunks a super-chunk holds at least (fwd_chunk)
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBwdThreads = 256;  // threads of a backward block, one per (channel, state)
 constexpr int kSub = 16;         // positions per backward sub-chunk (h in registers)
 constexpr int kNSub = kCk / kSub;
@@ -214,89 +243,236 @@ __device__ __forceinline__ long seq_pos(int dir, int L, int i) {
 }
 
 // ---------------------------------------------------------------------------
-// forward walk: one direction, one thread per (image, stream, channel)
+// forward: a chunked scan over super-chunks of S positions (see the header)
 
-inline size_t fwd_smem_floats(int R, int N) {
-  return (size_t)kFwdCB * (kCk + 1) + (size_t)(R + 2 * N) * kCk + (size_t)kFwdCB * (R + 1);
+// threads per channel of the forward passes at N states, each holding
+// min(N, kFwdStates) of them (adjacent lanes)
+__host__ __device__ constexpr int fwd_groups(int N) {
+  return N > kFwdStates ? N / kFwdStates : 1;
 }
 
-template <typename T, int N>
-__global__ void __launch_bounds__(kFwdCB)
-fwd_walk_kernel(const T* __restrict__ x, const float* __restrict__ xdbl,
-                const float* __restrict__ Wdt, const float* __restrict__ bias,
-                const float* __restrict__ A, const float* __restrict__ D, T* __restrict__ y,
-                float* __restrict__ ck, int C, int L, int R, int dir, int clamp) {
-  extern __shared__ float smem[];
-  const int P = R + 2 * N, TLp = kCk + 1;
-  const int bs = blockIdx.y, s = bs & 1, k = s + 2 * dir;
-  const int c0 = blockIdx.x * kFwdCB, nc = min(kFwdCB, C - c0);
-  const int tid = threadIdx.x, c = c0 + tid;
-  const bool valid = tid < nc;
-  float* xs = smem;               // (kFwdCB, TLp): x, then y
-  float* xd = xs + kFwdCB * TLp;  // (P, kCk): the chunk's projection rows
-  float* wdt = xd + P * kCk;      // (kFwdCB, R + 1)
-  const T* xb = x + (long)bs * C * L;
-  T* yb = y + (long)bs * C * L;
-  const float* xdb = xdbl + ((long)bs * 2 + dir) * P * L;
-  for (int i = tid; i < kFwdCB * R; i += kFwdCB) {
-    const int cc = i / R, r = i - cc * R;
-    wdt[cc * (R + 1) + r] = cc < nc ? Wdt[((long)k * C + c0 + cc) * R + r] : 0.f;
-  }
-  float An[N], h[N];
-#pragma unroll
-  for (int n = 0; n < N; ++n) {
-    An[n] = valid ? A[((long)k * C + c) * N + n] : 0.f;
-    h[n] = 0.f;
-  }
-  const float bk = valid ? bias[k * C + c] : 0.f, dk = valid ? D[k * C + c] : 0.f;
+// Positions per super-chunk at batch B, C channels, N states and length
+// L: the fewest super-chunks whose full-pass threads (B*2*C*fwd_groups(N)
+// each, one direction a launch) reach kFwdFill, each a whole number of
+// kCk-long chunks and at least kFwdMinChunks of them. S >= L (one
+// super-chunk) where one alone reaches it.
+inline int fwd_chunk(int B, int C, int N, int L) {
+  const long per = 2L * B * C * fwd_groups(N);
   const int nck = (L + kCk - 1) / kCk;
-  for (int ci = 0; ci < nck; ++ci) {
-    const int i0 = ci * kCk, nt = min(kCk, L - i0);
-    if (ck != nullptr && valid) {
-      float* cp = ck + ((((long)bs * 2 + dir) * nck + ci) * C + c) * N;
+  const long most = (nck + kFwdMinChunks - 1) / kFwdMinChunks;
+  long m = (kFwdFill + per - 1) / per;
+  if (m > most) m = most;
+  return (int)((nck + m - 1) / m) * kCk;
+}
+
+// 2^v in one special-function instruction (results below 2^-126 flush to 0)
+__device__ __forceinline__ float exp2_ftz(float v) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+#else
+  return exp2f(v);
+#endif
+}
+
+// floats of shared memory: x and dt tiles (kFwdCB, kCk + 1), the full
+// pass's y tile (the same), the chunk's projection rows (np, kCk + 1) (the
+// summary needs only the dt-rank and B rows), the block's Wdt rows
+// (kFwdCB, R + 1). The odd row strides put a warp's channels (x, dt, y)
+// and its lanes' states (projection rows) on distinct banks.
+inline size_t fwd_smem_floats(int R, int np, bool full) {
+  return (size_t)(full ? 3 : 2) * kFwdCB * (kCk + 1) + (size_t)np * (kCk + 1) +
+         (size_t)kFwdCB * (R + 1);
+}
+
+struct FwdTile {
+  int bs, dir, k, c0, nc, j, i0, i1;  // super-chunk j covers scan indices [i0, i1)
+};
+
+__device__ __forceinline__ FwdTile fwd_tile(int bs, int dir, int C, int L, int S) {
+  FwdTile t;
+  t.bs = bs;
+  t.dir = dir;
+  t.k = (bs & 1) + 2 * dir;
+  t.c0 = blockIdx.y * kFwdCB;
+  t.nc = min(kFwdCB, C - t.c0);
+  t.j = blockIdx.x;
+  t.i0 = t.j * S;
+  t.i1 = min(L, t.i0 + S);
+  return t;
+}
+
+// the block's Wdt rows (kFwdCB, R + 1), zero past the block's channels
+__device__ __forceinline__ void fwd_stage_wdt(const FwdTile& tl, const float* __restrict__ Wdt,
+                                              float* wdt, int C, int R) {
+  for (int i = threadIdx.x; i < kFwdCB * R; i += blockDim.x) {
+    const int cc = i / R, r = i - cc * R;
+    wdt[cc * (R + 1) + r] = cc < tl.nc ? Wdt[((long)tl.k * C + tl.c0 + cc) * R + r] : 0.f;
+  }
+}
+
+// Stage the nt positions of scan order from i0: x of the block's channels
+// (kFwdCB, kCk + 1) and the projection rows [0, np) (np, kCk + 1), zero
+// past nt and past the block's channels; then dt of every (channel,
+// position), each once, by all threads.
+template <typename T>
+__device__ __forceinline__ void fwd_stage(const FwdTile& tl, const T* __restrict__ xb,
+                                          const float* __restrict__ xdb,
+                                          const float* __restrict__ bias, const float* wdt,
+                                          float* xs, float* dts, float* xd, int C, int L, int R,
+                                          int i0, int nt, int np) {
+  constexpr int TLp = kCk + 1;
+  const int tid = threadIdx.x, nth = blockDim.x;
+  for (int i = tid; i < kFwdCB * kCk; i += nth) {
+    const int cc = i / kCk, j = i - cc * kCk;
+    xs[cc * TLp + j] = (cc < tl.nc && j < nt)
+                           ? IO<T>::load(xb, (long)(tl.c0 + cc) * L + seq_pos(tl.dir, L, i0 + j))
+                           : 0.f;
+  }
+  for (int i = tid; i < np * kCk; i += nth) {
+    const int p = i / kCk, j = i - p * kCk;
+    xd[p * TLp + j] = j < nt ? xdb[(long)p * L + seq_pos(tl.dir, L, i0 + j)] : 0.f;
+  }
+  __syncthreads();
+  for (int i = tid; i < kFwdCB * kCk; i += nth) {
+    const int cc = i / kCk, j = i - cc * kCk;
+    const float* wr = wdt + cc * (R + 1);
+    float dtr = cc < tl.nc ? bias[tl.k * C + tl.c0 + cc] : 0.f;
+    for (int r = 0; r < R; ++r) dtr = fmaf(wr[r], xd[r * TLp + j], dtr);
+    dts[cc * TLp + j] = softplus(dtr);
+  }
+  __syncthreads();
+}
+
+// Summary pass, both directions (blockIdx.z = bs * 2 + dir): per super-chunk
+// and (channel, state), the decay 2^(sum of w) and the end state from
+// h = 0, w = dt A_n log2 e (max(w, -10 log2 e) under clamp). Layout
+// (B*2*2, nsc, C*N).
+template <typename T, int N>
+__global__ void __launch_bounds__(kFwdCB * fwd_groups(N))
+fwd_sum_kernel(const T* __restrict__ x, const float* __restrict__ xdbl,
+               const float* __restrict__ Wdt, const float* __restrict__ bias,
+               const float* __restrict__ A, float* __restrict__ aprod, float* __restrict__ hend,
+               int C, int L, int R, int S, int clamp) {
+  constexpr int G = fwd_groups(N), NG = N / G, TLp = kCk + 1;
+  extern __shared__ float smem[];
+  const int P = R + 2 * N, Q = R + N, z = blockIdx.z;
+  const FwdTile tl = fwd_tile(z >> 1, z & 1, C, L, S);
+  const int tid = threadIdx.x, tc = tid / G, n0 = (tid % G) * NG, c = tl.c0 + tc;
+  const bool valid = tc < tl.nc;
+  float* xs = smem;               // (kFwdCB, TLp)
+  float* dts = xs + kFwdCB * TLp;  // (kFwdCB, TLp)
+  float* xd = dts + kFwdCB * TLp;  // (Q, TLp): dt-rank and B rows
+  float* wdt = xd + Q * TLp;      // (kFwdCB, R + 1)
+  fwd_stage_wdt(tl, Wdt, wdt, C, R);
+  float An[NG], h[NG], sw[NG];
 #pragma unroll
-      for (int n = 0; n < N; ++n) cp[n] = h[n];
-    }
-    for (int i = tid; i < kFwdCB * kCk; i += kFwdCB) {
-      const int cc = i / kCk, j = i - cc * kCk;
-      xs[cc * TLp + j] = (cc < nc && j < nt)
-                             ? IO<T>::load(xb, (long)(c0 + cc) * L + seq_pos(dir, L, i0 + j))
-                             : 0.f;
-    }
-    for (int i = tid; i < P * kCk; i += kFwdCB) {
-      const int p = i / kCk, j = i - p * kCk;
-      xd[i] = j < nt ? xdb[(long)p * L + seq_pos(dir, L, i0 + j)] : 0.f;
-    }
-    __syncthreads();
-    if (valid) {
-      const float* wr = wdt + tid * (R + 1);
-      for (int j = 0; j < nt; ++j) {
-        const float xv = xs[tid * TLp + j];
-        float dtr = bk;
-        for (int r = 0; r < R; ++r) dtr = fmaf(wr[r], xd[r * kCk + j], dtr);
-        const float dt = softplus(dtr), du = dt * xv;
-        float yv = 0.f;
+  for (int i = 0; i < NG; ++i) {
+    An[i] = valid ? A[((long)tl.k * C + c) * N + n0 + i] * kLog2e : 0.f;
+    h[i] = sw[i] = 0.f;
+  }
+  const T* xb = x + (long)tl.bs * C * L;
+  const float* xdb = xdbl + ((long)tl.bs * 2 + tl.dir) * P * L;
+  const float* Bn = xd + (R + n0) * TLp;
+  for (int i0 = tl.i0; i0 < tl.i1; i0 += kCk) {
+    const int nt = min(kCk, tl.i1 - i0);
+    fwd_stage<T>(tl, xb, xdb, bias, wdt, xs, dts, xd, C, L, R, i0, nt, Q);
+    for (int j = 0; j < nt; ++j) {
+      const float dt = dts[tc * TLp + j], du = dt * xs[tc * TLp + j];
 #pragma unroll
-        for (int n = 0; n < N; ++n) {
-          float w = dt * An[n];
-          if (clamp) w = fmaxf(w, kFusedClamp);
-          h[n] = fmaf(expf(w), h[n], du * xd[(R + n) * kCk + j]);
-          yv = fmaf(xd[(R + N + n) * kCk + j], h[n], yv);
-        }
-        xs[tid * TLp + j] = fmaf(dk, xv, yv);
+      for (int i = 0; i < NG; ++i) {
+        float w = dt * An[i];
+        if (clamp) w = fmaxf(w, kFusedClamp * kLog2e);
+        h[i] = fmaf(exp2_ftz(w), h[i], du * Bn[i * TLp + j]);
+        sw[i] += w;
       }
     }
+    __syncthreads();  // the chunk's readers are done before the next is staged
+  }
+  if (!valid) return;
+  const long o = ((long)z * gridDim.x + tl.j) * C * N + (long)c * N + n0;
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    aprod[o + i] = exp2_ftz(sw[i]);
+    hend[o + i] = h[i];
+  }
+}
+
+// Full pass of one direction: every super-chunk from the state entering it
+// (carry: the forward linear_scan of the summaries, inclusive; null where
+// there is one super-chunk). With ck, the state entering every kCk-long
+// chunk, (B, 2, 2, ceil(L / kCk), C, N) fp32.
+template <typename T, int N>
+__global__ void __launch_bounds__(kFwdCB * fwd_groups(N))
+fwd_full_kernel(const T* __restrict__ x, const float* __restrict__ xdbl,
+                const float* __restrict__ Wdt, const float* __restrict__ bias,
+                const float* __restrict__ A, const float* __restrict__ D,
+                const float* __restrict__ carry, T* __restrict__ y, float* __restrict__ ck, int C,
+                int L, int R, int S, int dir, int clamp) {
+  constexpr int G = fwd_groups(N), NG = N / G, TLp = kCk + 1;
+  extern __shared__ float smem[];
+  const int P = R + 2 * N;
+  const FwdTile tl = fwd_tile(blockIdx.z, dir, C, L, S);
+  const int tid = threadIdx.x, nth = blockDim.x, tc = tid / G, g = tid % G, n0 = g * NG;
+  const int c = tl.c0 + tc;
+  const bool valid = tc < tl.nc;
+  float* xs = smem;                // (kFwdCB, TLp)
+  float* dts = xs + kFwdCB * TLp;  // (kFwdCB, TLp)
+  float* ys = dts + kFwdCB * TLp;  // (kFwdCB, TLp)
+  float* xd = ys + kFwdCB * TLp;   // (P, TLp): the chunk's projection rows
+  float* wdt = xd + P * TLp;       // (kFwdCB, R + 1)
+  fwd_stage_wdt(tl, Wdt, wdt, C, R);
+  const long row = (long)tl.bs * 2 + dir;
+  float An[NG], h[NG];
+#pragma unroll
+  for (int i = 0; i < NG; ++i) {
+    An[i] = valid ? A[((long)tl.k * C + c) * N + n0 + i] * kLog2e : 0.f;
+    h[i] = valid && tl.j > 0 ? carry[((row * gridDim.x + tl.j - 1) * C + c) * N + n0 + i] : 0.f;
+  }
+  const float dk = valid ? D[tl.k * C + c] : 0.f;
+  const T* xb = x + (long)tl.bs * C * L;
+  T* yb = y + (long)tl.bs * C * L;
+  const float* xdb = xdbl + row * P * L;
+  const float* Bn = xd + (R + n0) * TLp;
+  const float* Cn = xd + (R + N + n0) * TLp;
+  const int nck = (L + kCk - 1) / kCk;
+  for (int i0 = tl.i0; i0 < tl.i1; i0 += kCk) {
+    const int nt = min(kCk, tl.i1 - i0);
+    if (ck != nullptr && valid) {
+      float* cp = ck + ((row * nck + i0 / kCk) * C + c) * N + n0;
+#pragma unroll
+      for (int i = 0; i < NG; ++i) cp[i] = h[i];
+    }
+    fwd_stage<T>(tl, xb, xdb, bias, wdt, xs, dts, xd, C, L, R, i0, nt, P);
+    // every lane walks (past the block's channels on zeros: h stays 0), so
+    // the shuffles take whole warps
+    for (int j = 0; j < nt; ++j) {
+      const float xv = xs[tc * TLp + j], dt = dts[tc * TLp + j], du = dt * xv;
+      float yv = 0.f;
+#pragma unroll
+      for (int i = 0; i < NG; ++i) {
+        float w = dt * An[i];
+        if (clamp) w = fmaxf(w, kFusedClamp * kLog2e);
+        h[i] = fmaf(exp2_ftz(w), h[i], du * Bn[i * TLp + j]);
+        yv = fmaf(Cn[i * TLp + j], h[i], yv);
+      }
+#pragma unroll
+      for (int off = 1; off < G; off <<= 1) yv += __shfl_xor_sync(0xffffffffu, yv, off);
+      if (g == 0) ys[tc * TLp + j] = fmaf(dk, xv, yv);
+    }
     __syncthreads();
-    for (int i = tid; i < nc * kCk; i += kFwdCB) {
+    // the next chunk's staging writes no y: its two barriers order this
+    // pass's reads of ys before the next walk's writes
+    for (int i = tid; i < tl.nc * kCk; i += nth) {
       const int cc = i / kCk, j = i - cc * kCk;
       if (j >= nt) continue;
-      const long e = (long)(c0 + cc) * L + seq_pos(dir, L, i0 + j);
-      float v = xs[cc * TLp + j];
+      const long e = (long)(tl.c0 + cc) * L + seq_pos(dir, L, i0 + j);
+      float v = ys[cc * TLp + j];
       // the reverse launch adds its rounded y_r to the forward's rounded y_f
       if (dir) v = IO<T>::load(yb, e) + round_to<T>(v);
       IO<T>::store(yb, e, v);
     }
-    __syncthreads();
   }
 }
 
@@ -572,39 +748,35 @@ bwd_full_kernel(const float* __restrict__ x, const float* __restrict__ g,
 // entry points
 
 template <typename T, int N>
-int fwd_n(const T* x, const float* Wx, const float* Wdt, const float* bias, const float* A,
-          const float* D, float* xdbl, T* y, float* ck, int B, int C, int L, int R, int clamp,
-          cudaStream_t st) {
-  const int P = R + 2 * N;
-  int e = project<T>(x, Wx, xdbl, B, C, L, P, st);
-  if (e) return e;
-  const size_t smem = fwd_smem_floats(R, N) * sizeof(float);
-  cudaError_t ce = allow_smem(fwd_walk_kernel<T, N>, smem);
+int fwd_sum_n(const T* x, const float* Wdt, const float* bias, const float* A, const float* xdbl,
+              float* aprod, float* hend, int B, int C, int L, int R, int S, int clamp,
+              cudaStream_t st) {
+  const size_t smem = fwd_smem_floats(R, R + N, false) * sizeof(float);
+  cudaError_t ce = allow_smem(fwd_sum_kernel<T, N>, smem);
   if (ce != cudaSuccess) return (int)ce;
-  dim3 grid((C + kFwdCB - 1) / kFwdCB, B * 2);
+  dim3 grid((L + S - 1) / S, (C + kFwdCB - 1) / kFwdCB, B * 4);
+  fwd_sum_kernel<T, N><<<grid, kFwdCB * fwd_groups(N), smem, st>>>(x, xdbl, Wdt, bias, A, aprod,
+                                                                  hend, C, L, R, S, clamp);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int N>
+int fwd_full_n(const T* x, const float* Wdt, const float* bias, const float* A, const float* D,
+               const float* xdbl, const float* carry, T* y, float* ck, int B, int C, int L,
+               int R, int S, int clamp, cudaStream_t st) {
+  const size_t smem = fwd_smem_floats(R, R + 2 * N, true) * sizeof(float);
+  cudaError_t ce = allow_smem(fwd_full_kernel<T, N>, smem);
+  if (ce != cudaSuccess) return (int)ce;
+  dim3 grid((L + S - 1) / S, (C + kFwdCB - 1) / kFwdCB, B * 2);
+  // direction 1 adds its rounded y_r to direction 0's stored y_f: same
+  // stream, in this order
   for (int dir = 0; dir < 2; ++dir) {
-    fwd_walk_kernel<T, N><<<grid, kFwdCB, smem, st>>>(x, xdbl, Wdt, bias, A, D, y, ck, C, L, R,
-                                                     dir, clamp);
-    e = (int)cudaGetLastError();
+    fwd_full_kernel<T, N><<<grid, kFwdCB * fwd_groups(N), smem, st>>>(
+        x, xdbl, Wdt, bias, A, D, carry, y, ck, C, L, R, S, dir, clamp);
+    const int e = (int)cudaGetLastError();
     if (e) return e;
   }
   return 0;
-}
-
-template <typename T>
-int fwd_t(const void* x, const float* Wx, const float* Wdt, const float* bias, const float* A,
-          const float* D, float* xdbl, void* y, float* ck, int B, int C, int L, int R, int N,
-          int clamp, cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  T* yt = static_cast<T*>(y);
-  switch (N) {
-    case 1: return fwd_n<T, 1>(xt, Wx, Wdt, bias, A, D, xdbl, yt, ck, B, C, L, R, clamp, st);
-    case 2: return fwd_n<T, 2>(xt, Wx, Wdt, bias, A, D, xdbl, yt, ck, B, C, L, R, clamp, st);
-    case 4: return fwd_n<T, 4>(xt, Wx, Wdt, bias, A, D, xdbl, yt, ck, B, C, L, R, clamp, st);
-    case 8: return fwd_n<T, 8>(xt, Wx, Wdt, bias, A, D, xdbl, yt, ck, B, C, L, R, clamp, st);
-    case 16: return fwd_n<T, 16>(xt, Wx, Wdt, bias, A, D, xdbl, yt, ck, B, C, L, R, clamp, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 template <int N>
@@ -676,17 +848,6 @@ int bwd_n(const float* x, const float* g, const float* Wx, const float* Wdt, con
 
 }  // namespace bem
 
-extern "C" int bem_ss2d_fused_fwd(const void* x, const float* Wx, const float* Wdt,
-                                  const float* bias, const float* A, const float* D, float* xdbl,
-                                  void* y, float* ck, int B, int C, int L, int R, int N,
-                                  int clamp, int bf16, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return bem::fwd_t<__nv_bfloat16>(x, Wx, Wdt, bias, A, D, xdbl, y, ck, B, C, L, R, N, clamp,
-                                     s);
-  return bem::fwd_t<float>(x, Wx, Wdt, bias, A, D, xdbl, y, ck, B, C, L, R, N, clamp, s);
-}
-
 // Channels per block of the backward passes at N states; the caller sizes
 // the per-block dB | dC partial sums by it.
 extern "C" int bem_ss2d_fused_bwd_cb(int N) { return N >= 1 ? bem::bwd_cb(N) : 0; }
@@ -700,6 +861,64 @@ extern "C" int bem_ss2d_fused_bwd_cb(int N) { return N >= 1 ? bem::bwd_cb(N) : 0
     case 16: return CALL(16);                                  \
     default: return (int)cudaErrorInvalidValue;                \
   }
+
+// Positions per super-chunk of the forward's chunked scan at batch B, C
+// channels, N states and length L (fwd_chunk); the caller sizes the
+// summaries by it.
+extern "C" int bem_ss2d_fused_chunk(int B, int C, int N, int L) {
+  return B > 0 && C > 0 && N > 0 && L > 0 ? bem::fwd_chunk(B, C, N, L) : 0;
+}
+
+// The forward's projection xdbl (B, 2, 2, P, L): xdbl[b, s, dir] =
+// Wx[s + 2 dir] . x[b, s].
+extern "C" int bem_ss2d_fused_project(const void* x, const float* Wx, float* xdbl, int B, int C,
+                                      int L, int P, int bf16, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return bem::project<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), Wx, xdbl, B, C, L,
+                                       P, s);
+  return bem::project<float>(static_cast<const float*>(x), Wx, xdbl, B, C, L, P, s);
+}
+
+// Forward pass 1: both directions' super-chunk summaries, aprod / hend
+// (B*2*2, nsc, C*N) with nsc = ceil(L / S): each super-chunk's decay and
+// end state from 0 (the carry's a and b). S is a multiple of 32.
+extern "C" int bem_ss2d_fused_fwd_sum(const void* x, const float* Wdt, const float* bias,
+                                      const float* A, const float* xdbl, float* aprod,
+                                      float* hend, int B, int C, int L, int R, int N, int S,
+                                      int clamp, int bf16, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (S < bem::kCk || S % bem::kCk) return (int)cudaErrorInvalidValue;
+#define BEM_FSUM(NN)                                                                          \
+  (bf16 ? bem::fwd_sum_n<__nv_bfloat16, NN>(static_cast<const __nv_bfloat16*>(x), Wdt, bias, A, \
+                                            xdbl, aprod, hend, B, C, L, R, S, clamp, s)       \
+        : bem::fwd_sum_n<float, NN>(static_cast<const float*>(x), Wdt, bias, A, xdbl, aprod,  \
+                                    hend, B, C, L, R, S, clamp, s))
+  BEM_BY_N(BEM_FSUM)
+#undef BEM_FSUM
+}
+
+// Forward pass 3: both directions over every super-chunk from carry
+// (B*2*2, nsc, C*N), the forward linear_scan of pass 1's summaries (null
+// where L <= S); y2 (B, 2, C, L) in the stream dtype; with ck, the state
+// entering every 32-position chunk, (B, 2, 2, ceil(L / 32), C, N) fp32.
+extern "C" int bem_ss2d_fused_fwd(const void* x, const float* Wdt, const float* bias,
+                                  const float* A, const float* D, const float* xdbl,
+                                  const float* carry, void* y, float* ck, int B, int C, int L,
+                                  int R, int N, int S, int clamp, int bf16, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (S < bem::kCk || S % bem::kCk || (L > S && carry == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define BEM_FFULL(NN)                                                                          \
+  (bf16 ? bem::fwd_full_n<__nv_bfloat16, NN>(static_cast<const __nv_bfloat16*>(x), Wdt, bias, A, \
+                                             D, xdbl, carry, static_cast<__nv_bfloat16*>(y),   \
+                                             ck, B, C, L, R, S, clamp, s)                      \
+        : bem::fwd_full_n<float, NN>(static_cast<const float*>(x), Wdt, bias, A, D, xdbl,      \
+                                     carry, static_cast<float*>(y), ck, B, C, L, R, S, clamp,  \
+                                     s))
+  BEM_BY_N(BEM_FFULL)
+#undef BEM_FFULL
+}
 
 // Backward pass 1: the projection xdbl (B, 2, 2, P, L) and both directions'
 // chunk summaries, aprod / msum (B*2*2, nck, C*N) with nck = ceil(L / 32):

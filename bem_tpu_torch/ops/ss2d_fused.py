@@ -29,6 +29,15 @@ chunk's mu. It differentiates the unclamped function, also after a clamped
 forward (ss2d_fused_g.py:323-339 re-runs the unclamped VJP), so a clamped
 forward writes no checkpoints and the backward recomputes them.
 
+On the card the forward is a chunked scan over super-chunks of S positions
+of each direction's scan order (S from the kernel source,
+:func:`fused_chunk`): the projection, then where L > S a summary pass (each
+super-chunk's decay and end state from 0) and a forward
+:func:`..scan.linear_scan` over the super-chunks, then a full pass that
+walks every super-chunk at once from the state entering it and writes y and
+the checkpoints. Its launches count the summary and the full pass (1 or 2 a
+call); the projection's GEMM and the carry (on ``linear_scan``) do not.
+
 On CPU tensors the wrappers run the plain versions below: the forward as a
 composition on the doubling scan, the backward as its formulas written out
 (the same lambda recurrence on the same scan). On CUDA tensors they launch
@@ -86,8 +95,9 @@ def _project(x, Wx, Wdt, bias):
     return xd, torch.einsum("cr,brl->bcl", Wdt, xd[:, :R]) + bias[None, :, None]
 
 
-def _dir_plain(x, Wx, Wdt, bias, A, D, reverse: bool, clamp: bool):
-    """One direction in fp32 (ss2d_fused.py:297-330 with an optional clamp)."""
+def _dir_operands(x, Wx, Wdt, bias, A, clamp: bool):
+    """One direction's projection rows xd (B, P, L), decays a and inputs b
+    (B, C, L, N) in fp32 (the log-decay clamped at -10 under ``clamp``)."""
     N = A.shape[-1]
     R = Wdt.shape[-1]
     xd, dtrb = _project(x, Wx, Wdt, bias)
@@ -96,7 +106,15 @@ def _dir_plain(x, Wx, Wdt, bias, A, D, reverse: bool, clamp: bool):
     if clamp:
         w = torch.clamp(w, min=W_CLAMP)
     b = (dt * x)[..., None] * xd[:, R:R + N].transpose(1, 2)[:, None]
-    h = scan_plain(torch.exp(w), b, reverse, dim=2)
+    return xd, torch.exp(w), b
+
+
+def _dir_plain(x, Wx, Wdt, bias, A, D, reverse: bool, clamp: bool):
+    """One direction in fp32 (ss2d_fused.py:297-330 with an optional clamp)."""
+    N = A.shape[-1]
+    R = Wdt.shape[-1]
+    xd, a, b = _dir_operands(x, Wx, Wdt, bias, A, clamp)
+    h = scan_plain(a, b, reverse, dim=2)
     y = torch.einsum("bcln,bnl->bcl", h, xd[:, R + N:])
     return y + D[None, :, None] * x
 
@@ -122,6 +140,26 @@ def ss2d_dir_fused_plain(xs2, Wx, Wdt, bias, A, D, clamp: bool = False):
 def ss2d_dir_fused_g_plain(xs2, Wx, Wdt, bias, A, D):
     """The plain PyTorch version of :func:`ss2d_dir_fused_g`, on any device."""
     return ss2d_dir_fused_plain(xs2, Wx, Wdt, bias, A, D, clamp=True)
+
+
+def fused_checkpoints_plain(xs2, Wx, Wdt, bias, A, D, clamp: bool = False):
+    """The states the forward kernel checkpoints, plainly: per (image,
+    stream, direction) the state entering every CKPT-long chunk of the
+    direction's scan order (0 for the first), (B, 2, 2, ceil(L / CKPT), C,
+    N) fp32, on any device. For the checks: the port never calls it."""
+    Wx, Wdt, bias, A, D = _args(xs2, Wx, Wdt, bias, A, D)
+    B, _, C, L = xs2.shape
+    N = A.shape[-1]
+    nck = -(-L // CKPT)
+    out = torch.zeros((B, 2, 2, nck, C, N), dtype=torch.float32, device=xs2.device)
+    for s in (0, 1):
+        for d in (0, 1):  # direction s + 2 d; d = 1 scans from position L - 1 down
+            k = s + 2 * d
+            x = xs2[:, s].float()
+            _, a, b = _dir_operands(x.flip(-1) if d else x, Wx[k], Wdt[k], bias[k], A[k], clamp)
+            h = scan_plain(a, b, False, dim=2)                       # in scan order
+            out[:, s, d, 1:] = h[:, :, CKPT - 1:(nck - 1) * CKPT:CKPT].transpose(1, 2)
+    return out
 
 
 def _dir_bwd_plain(x, g, Wx, Wdt, bias, A, D, reverse: bool):
@@ -173,6 +211,43 @@ def ss2d_dir_fused_bwd_plain(xs2, Wx, Wdt, bias, A, D, g):
     return (dxs2.to(xs2.dtype), *(torch.stack(t).contiguous() for t in zip(*per_k)))
 
 
+def fused_chunk(B: int, C: int, N: int, L: int) -> int:
+    """Positions per super-chunk of the forward's chunked scan at batch B,
+    C channels, N states and length L (``fwd_chunk`` of
+    csrc/ss2d_fused.cu: the fewest super-chunks that fill the card, each a
+    multiple of CKPT)."""
+    return _build.load().bem_ss2d_fused_chunk(B, C, N, L)
+
+
+def _fwd_kernels(xs2, w, clamp: bool, with_ckpt: bool, S: int):
+    """The forward's kernels on CUDA tensors at super-chunks of S positions
+    (a multiple of CKPT): (y2, checkpoints or None)."""
+    B, _, C, L = xs2.shape
+    P, N = w[0].shape[1], w[3].shape[-1]
+    R = P - 2 * N
+    bf16 = int(xs2.dtype == torch.bfloat16)
+    f32 = dict(dtype=torch.float32, device=xs2.device)
+    counter = ss2d_dir_fused_g if clamp else ss2d_dir_fused
+    xdbl = torch.empty((B, 2, 2, P, L), **f32)
+    _build.call("bem_ss2d_fused_project", ptr(xs2), ptr(w[0]), ptr(xdbl), B, C, L, P, bf16)
+    carry = None
+    nsc = -(-L // S)
+    if nsc > 1:
+        # per (image, stream, direction) and super-chunk: the decay and the
+        # end state from 0, then the state leaving each super-chunk
+        aprod, hend = (torch.empty((B * 4, nsc, C * N), **f32) for _ in range(2))
+        _build.call("bem_ss2d_fused_fwd_sum", ptr(xs2), *map(ptr, w[1:4]), ptr(xdbl), ptr(aprod),
+                    ptr(hend), B, C, L, R, N, S, int(clamp), bf16)
+        counter.launches += 1
+        carry = linear_scan(aprod, hend)
+    y = torch.empty_like(xs2)
+    ck = torch.empty((B, 2, 2, -(-L // CKPT), C, N), **f32) if with_ckpt else None
+    _build.call("bem_ss2d_fused_fwd", ptr(xs2), *map(ptr, w[1:]), ptr(xdbl), ptr(carry), ptr(y),
+                ptr(ck), B, C, L, R, N, S, int(clamp), bf16)
+    counter.launches += 1
+    return y, ck
+
+
 def _fwd_run(xs2, Wx, Wdt, bias, A, D, clamp: bool, with_ckpt: bool):
     """(y2, checkpoints or None): plain version for CPU tensors, kernels for
     CUDA ones. Checkpoints: (B, 2, 2, ceil(L / CKPT), C, N) fp32, the state
@@ -181,18 +256,7 @@ def _fwd_run(xs2, Wx, Wdt, bias, A, D, clamp: bool, with_ckpt: bool):
     if not on_cuda(xs2, "ss2d_dir_fused"):
         return _fwd_plain(xs2, *w, clamp), None
     B, _, C, L = xs2.shape
-    P, N = w[0].shape[1], w[3].shape[-1]
-    f32 = dict(dtype=torch.float32, device=xs2.device)
-    xdbl = torch.empty((B, 2, 2, P, L), **f32)
-    y = torch.empty_like(xs2)
-    ck = torch.empty((B, 2, 2, -(-L // CKPT), C, N), **f32) if with_ckpt else None
-    _build.call("bem_ss2d_fused_fwd", ptr(xs2), *map(ptr, w), ptr(xdbl), ptr(y), ptr(ck),
-                B, C, L, P - 2 * N, N, int(clamp), int(xs2.dtype == torch.bfloat16))
-    if clamp:
-        ss2d_dir_fused_g.launches += 1
-    else:
-        ss2d_dir_fused.launches += 1
-    return y, ck
+    return _fwd_kernels(xs2, w, clamp, with_ckpt, fused_chunk(B, C, w[3].shape[-1], L))
 
 
 def _bwd_run(xs2, Wx, Wdt, bias, A, D, g, ck):

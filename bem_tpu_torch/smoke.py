@@ -114,8 +114,10 @@ CLS_SHAPES = [
     ("VMamba-T S2 14x14 C768", 2, 768, 14, 14, 24, 16),
     ("VMamba-T S3 7x7 C1536", 2, 1536, 7, 7, 48, 16),
 ]
-# the classifier's training batch (the harness's default): row 9 at stage 0
+# the classifier's training batch (the harness's default): row 9 at stage 0,
+# rows 8 and 10 (bf16, the throughput batch too) at stages 0 and 2
 CLS_TRAIN_BATCH = 128
+CLS_BATCH_STAGES = (0, 2)
 SMALL_CLS_SHAPES = [("small 6x10 C24", 2, 24, 6, 10, 2, 16), ("small 5x7 C70", 1, 70, 5, 7, 3, 4)]
 # the case whose numbers the summary reports: (label, dtype) per kernel
 HEADLINE = {name: ("IE-L0 448x640 C40", "bfloat16") for name in KERNELS}
@@ -183,10 +185,10 @@ class Case:
     def plain(self) -> Callable:
         return self.plain_with()
 
-    def plain_with(self, **kw) -> Callable:
-        """The plain version (with keyword arguments ``kw``), on slices of
-        ``plain_slice`` images where that is set."""
-        fn, n = KERNELS[self.name][1], self.plain_slice
+    def plain_with(self, fn=None, **kw) -> Callable:
+        """The plain version (or ``fn``, with keyword arguments ``kw``), on
+        slices of ``plain_slice`` images where that is set."""
+        fn, n = fn or KERNELS[self.name][1], self.plain_slice
         if kw:
             fn = functools.partial(fn, **kw)
         if not n:
@@ -474,16 +476,21 @@ def _clamp_probe(xs2):
     return mask
 
 
-def _cls_cases(label, B, C, H, W, R, N, device, seed):
-    """The fused core, its clamped form (fp32, bf16) and its backward (fp32)
-    at one stage: xs2 = the (row, column) sequences of a SiLU output, with
-    the clamp probe."""
-    rng = np.random.default_rng(seed)
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+def _cls_stream(rng, B, C, H, W, device):
+    """xs2 (numpy (B, 2, C, H*W)): the (row, column) sequences of a SiLU
+    output, with the clamp probe; and the probe's mask on ``device``."""
     x = rng.standard_normal((B, C, H, W)).astype(np.float32)
     x = x / (1.0 + np.exp(-x))
     xs2 = np.stack([x.reshape(B, C, H * W), x.transpose(0, 1, 3, 2).reshape(B, C, H * W)], 1)
-    probe = torch.from_numpy(_clamp_probe(xs2)).to(device)
+    return xs2, torch.from_numpy(_clamp_probe(xs2)).to(device)
+
+
+def _cls_cases(label, B, C, H, W, R, N, device, seed):
+    """The fused core, its clamped form (fp32, bf16) and its backward (fp32)
+    at one stage, on _cls_stream's inputs."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    xs2, probe = _cls_stream(rng, B, C, H, W, device)
     w = _fused_weights(rng, C, R, N, t)
     out = []
     for dtype in (torch.float32, torch.bfloat16):
@@ -493,6 +500,20 @@ def _cls_cases(label, B, C, H, W, R, N, device, seed):
     g = t(rng.standard_normal(xs2.shape))
     out.append(Case("ss2d_dir_fused_bwd", label, torch.float32, (t(xs2), *w, g), probe))
     return out
+
+
+def _cls_batch_cases(label, B, C, H, W, R, N, device, seed):
+    """The fused core and its clamped form at the classifier's batch
+    (CLS_TRAIN_BATCH), bf16, on _cls_stream's inputs, the plain versions on
+    slices of PLAIN_SLICE images."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    B = CLS_TRAIN_BATCH
+    xs2, probe = _cls_stream(rng, B, C, H, W, device)
+    xs = t(xs2).to(torch.bfloat16)
+    w = _fused_weights(rng, C, R, N, t)
+    return [Case(name, f"{label} B={B}", torch.bfloat16, (xs, *w), probe,
+                 plain_slice=PLAIN_SLICE) for name in ("ss2d_dir_fused", "ss2d_dir_fused_g")]
 
 
 def _fused_bwd_case(label, B, C, L, R, N, device, seed, plain_slice=0):
@@ -584,6 +605,8 @@ def kernel_cases(small: bool = False, device="cuda"):
             label, _, C, H, W, R, N = shape
             out.append(_fused_bwd_case(f"{label} B={CLS_TRAIN_BATCH}", CLS_TRAIN_BATCH, C,
                                        H * W, R, N, device, 350, PLAIN_SLICE))
+        if i in CLS_BATCH_STAGES and not small:
+            out += _cls_batch_cases(*shape, device, seed=360 + i)
     return out + _microbench_cases(small, device)
 
 
@@ -652,11 +675,11 @@ def compare(case: Case):
         if worst is None or e / tol > worst[0]:
             worst = (e / tol, e, tol)
     other = None
-    if case.name in ("ss2d_dir_fused", "ss2d_dir_fused_g", "selective_scan_fused"):
-        if case.name == "selective_scan_fused":  # a function without the clamp
-            other = _sf.selective_scan_fused_plain(*case.args, clamp=True)
-        else:
-            other = _fused.ss2d_dir_fused_plain(*case.args, clamp=case.name == "ss2d_dir_fused")
+    if case.name == "selective_scan_fused":  # a function without the clamp
+        other = case.plain_with(clamp=True)(*case.args)
+    elif case.name in ("ss2d_dir_fused", "ss2d_dir_fused_g"):
+        other = case.plain_with(_fused.ss2d_dir_fused_plain,
+                                clamp=case.name == "ss2d_dir_fused")(*case.args)
     elif case.probe is not None and case.name in COL_KERNELS:  # against the unclamped plain
         other = _outputs(case.plain_with(clamp=False)(*case.args))[case.probe_out]
     if other is not None:
@@ -669,6 +692,59 @@ def compare(case: Case):
     if case.name in PER_OUTPUT or case.name in PER_ROW or case.probe is not None:
         return worst[1], worst[2]
     return err, TOL[case.dtype] * scale
+
+
+@dataclass
+class CkptCase:
+    """The fused forward's checkpoints (the state entering every CKPT-long
+    chunk of each direction) on clamp-probe inputs, forward ``clamp``ed or
+    not."""
+    label: str
+    dtype: torch.dtype
+    args: tuple
+    clamp: bool
+
+
+def checkpoint_cases(small: bool = False, device="cuda"):
+    """The checkpoints at the VMamba-T stage shapes (batch 2; ``small``:
+    tiny ones), fp32 and bf16 streams, unclamped (what the backward reads)
+    and clamped, on _cls_cases's clamp-probe inputs."""
+    out = []
+    for i, (label, B, C, H, W, R, N) in enumerate(SMALL_CLS_SHAPES if small else CLS_SHAPES):
+        rng = np.random.default_rng(320 + i)
+        t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+        x = rng.standard_normal((B, 2, C, H * W)).astype(np.float32)
+        xs2 = x / (1.0 + np.exp(-x))
+        _clamp_probe(xs2)
+        w = _fused_weights(rng, C, R, N, t)
+        out += [CkptCase(label, dtype, (t(xs2).to(dtype), *w), clamp)
+                for dtype in (torch.float32, torch.bfloat16) for clamp in (False, True)]
+    return out
+
+
+@torch.inference_mode()
+def compare_checkpoints(case: CkptCase):
+    """(max abs error, tolerance, err / tol against the other clamp
+    setting) of the forward kernel's checkpoints against
+    ``fused_checkpoints_plain``: each (image, stream, direction, channel)
+    row over its chunks and states against its own largest entry (a row
+    of one state can hold a single sum that cancelled to far below its
+    channel's scale), at the fp32 tolerance (the states are fp32). Raises
+    unless the check also fails against the other clamp setting."""
+    _, ck = _fused._fwd_run(*case.args, clamp=case.clamp, with_ckpt=True)
+    if ck is None:
+        raise ValueError("compare_checkpoints: the kernel writes checkpoints on the card only")
+    if not torch.isfinite(ck).all():
+        raise AssertionError(f"checkpoints {case.label}: non-finite states")
+    rows = lambda t: t.permute(0, 1, 2, 4, 3, 5).flatten(4)  # noqa: E731  (B, 2, 2, C, nck*N)
+    ref = _fused.fused_checkpoints_plain(*case.args, clamp=case.clamp)
+    err, tol = row_scaled(rows(ck), rows(ref), TOL[torch.float32])
+    other = _fused.fused_checkpoints_plain(*case.args, clamp=not case.clamp)
+    e, t = row_scaled(rows(ck), rows(other), TOL[torch.float32])
+    if e <= t:
+        raise AssertionError(f"checkpoints {case.label}: the check cannot tell the clamped "
+                             f"function from the unclamped ({e} <= {t})")
+    return err, tol, e / t
 
 
 @torch.inference_mode()

@@ -57,15 +57,21 @@ result line):
 The kernels' phase also holds the three classifier kernels (the fused core,
 its clamped form, its backward) and selective_scan_fused (scans 1 and 2
 inputs) against their plain versions at the four VMamba-T stage shapes
-(batch 2; the backward also at stage 0 and the training batch 128, its
-plain version on slices of 4 images; every backward case launched twice,
+(batch 2; the backward also at stage 0 and the training batch 128, the
+fused core and its clamped form at stages 0 and 2 and batch 128 bf16, the
+plain versions on slices of 4 images; every backward case launched twice,
 its outputs bit-identical), each output row against its own largest entry, with a clamp
 probe (x zero at every other position of the clamped channels, where the
 clamp changes y by a factor of e or more) held apart; each fused forward
 must also fail that check against the plain version with the other clamp
 setting (selective_scan_fused has no clamp: it must fail against the
-clamped function). The two microbenchmark kernels are held against their
-plain versions at every point of the tool's sweeps. The gradients' phase
+clamped function). The fused forward's checkpoints (the state entering
+every 32-position chunk, which the backward reads) are held against
+``fused_checkpoints_plain`` at the four stage shapes, fp32 and bf16
+streams, clamped and not, each (image, stream, direction, channel) row
+over its chunks and states against its own largest entry, and must fail
+against the other clamp setting. The two microbenchmark kernels are held
+against their plain versions at every point of the tool's sweeps. The gradients' phase
 holds the autograd wrappers. The line before the last is the per-kernel
 JSON summary, the one before it the card's name and power limit; the last
 line is {"ok": true, ...}. Imports nothing of JAX or of bem_tpu.
@@ -183,6 +189,19 @@ def compare_edges():
               f"tol {tol:.3e} {'ok' if ok else 'FAIL'}{_notes(case)}", flush=True)
         if not ok:
             raise AssertionError(f"{case.name} {case.label} {dt}: {err} > {tol}")
+
+
+def compare_checkpoints():
+    for case in smoke.checkpoint_cases():
+        err, tol, other = smoke.compare_checkpoints(case)
+        dt = str(case.dtype).replace("torch.", "")
+        ok = err <= tol
+        print(f"checkpoints     {case.label:34s} {dt:8s} clamp {int(case.clamp)} max_abs_err "
+              f"{err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}  vs other clamp err/tol "
+              f"{other:.3g}", flush=True)
+        if not ok:
+            raise AssertionError(f"checkpoints {case.label} {dt} clamp {case.clamp}: {err} > {tol}")
+        torch.cuda.empty_cache()
 
 
 def compare_gradients():
@@ -590,6 +609,8 @@ def main() -> int:
     summary = compare_kernels()
     phase("kernel edge cases vs plain versions")
     compare_edges()
+    phase("fused forward checkpoints vs plain")
+    compare_checkpoints()
     phase("gradients vs plain compositions")
     compare_gradients()
     phase("reference checks")

@@ -187,3 +187,56 @@ def test_chunked_column_pair_and_fused_backward_on_card():
         case = smoke._fused_bwd_case("small", B, C, L, R, N, "cuda", 900 + i)
         err, tol = smoke.compare(case)
         assert err <= tol and case.repeatable, (case.label, err, tol)
+
+
+@pytest.mark.cuda
+def test_chunked_fused_forward_and_column_summary_grid_on_card():
+    """The fused core's chunked forward (rows 8 / 10) at super-chunks of 32
+    and 64 positions and one >= L: y vs the plain version per row with the
+    clamp probe (failing against the other clamp setting) and the
+    checkpoints vs fused_checkpoints_plain, also as smoke.checkpoint_cases
+    holds them; and the column summaries (row 5) on their (column tile,
+    chunk, image) grid at C = 160, where a block takes several chunks of its
+    columns, with the clamp probe failing against the unclamped function."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    import numpy as np
+
+    from bem_tpu_torch import smoke
+    from bem_tpu_torch.ops import ss2d_fused as fused
+
+    for case in smoke.checkpoint_cases(small=True):
+        err, tol, other = smoke.compare_checkpoints(case)
+        assert err <= tol and other > 1, (case.label, case.dtype, case.clamp, err, tol, other)
+    rng = np.random.default_rng(11)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()  # noqa: E731
+    rows = lambda c: c.permute(0, 1, 2, 4, 3, 5).flatten(4)  # noqa: E731
+    for B, C, L, R, N in ((2, 40, 100, 3, 16), (1, 70, 64, 3, 4), (2, 24, 20, 2, 1)):
+        x = rng.standard_normal((B, 2, C, L)).astype(np.float32)
+        xs2 = x / (1.0 + np.exp(-x))
+        probe = torch.from_numpy(smoke._clamp_probe(xs2)).cuda()
+        w = smoke._fused_weights(rng, C, R, N, t)
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = t(xs2).to(dtype)
+            wa = fused._args(xs, *w)
+            for S in sorted({32, 64, -(-L // 32) * 32}):
+                for clamp in (False, True):
+                    y, ck = fused._fwd_kernels(xs, wa, clamp, True, S)
+                    ref = fused.ss2d_dir_fused_plain(xs, *w, clamp=clamp)
+                    err, tol = smoke.row_scaled(y, ref, smoke.TOL[dtype], probe)
+                    assert err <= tol, (B, C, L, N, dtype, S, clamp, err, tol)
+                    other = fused.ss2d_dir_fused_plain(xs, *w, clamp=not clamp)
+                    err, tol = smoke.row_scaled(y, other, smoke.TOL[dtype], probe)
+                    assert err > tol, (B, C, L, N, dtype, S, clamp, "other clamp", err, tol)
+                    ckr = fused.fused_checkpoints_plain(xs, *w, clamp=clamp)
+                    err, tol = smoke.row_scaled(rows(ck), rows(ckr), smoke.TOL[torch.float32])
+                    assert err <= tol, (B, C, L, N, dtype, S, clamp, "checkpoints", err, tol)
+    B, C, H, W = 2, 160, 109, 160  # chunks of 2 (fp32) / 4 (bf16) rows, 4 / 2 a block
+    x = rng.standard_normal((B, C, H * W)).astype(np.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        w = smoke._scan_weights(rng, C, t, clamp=True)
+        for case in smoke._col_cases("C160 109x160", dtype, rng, t, x / (1.0 + np.exp(-x)), H, W,
+                                     w, True, "cuda"):
+            if case.name == "ss2d_col_sum":
+                err, tol = smoke.compare(case)
+                assert err <= tol and case.other_clamp > 1, (dtype, err, tol, case.other_clamp)
