@@ -43,7 +43,8 @@ _SIGNATURES = {
     "bem_ss2d_fused_fwd": [_P] * 9 + [_I] * 8 + [_P],
     "bem_ss2d_fused_bwd_sum": [_P] * 9 + [_I] * 5 + [_P],
     "bem_ss2d_fused_bwd": [_P] * 21 + [_I] * 5 + [_P],
-    "bem_selective_scan_fused": [_P] * 8 + [_I] * 7 + [_P],
+    "bem_selective_scan_sum": [_P] * 7 + [_I] * 8 + [_P],
+    "bem_selective_scan_fused": [_P] * 9 + [_I] * 8 + [_P],
     "bem_vpu_scan_step": [_P] * 2 + [_L] + [_I] * 2 + [_P],
     "bem_vpu_op_rounds": [_P] * 2 + [_L] + [_I] * 2 + [_P],
 }
@@ -133,6 +134,8 @@ def load():
         lib.bem_ss2d_col_chunk.restype = ctypes.c_int
         lib.bem_ss2d_fused_chunk.argtypes = [_I] * 4
         lib.bem_ss2d_fused_chunk.restype = ctypes.c_int
+        lib.bem_selective_scan_chunk.argtypes = [_I] * 4
+        lib.bem_selective_scan_chunk.restype = ctypes.c_int
         lib.bem_ss2d_fused_bwd_cb.argtypes = [_I]
         lib.bem_ss2d_fused_bwd_cb.restype = ctypes.c_int
         _LIB = lib

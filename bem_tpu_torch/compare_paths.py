@@ -7,7 +7,8 @@ kernel build) that calls that checkout's ``chip_smoke.train_phase`` (IE and
 CG, 1 warm-up + 5 timed steps each), ``chip_smoke.serve`` (the flagship
 K=16 pipeline, 3 requests), ``chip_smoke.cls_train_phase`` (VMamba-T v2,
 batch 128, 1 warm-up + 5 timed steps) and ``chip_smoke.cls_throughput_phase``
-(bf16, batch 128), with chip_smoke's own settings; runs alternate parent,
+(bf16, batch 128, forward types v2 and v052d), with chip_smoke's own
+settings; runs alternate parent,
 change, parent, ... Prints each run's numbers, then per metric the medians
 over the runs of each side, beside the card's name and power limit.
 Compares two versions inside one call, where the host's share of a step
@@ -32,6 +33,7 @@ cs.train_phase(card)
 cs.serve(card)
 cs.cls_train_phase(card)
 cs.cls_throughput_phase(card)
+cs.cls_throughput_phase(card, "v052d", ("selective_scan_fused",))
 """
 METRICS = {
     "IE ms/step": r"ImageEnhancer train .*median ([\d.]+) ms/step",
@@ -41,6 +43,7 @@ METRICS = {
     "VMamba-T train images/s": r"VMamba-T v2 train B=.* ms/step, ([\d.]+) images/s",
     "VMamba-T peak GiB": r"VMamba-T v2 train B=.*peak memory ([\d.]+) GiB",
     "VMamba-T bf16 images/s": r"VMamba-T v2 throughput B=.*bf16: ([\d.]+) images/s",
+    "VMamba-T v052d bf16 images/s": r"VMamba-T v052d throughput B=.*bf16: ([\d.]+) images/s",
 }
 
 

@@ -64,4 +64,51 @@ constexpr size_t kSmemBudget = 200 * 1024;
 // Streaming multiprocessors of an H100 SXM: the grids' fill rules.
 constexpr int kCardSMs = 132;
 
+// ---------------------------------------------------------------------------
+// The chunked forward scans of h_n = exp(dt A_n) h_n + dt x B_n (the fused
+// core's forward in ss2d_fused.cu, the selective scan in scan_fused.cu):
+// each sequence is cut into super-chunks of S positions, S a multiple of
+// kCk; a summary pass writes each super-chunk's decay and end state from 0,
+// a forward linear_scan carries the state across them, and a full pass
+// walks every super-chunk at once from the state entering it, staging kCk
+// positions at a time through shared memory.
+
+constexpr int kCk = 32;             // scan positions per staged chunk
+constexpr int kFwdStates = 4;       // states a thread of the passes holds
+constexpr long kFwdFill = kCardSMs * 768L;  // threads a full-pass launch aims for
+constexpr int kFwdMinChunks = 2;    // kCk-long chunks a super-chunk holds at least
+constexpr float kLog2e = 1.4426950408889634f;
+
+// threads per channel of the passes at N states, each holding
+// min(N, kFwdStates) of them (adjacent lanes)
+__host__ __device__ constexpr int fwd_groups(int N) {
+  return N > kFwdStates ? N / kFwdStates : 1;
+}
+
+// Positions per super-chunk of a length-L sequence whose full pass runs
+// ``per`` threads a super-chunk: the fewest super-chunks whose threads
+// reach kFwdFill, each a whole number of kCk-long chunks and at least
+// kFwdMinChunks of them. S >= L (one super-chunk: no summary pass) where
+// one alone reaches it. (Measured for the fused core: at batch 2 the
+// second exp pass of the summaries pays for itself; at batch 128 it never
+// does.)
+inline int super_chunk(long per, int L) {
+  const int nck = (L + kCk - 1) / kCk;
+  const long most = (nck + kFwdMinChunks - 1) / kFwdMinChunks;
+  long m = (kFwdFill + per - 1) / per;
+  if (m > most) m = most;
+  return (int)((nck + m - 1) / m) * kCk;
+}
+
+// 2^v in one special-function instruction (results below 2^-126 flush to 0)
+__device__ __forceinline__ float exp2_ftz(float v) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+#else
+  return exp2f(v);
+#endif
+}
+
 }  // namespace bem

@@ -34,9 +34,8 @@
 // gdmlp_kernel, the fp32 stream (IE training) and C or Cout above 256:
 // both projections as fp32 FMAs on the CUDA cores, out of shared memory,
 // the accumulator in shared memory, in the same tiling and chunking.
-#include <cstdint>
-
 #include "conv_tile.cuh"
+#include "mma_bf16.cuh"
 
 namespace bem {
 
@@ -157,9 +156,7 @@ int launch_gdmlp(const void* x, const float* lns, const float* lnb, const float*
 // ---------------------------------------------------------------------------
 // the tensor-core form (bf16 stream)
 
-using bf16_t = __nv_bfloat16;
 constexpr int kGs = kGate + 8;  // bf16 stride of a gate / W2 row (+8: no bank conflicts)
-constexpr int kTcMaxC = 256;    // widest C and Cout of the tensor-core form
 
 // pixel n-tiles of 8 a warp accumulates in the W2 product: MT m-tiles of 16
 // output channels x NT n-tiles x 4 fp32 stay in registers; the tile is
@@ -188,37 +185,6 @@ struct TcLayout {
     total = end > epi ? end : epi;
   }
 };
-
-// fp32 w as hi = bf16(w) at p and lo = bf16(w - hi) at p + lo_off
-__device__ __forceinline__ void split_store(bf16_t* p, int lo_off, float w) {
-  const bf16_t hi = __float2bfloat16_rn(w);
-  p[0] = hi;
-  p[lo_off] = __float2bfloat16_rn(w - __bfloat162float(hi));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a . b on a 16x8x16 bf16 tile, fp32 accumulators in place
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the A fragment of rows row0..row0+15, columns k0..k0+15 of a row-major
-// bf16 matrix with row stride S (lane: group g = lane/4, thread t = lane%4)
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16_t* m, int S, int row0, int k0,
-                                       int g, int t) {
-  const bf16_t* p = m + (row0 + g) * S + k0 + 2 * t;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * S);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * S + 8);
-}
 
 template <int MT>
 __global__ void __launch_bounds__(kThreads)

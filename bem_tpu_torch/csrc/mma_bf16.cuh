@@ -1,0 +1,60 @@
+// bf16 tensor-core building blocks shared by the stem's and the gdMlp's
+// tensor-core forms: mma.sync m16n8k16 (bf16 in, fp32 accumulate), its A
+// fragment from a row-major bf16 matrix in shared memory, and the split of
+// an fp32 value into two bf16 terms.
+//
+// Fragments (lane = 4 g + t): A rows g and g + 8, columns 2t, 2t + 1 and
+// 2t + 8, 2t + 9; B (K x N, "col") column g, rows 2t, 2t + 1 (b0) and
+// 2t + 8, 2t + 9 (b1); D rows g (d0, d1) and g + 8 (d2, d3), columns 2t and
+// 2t + 1. A row stride S of Kp + 8 bf16 (S / 2 = 4 mod 8 words) puts the
+// 8 rows x 4 words of a fragment load on 32 distinct banks.
+#pragma once
+
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace bem {
+
+using bf16_t = __nv_bfloat16;
+
+constexpr int kTcMaxC = 256;  // widest C and output width of the tensor-core forms
+
+// fp32 w as hi = bf16(w) at p and lo = bf16(w - hi) at p + lo_off
+__device__ __forceinline__ void split_store(bf16_t* p, int lo_off, float w) {
+  const bf16_t hi = __float2bfloat16_rn(w);
+  p[0] = hi;
+  p[lo_off] = __float2bfloat16_rn(w - __bfloat162float(hi));
+}
+
+// two bf16 as one 32-bit word, a in the low half (the lower address)
+__device__ __forceinline__ uint32_t pack2(bf16_t a, bf16_t b) {
+  const __nv_bfloat162 h = __halves2bfloat162(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// d += a . b on a 16x8x16 bf16 tile, fp32 accumulators in place
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the A fragment of rows row0..row0+15, columns k0..k0+15 of a row-major
+// bf16 matrix with row stride S (lane: group g = lane/4, thread t = lane%4)
+__device__ __forceinline__ void load_a(uint32_t* a, const bf16_t* m, int S, int row0, int k0,
+                                       int g, int t) {
+  const bf16_t* p = m + (row0 + g) * S + k0 + 2 * t;
+  a[0] = ld32(p);
+  a[1] = ld32(p + 8 * S);
+  a[2] = ld32(p + 8);
+  a[3] = ld32(p + 8 * S + 8);
+}
+
+}  // namespace bem

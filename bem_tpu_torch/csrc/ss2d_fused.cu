@@ -97,12 +97,8 @@
 namespace bem {
 
 constexpr float kFusedClamp = -10.f;
-constexpr int kCk = 32;          // scan positions per chunk and per checkpoint
+// kCk (common.cuh): scan positions per chunk and per checkpoint
 constexpr int kFwdCB = 64;       // channels per forward block
-constexpr int kFwdStates = 4;    // states a forward thread holds
-constexpr long kFwdFill = kCardSMs * 768L;  // threads a full-pass launch aims for (fwd_chunk)
-constexpr int kFwdMinChunks = 2;  // kCk-long chunks a super-chunk holds at least (fwd_chunk)
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBwdThreads = 256;  // threads of a backward block, one per (channel, state)
 constexpr int kSub = 16;         // positions per backward sub-chunk (h in registers)
 constexpr int kNSub = kCk / kSub;
@@ -245,35 +241,11 @@ __device__ __forceinline__ long seq_pos(int dir, int L, int i) {
 // ---------------------------------------------------------------------------
 // forward: a chunked scan over super-chunks of S positions (see the header)
 
-// threads per channel of the forward passes at N states, each holding
-// min(N, kFwdStates) of them (adjacent lanes)
-__host__ __device__ constexpr int fwd_groups(int N) {
-  return N > kFwdStates ? N / kFwdStates : 1;
-}
-
 // Positions per super-chunk at batch B, C channels, N states and length
-// L: the fewest super-chunks whose full-pass threads (B*2*C*fwd_groups(N)
-// each, one direction a launch) reach kFwdFill, each a whole number of
-// kCk-long chunks and at least kFwdMinChunks of them. S >= L (one
-// super-chunk) where one alone reaches it.
+// L: super_chunk (common.cuh) over the full pass's B*2*C*fwd_groups(N)
+// threads (one direction a launch).
 inline int fwd_chunk(int B, int C, int N, int L) {
-  const long per = 2L * B * C * fwd_groups(N);
-  const int nck = (L + kCk - 1) / kCk;
-  const long most = (nck + kFwdMinChunks - 1) / kFwdMinChunks;
-  long m = (kFwdFill + per - 1) / per;
-  if (m > most) m = most;
-  return (int)((nck + m - 1) / m) * kCk;
-}
-
-// 2^v in one special-function instruction (results below 2^-126 flush to 0)
-__device__ __forceinline__ float exp2_ftz(float v) {
-#ifdef __CUDA_ARCH__
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-#else
-  return exp2f(v);
-#endif
+  return super_chunk(2L * B * C * fwd_groups(N), L);
 }
 
 // floats of shared memory: x and dt tiles (kFwdCB, kCk + 1), the full

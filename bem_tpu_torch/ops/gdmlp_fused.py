@@ -19,7 +19,11 @@ On the bf16 stream (C, Cout <= 256) the gdMlp's kernel runs both
 projections on the tensor cores with bf16 operands: it cuts each fp32
 weight into hi = bf16(W) and lo = bf16(W - hi) as it stages it, and
 multiplies by each into one fp32 accumulator, which keeps the weights to
-about 2^-17 relative.
+about 2^-17 relative. On the bf16 stream (C, Dh <= 256) the stem's kernel
+runs its projection on the tensor cores the other way round: W1 is one
+exact bf16 operand (pre-rounded here) and the fp32 LN output is cut into
+hi = bf16(y) and lo = bf16(y - hi) as the tile is staged, each product run
+twice into one fp32 accumulator (once, on x itself, without the LN).
 
 Both are differentiable: the backward recomputes through the jnp oracles'
 counterparts :func:`_stem_ref` and :func:`_gdmlp_ref`

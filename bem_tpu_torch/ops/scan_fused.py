@@ -24,6 +24,14 @@ bem_tpu's custom VJP does (scan_fused.py:168-173); the gradients of A, D
 and delta_bias sum over the batch, since bem_tpu broadcasts them
 (scan_fused.py:198-210). On CPU tensors the wrapper runs the plain
 version; on CUDA tensors it launches ``csrc/scan_fused.cu`` or raises.
+
+On the card the scan is chunked along L: super-chunks of S positions (S
+from the kernel source, :func:`scan_chunk`); where L > S a summary pass
+(each super-chunk's decay and end state from 0) and a forward
+:func:`..scan.linear_scan` over the super-chunks, then a full pass that
+walks every super-chunk at once from the state entering it. Its launches
+count the summary and the full pass (1 or 2 a call); the carry counts on
+``linear_scan``.
 """
 
 from __future__ import annotations
@@ -93,24 +101,58 @@ def selective_scan_fused_plain(u, delta, A, B, C, D=None, delta_bias=None,
     return y.to(u.dtype)
 
 
-def _run(u, delta, A, B, C, D, delta_bias, delta_softplus):
-    """y: the plain version for CPU tensors, the kernel for CUDA ones."""
-    Bt, K, Cd, L, N = _check(u, delta, A, B, C, D, delta_bias)
-    if not on_cuda(u, "selective_scan_fused"):
-        return selective_scan_fused_plain(u, delta, A, B, C, D, delta_bias, delta_softplus)
+def scan_chunk(M: int, C: int, N: int, L: int) -> int:
+    """Positions per super-chunk of the card's chunked scan for M = Bt*K
+    sequences of C channels, N states and length L (``super_chunk`` of
+    csrc/common.cuh: the fewest super-chunks that fill the card, each a
+    multiple of 32 positions)."""
+    return _build.load().bem_selective_scan_chunk(M, C, N, L)
+
+
+def _kernels(u, delta, A, B, C, D, delta_bias, delta_softplus, S):
+    """The kernels on checked CUDA tensors (A, D, delta_bias fp32 on u's
+    device) at super-chunks of S positions (a multiple of 32): y."""
+    Bt, K, Cd, L = u.shape
+    N = A.shape[-1]
+    M = Bt * K
+    args = (int(delta_softplus), int(u.dtype == torch.bfloat16))
+    carry = None
+    nsc = -(-L // S)
+    if nsc > 1:
+        # per (sequence, super-chunk): the decay and the end state from 0,
+        # then the state leaving each super-chunk
+        aprod, hend = (torch.empty((M, nsc, Cd * N), dtype=torch.float32, device=u.device)
+                       for _ in range(2))
+        _build.call("bem_selective_scan_sum", ptr(u), ptr(delta), ptr(A), ptr(B),
+                    ptr(delta_bias), ptr(aprod), ptr(hend), M, K, Cd, L, N, S, *args)
+        selective_scan_fused.launches += 1
+        carry = linear_scan(aprod, hend)
+    y = torch.empty_like(u)
+    _build.call("bem_selective_scan_fused", ptr(u), ptr(delta), ptr(A), ptr(B), ptr(C),
+                ptr(D), ptr(delta_bias), ptr(carry), ptr(y), M, K, Cd, L, N, S, *args)
+    selective_scan_fused.launches += 1
+    return y
+
+
+def _cuda_args(u, delta, A, B, C, D, delta_bias):
+    """The inputs checked for the kernels, A / D / delta_bias as fp32
+    contiguous copies on u's device."""
     dev = u.device
     for name, t in (("u", u), ("delta", delta), ("B", B), ("C", C)):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"selective_scan_fused: {name} must be contiguous on {dev}")
-    A, D, delta_bias = (weight(t, dev) for t in (A, D, delta_bias))
-    y = torch.empty_like(u)
-    if y.numel() == 0:
-        return y
-    _build.call("bem_selective_scan_fused", ptr(u), ptr(delta), ptr(A), ptr(B), ptr(C),
-                ptr(D), ptr(delta_bias), ptr(y), Bt * K, K, Cd, L, N, int(delta_softplus),
-                int(u.dtype == torch.bfloat16))
-    selective_scan_fused.launches += 1
-    return y
+    return (u, delta, weight(A, dev), B, C, weight(D, dev), weight(delta_bias, dev))
+
+
+def _run(u, delta, A, B, C, D, delta_bias, delta_softplus):
+    """y: the plain version for CPU tensors, the kernels for CUDA ones."""
+    Bt, K, Cd, L, N = _check(u, delta, A, B, C, D, delta_bias)
+    if not on_cuda(u, "selective_scan_fused"):
+        return selective_scan_fused_plain(u, delta, A, B, C, D, delta_bias, delta_softplus)
+    args = _cuda_args(u, delta, A, B, C, D, delta_bias)
+    if u.numel() == 0:
+        return torch.empty_like(u)
+    return _kernels(*args, delta_softplus, scan_chunk(Bt * K, Cd, N, L))
 
 
 class _ScanFused(torch.autograd.Function):

@@ -100,10 +100,12 @@ TRAIN_SHAPES = [
 SMALL_SHAPES = [("small 16x48 C16", 2, 16, 16, 48), ("small 12x20 C40", 1, 40, 12, 20),
                 ("small 2x2 C24", 2, 24, 2, 2)]
 # the IE stage of a serving request runs K * NIMG = 32 images at once: rows
-# 2 and 4 at that batch (bf16), their plain versions on slices of
-# PLAIN_SLICE images (the gdMlp's fp32 hidden map alone is 11.7 GB at B=32)
+# 1, 2, 4, 5 and 6 at that batch (bf16), their plain versions on slices of
+# PLAIN_SLICE images (the gdMlp's fp32 hidden map alone is 11.7 GB at B=32);
+# the stem also at the bottleneck level
 SERVE_SHAPES = [("IE-L0 448x640 C40 B=32", 32, 40, 448, 640),
                 ("IE-L1 224x320 C80 B=32", 32, 80, 224, 320)]
+SERVE_STEM_SHAPES = [("IE-L2 112x160 C160 B=32", 32, 160, 112, 160)]
 PLAIN_SLICE = 4
 # (label, B, d_inner, H, W, dt rank, d_state): the SS2D cores of the VMamba-T
 # classifier's four stages (dims 96 / 192 / 384 / 768, ssm_ratio 2) at
@@ -115,7 +117,7 @@ CLS_SHAPES = [
     ("VMamba-T S3 7x7 C1536", 2, 1536, 7, 7, 48, 16),
 ]
 # the classifier's training batch (the harness's default): row 9 at stage 0,
-# rows 8 and 10 (bf16, the throughput batch too) at stages 0 and 2
+# rows 8, 10 and 11 (bf16, the throughput batch too) at stages 0 and 2
 CLS_TRAIN_BATCH = 128
 CLS_BATCH_STAGES = (0, 2)
 SMALL_CLS_SHAPES = [("small 6x10 C24", 2, 24, 6, 10, 2, 16), ("small 5x7 C70", 1, 70, 5, 7, 3, 4)]
@@ -243,10 +245,7 @@ def _cases_for(label, B, C, H, W, dtype, device, seed):
     x = rng.standard_normal((B, C, L)).astype(np.float32)
     lns = 1.0 + 0.1 * rng.standard_normal(C)
     lnb = 0.1 * rng.standard_normal(C)
-    cases = []
-    cases.append(Case("stem_fused_cf", label, dtype, (
-        s(x), t(_uniform(rng, (C, C), C ** -0.5)), None,
-        t(_uniform(rng, (C, 9), 1 / 3)), None, H, W, t(lns), t(lnb))))
+    cases = [_stem_case(label, dtype, rng, t, s(x), H, W, lns, lnb)]
     xs = x / (1.0 + np.exp(-x))  # SiLU output, as the stem hands it on
     scan_w = _scan_weights(rng, C, t)
     clamp_w = _scan_weights(rng, C, t, clamp=True)
@@ -267,6 +266,15 @@ def _cases_for(label, B, C, H, W, dtype, device, seed):
         t(_uniform(rng, (C, C), C ** -0.5)), None, s(rng.standard_normal((B, C, L))))))
     cases.append(_gdmlp_case(label, dtype, rng, t, s(x), H, W, lns, lnb))
     return cases
+
+
+def _stem_case(label, dtype, rng, t, x, H, W, lns, lnb):
+    """The stem (Dh = C, the serving nets' ssm_ratio 1, no biases) on
+    stream x (B, C, H*W) with the block's pre-LN folded in."""
+    C = x.shape[1]
+    return Case("stem_fused_cf", label, dtype, (
+        x, t(_uniform(rng, (C, C), C ** -0.5)), None,
+        t(_uniform(rng, (C, 9), 1 / 3)), None, H, W, t(lns), t(lnb)))
 
 
 def _col_dirs(w):
@@ -340,8 +348,9 @@ def _gdmlp_case(label, dtype, rng, t, x, H, W, lns, lnb):
 
 def _serve_batch_cases(label, B, C, H, W, device, seed):
     """Rows 2 (the row pair, and the clamp-hitting column pair on the same
-    stream), 4, 5 and 6 (plain and with the clamp probe) at the serving
-    batch, bf16, each plain version on slices of PLAIN_SLICE images."""
+    stream), 4, 5 and 6 (plain and with the clamp probe) and 1 at the
+    serving batch, bf16, each plain version on slices of PLAIN_SLICE
+    images."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
     s = lambda a: t(a).to(torch.bfloat16)  # noqa: E731
@@ -358,14 +367,32 @@ def _serve_batch_cases(label, B, C, H, W, device, seed):
                         False, device)
     cases += _col_cases(label, torch.bfloat16, rng, t, xs_np, H, W,
                         _scan_weights(rng, C, t, clamp=True), True, device)
+    cases.append(_stem_case(label, torch.bfloat16, rng, t, s(x), H, W, lns, lnb))
     for c in cases:
         c.plain_slice = PLAIN_SLICE
     return cases
 
 
+def _serve_stem_case(label, B, C, H, W, device, seed):
+    """The stem alone at the serving batch, bf16, the plain version on
+    slices of PLAIN_SLICE images."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    x = t(rng.standard_normal((B, C, H * W), dtype=np.float32)).to(torch.bfloat16)
+    case = _stem_case(label, torch.bfloat16, rng, t, x, H, W, 1.0 + 0.1 * rng.standard_normal(C),
+                      0.1 * rng.standard_normal(C))
+    case.plain_slice = PLAIN_SLICE
+    return case
+
+
 def edge_cases(device="cuda", seed=800):
-    """Rows 2, 4, 5, 6 and 9 where their tiling has edges (rows 5 and 6 as
-    _col_cases, row 9 as _fused_bwd_case, both below), fp32 and bf16: the row
+    """Rows 1, 2, 4, 5, 6, 9 and 11 where their tiling has edges (rows 5 and
+    6 as _col_cases, row 9 as _fused_bwd_case, row 11 as _scan_fused_edge,
+    all below), fp32 and bf16: the stem at C = 24 (K padded to 32), Dh !=
+    C, H and W no multiples of its tile, without the LN (one product) and at
+    C = 288 (bf16 then runs the CUDA-core form), and the case only the LN
+    output's bf16 lo halves carry (_lo_carried_stem); row 11 at N = 1 / 4 /
+    16, L = 49, and several super-chunks with a ragged last one; the row
     pair (and the clamp-hitting column pair) at L a multiple of the chunk,
     not a multiple, shorter than one chunk, N = 1 / 2 / 4, C up to 160,
     and C = 288, where the kernel halves its chunk;
@@ -418,6 +445,25 @@ def edge_cases(device="cuda", seed=800):
     for i, (B, C, L, R, N) in enumerate(((2, 40, 64, 3, 16), (1, 70, 70, 3, 1), (2, 24, 20, 2, 4),
                                          (1, 288, 33, 18, 16))):
         out.append(_fused_bwd_case(f"B{B} C{C} L{L} N{N}", B, C, L, R, N, device, seed + i))
+    # the stem (row 1): (B, C, Dh, H, W, with the LN, with biases)
+    for B, C, Dh, H, W, ln, bias in ((2, 24, 24, 13, 37, True, True), (1, 40, 80, 9, 33, True, False),
+                                     (2, 40, 40, 7, 45, False, True), (1, 160, 160, 7, 40, True, True),
+                                     (1, 288, 288, 5, 21, True, True)):
+        x = rng.standard_normal((B, C, H * W))
+        wts = (t(_uniform(rng, (Dh, C), C ** -0.5)), t(_uniform(rng, Dh, 0.1)) if bias else None,
+               t(_uniform(rng, (Dh, 9), 1 / 3)), t(_uniform(rng, Dh, 0.3)) if bias else None, H, W,
+               t(1 + 0.1 * rng.standard_normal(C)) if ln else None,
+               t(0.1 * rng.standard_normal(C)) if ln else None)
+        for dtype in (torch.float32, torch.bfloat16):
+            out.append(Case("stem_fused_cf", f"B{B} C{C} Dh{Dh} {H}x{W} ln{int(ln)}", dtype,
+                            (t(x).to(dtype), *wts)))
+    out.append(Case("stem_fused_cf", "lo-carried C32 9x20", torch.bfloat16,
+                    _lo_carried_stem(rng, t)))
+    # row 11: one super-chunk of two chunks at L = 49; several super-chunks,
+    # the last ragged (B=2: M = 8 sequences), at N = 1 / 4 / 16
+    for i, (B, C, L, N) in enumerate(((2, 40, 49, 4), (1, 24, 49, 16), (2, 70, 300, 1),
+                                      (2, 24, 1000, 16), (2, 40, 777, 4))):
+        out += _scan_fused_edge(f"B{B} C{C} L{L} N{N}", B, C, L, N, device, seed + 10 + i)
     return out
 
 
@@ -565,6 +611,59 @@ def _scan_fused_cases(label, B, C, H, W, R, N, device, seed):
     return out
 
 
+def _scan_fused_batch_case(label, B, C, H, W, R, N, device, seed):
+    """selective_scan_fused at the classifier's batch (CLS_TRAIN_BATCH,
+    v052d's throughput batch), scans 2, bf16, with the clamp probe, the
+    plain version on slices of PLAIN_SLICE images."""
+    B = CLS_TRAIN_BATCH
+    args, probe = _scan_fused_inputs(B, C, H, W, R, N, 2, device, seed)
+    a = tuple(x.to(torch.bfloat16) if i in (0, 1, 3, 4) else x for i, x in enumerate(args))
+    return Case("selective_scan_fused", f"{label} scans2 B={B}", torch.bfloat16, a, probe,
+                plain_slice=PLAIN_SLICE, batch_args=(0, 1, 3, 4))
+
+
+def _scan_fused_edge(label, B, C, L, N, device, seed):
+    """selective_scan_fused on (B, 4, C, L) inputs of its own, fp32 and bf16:
+    u a SiLU output with the clamp probe (zero at every other position of
+    every third channel), delta around 0, the dt bias +12 on the probed
+    channels (dt*A < -10 there), A = -exp(U(0, log(N + 1))), B, C, D
+    standard normal."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    K = 4
+    x = rng.standard_normal((B, K, C, L)).astype(np.float32)
+    u = x / (1.0 + np.exp(-x))
+    probe = np.zeros(u.shape, bool)
+    probe[:, :, ::3, 1::2] = True
+    u[probe] = 0.0
+    bias = _dt_bias(rng, (K, C))
+    bias[:, ::3] = 12.0
+    args = (u, 0.5 * rng.standard_normal((B, K, C, L)),
+            -np.exp(rng.uniform(0.0, np.log(N + 1), (K * C, N))),
+            rng.standard_normal((B, K, N, L)), rng.standard_normal((B, K, N, L)),
+            rng.standard_normal(K * C), bias.reshape(-1))
+    pm = torch.from_numpy(probe).to(device)
+    return [Case("selective_scan_fused", label, dtype,
+                 tuple(t(a).to(dtype) if i in (0, 1, 3, 4) else t(a) for i, a in enumerate(args)),
+                 pm) for dtype in (torch.float32, torch.bfloat16)]
+
+
+def _lo_carried_stem(rng, t, B=1, C=32, H=9, W=20):
+    """Stem arguments (bf16, the LN folded in, no biases) whose output only
+    the bf16 lo halves of the LN output carry: the LN's scale is 2^-11 and
+    its shift 1, so every LN output is 1 + 2^-11 x_hat, whose bf16 hi is 1
+    (|x_hat| < sqrt(C) < 8); every W1 row is +1 on the first C/2 channels and
+    -1 on the rest, so W1 . hi = 0 and W1 . y = 2^-10 (sum of x_hat over
+    the first half), every hidden channel the same. The taps are scaled by
+    2^10 so that the output is of order 1 and more: compare holds it to TOL
+    times max(1, its largest entry), which the hi halves alone (an output
+    of SiLU(0) = 0) then miss."""
+    x = t(rng.standard_normal((B, C, H * W))).to(torch.bfloat16)
+    row = np.repeat(np.float32([1, -1]), C // 2)
+    return (x, t(np.tile(row, (C, 1))), None, t(np.tile(2.0 ** 10 * _uniform(rng, 9, 1 / 3), (C, 1))),
+            None, H, W, t(np.full(C, 2.0 ** -11)), t(np.ones(C)))
+
+
 def _microbench_cases(small, device):
     """The microbenchmarks on the tool's data at every lanes / npass / mode
     of its sweeps, or on 2 blocks of (40, 512) (``small``)."""
@@ -598,6 +697,8 @@ def kernel_cases(small: bool = False, device="cuda"):
     if not small:
         for i, shape in enumerate(SERVE_SHAPES):
             out += _serve_batch_cases(*shape, device, seed=700 + i)
+        for i, shape in enumerate(SERVE_STEM_SHAPES):
+            out.append(_serve_stem_case(*shape, device, seed=720 + i))
     for i, shape in enumerate(SMALL_CLS_SHAPES if small else CLS_SHAPES):
         out += _cls_cases(*shape, device, seed=300 + i)
         out += _scan_fused_cases(*shape, device, seed=500 + 4 * i)
@@ -607,6 +708,7 @@ def kernel_cases(small: bool = False, device="cuda"):
                                        H * W, R, N, device, 350, PLAIN_SLICE))
         if i in CLS_BATCH_STAGES and not small:
             out += _cls_batch_cases(*shape, device, seed=360 + i)
+            out.append(_scan_fused_batch_case(*shape, device, seed=560 + i))
     return out + _microbench_cases(small, device)
 
 

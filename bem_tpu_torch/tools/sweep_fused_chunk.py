@@ -1,17 +1,22 @@
-"""Sweep the fused SS2D core's super-chunk length on the card (csrc/ss2d_fused.cu).
+"""Sweep the chunked forward scans' super-chunk length on the card.
 
-The forward (rows 8 / 10) runs as a chunked scan over super-chunks of S
-positions; the source's ``fwd_chunk`` picks S (``ops.ss2d_fused.fused_chunk``:
-the fewest super-chunks whose full-pass walkers reach ``kFwdFill``). This
-times the forward (the projection; where L > S the summary pass and the
-carry; the full pass; bf16, no checkpoints, as the throughput path runs it)
-at the VMamba-T stages S0-S3 (``smoke.CLS_SHAPES``) for B = 2 and 128 over
-super-chunk counts m = 1, 2, 3, 4, 6, ... up to one 32-position chunk each,
-CUDA events as in ``smoke.time_ms``, and prints the S the source picks
-beside them with the card's name and power limit. With ``--parent DIR`` (a
-checkout of another commit, e.g. unpacked by ``git archive``) it also times
-the public wrapper ``ss2d_dir_fused`` at the same shapes and inputs in
-fresh processes, parent, change, change, parent, and prints each run:
+Two kernels run as chunked scans over super-chunks of S positions, S from
+``super_chunk`` in csrc/common.cuh (the fewest super-chunks whose
+full-pass walkers reach ``kFwdFill``): the fused SS2D core's forward (rows
+8 / 10, csrc/ss2d_fused.cu, ``ops.ss2d_fused.fused_chunk``) and the fused
+selective scan (row 11, csrc/scan_fused.cu, ``ops.scan_fused.scan_chunk``).
+This times each (the fused forward: the projection; where L > S the
+summary pass and the carry; the full pass; bf16, no checkpoints, as the
+throughput path runs it; row 11 on v052d's scans-2 inputs,
+``smoke._scan_fused_inputs``, bf16) at the VMamba-T stages S0-S3
+(``smoke.CLS_SHAPES``) for B = 2 and 128 over super-chunk counts m = 1, 2,
+3, 4, 6, ... up to one 32-position chunk each, CUDA events as in
+``smoke.time_ms``, and prints the S the source picks beside them with the
+card's name and power limit. With ``--parent DIR`` (a checkout of another
+commit, e.g. unpacked by ``git archive``) it also times the public wrappers
+``ss2d_dir_fused`` and ``selective_scan_fused`` at the same shapes and
+inputs in fresh processes, parent, change, change, parent, and prints each
+run:
 
     python -m bem_tpu_torch.tools.sweep_fused_chunk [--parent DIR]
 """
@@ -29,6 +34,7 @@ import torch
 
 BATCHES = (2, 128)
 COUNTS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
+CK = 32  # positions per staged chunk: S is a multiple of it
 
 
 def _inputs(B, C, L, R, N):
@@ -43,57 +49,89 @@ def _inputs(B, C, L, R, N):
         np.random.default_rng(1), C, R, N, t)
 
 
+def _scan_inputs(B, C, H, W, R, N):
+    """selective_scan_fused's bf16 inputs on the card as v052d makes them
+    (smoke._scan_fused_inputs, scans 2)."""
+    from bem_tpu_torch import smoke
+
+    args, _ = smoke._scan_fused_inputs(B, C, H, W, R, N, 2, "cuda", 1)
+    return tuple(a.to(torch.bfloat16) if i in (0, 1, 3, 4) else a for i, a in enumerate(args))
+
+
 def _shapes():
     from bem_tpu_torch import smoke
 
-    return [(label, B, C, H * W, R, N) for B in BATCHES
+    return [(label, B, C, H, W, R, N) for B in BATCHES
             for label, _, C, H, W, R, N in smoke.CLS_SHAPES]
 
 
 def _wrapper_run(shapes) -> str:
-    """The program a checkout runs to time its public wrapper (it needs
-    only ss2d_dir_fused, smoke.time_ms and smoke._fused_weights)."""
+    """The program a checkout runs to time its public wrappers (it needs
+    only ss2d_dir_fused, selective_scan_fused, smoke.time_ms,
+    smoke._fused_weights and smoke._scan_fused_inputs)."""
     return "\n".join([
         "import numpy as np, torch",
         "from bem_tpu_torch import _build, smoke",
         "from bem_tpu_torch.ops.ss2d_fused import ss2d_dir_fused",
+        "from bem_tpu_torch.ops.scan_fused import selective_scan_fused",
         inspect.getsource(_inputs),
+        inspect.getsource(_scan_inputs),
         "_build.load()",
-        f"for label, B, C, L, R, N in {shapes!r}:",
-        "    xs2, w = _inputs(B, C, L, R, N)",
+        f"for label, B, C, H, W, R, N in {shapes!r}:",
+        "    xs2, w = _inputs(B, C, H * W, R, N)",
         "    ms = smoke.time_ms(ss2d_dir_fused, (xs2, *w))",
-        "    print(f'wrapper {label} B={B} bf16: {ms:.4f} ms', flush=True)",
+        "    print(f'wrapper ss2d_dir_fused {label} B={B} bf16: {ms:.4f} ms', flush=True)",
         "    del xs2, w",
+        "    args = _scan_inputs(B, C, H, W, R, N)",
+        "    ms = smoke.time_ms(selective_scan_fused, args)",
+        "    print(f'wrapper selective_scan_fused {label} B={B} bf16: {ms:.4f} ms', flush=True)",
+        "    del args",
         "    torch.cuda.empty_cache()",
     ])
 
 
+def _lengths(L):
+    """The super-chunk lengths of the counts in COUNTS (and one chunk each)."""
+    nck = -(-L // CK)
+    return sorted({-(-nck // m) * CK for m in COUNTS + (nck,) if m <= nck}, reverse=True)
+
+
+def _line(what, label, B, L, run, picked, card):
+    """Time ``run(S)`` at every length of _lengths(L); print one line."""
+    from bem_tpu_torch import smoke
+
+    parts = []
+    for S in _lengths(L):
+        parts.append(f"m={-(-L // S)} (S={S}) {smoke.time_ms(lambda S=S: run(S), ()):.4f} ms")
+    print(f"{what} {label} B={B} bf16: {', '.join(parts)}; the source picks S={picked} "
+          f"(m={-(-L // picked)}) ({card})", flush=True)
+
+
 def sweep(card: str) -> None:
-    from bem_tpu_torch import _build, smoke
+    from bem_tpu_torch import _build
+    from bem_tpu_torch.ops import scan_fused as sf
     from bem_tpu_torch.ops import ss2d_fused as fused
 
     _build.load()
-    for label, B, C, L, R, N in _shapes():
+    for label, B, C, H, W, R, N in _shapes():
+        L = H * W
         xs2, w = _inputs(B, C, L, R, N)
         wa = fused._args(xs2, *w)
-        nck = -(-L // fused.CKPT)
-        lengths = sorted({-(-nck // m) * fused.CKPT for m in COUNTS + (nck,) if m <= nck},
-                         reverse=True)
-        line = []
-        for S in lengths:
-            ms = smoke.time_ms(lambda S=S: fused._fwd_kernels(xs2, wa, False, False, S), ())
-            line.append(f"m={-(-L // S)} (S={S}) {ms:.4f} ms")
-        picked = fused.fused_chunk(B, C, N, L)
-        print(f"fused forward {label} B={B} bf16: {', '.join(line)}; the source picks "
-              f"S={picked} (m={-(-L // picked)}) ({card})", flush=True)
+        _line("fused forward", label, B, L,
+              lambda S: fused._fwd_kernels(xs2, wa, False, False, S),
+              fused.fused_chunk(B, C, N, L), card)
         del xs2, w, wa
+        ins = sf._cuda_args(*_scan_inputs(B, C, H, W, R, N))
+        _line("selective scan", label, B, L, lambda S: sf._kernels(*ins, True, S),
+              sf.scan_chunk(4 * B, C, N, L), card)
+        del ins
         torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
-                    help="a checkout whose ss2d_dir_fused is timed against this one's")
+                    help="a checkout whose wrappers are timed against this one's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("sweep_fused_chunk: needs a CUDA device")

@@ -13,16 +13,18 @@ result line):
      at the serving path's and the training path's shapes, fp32 and bf16
      (the scans also on clamp-hitting inputs, the column pair's with its
      clamp probe, which must fail against the unclamped function;
-     linear_scan also at the scan pairs' backward shapes), and the row
-     pair, the gdMlp and the column pair's two passes at the serving
-     batch (B=32, IE-L0 and IE-L1, bf16, the plain versions on slices of
-     4 images): max abs error beside its tolerance, and both versions'
-     times; then the row pair, the gdMlp, the column pair and the fused
-     core's backward at the edges of their tiles (smoke.edge_cases: chunk
-     and tile remainders, C = 288 where the column chunk halves and the
-     backward takes many channel blocks, the gdMlp's CUDA-core form on
-     bf16 above C = 256, and a case that only the bf16 lo halves of its
-     split weights carry), checked only;
+     linear_scan also at the scan pairs' backward shapes), and the stem,
+     the row pair, the gdMlp and the column pair's two passes at the
+     serving batch (B=32, IE-L0 and IE-L1, the stem also IE-L2, bf16, the
+     plain versions on slices of 4 images): max abs error beside its
+     tolerance, and both versions' times; then the stem, the row pair,
+     the gdMlp, the column pair, the fused core's backward and
+     selective_scan_fused at the edges of their tiles (smoke.edge_cases:
+     chunk, super-chunk and tile remainders, K padding, C = 288 where the
+     column chunk halves and the backward takes many channel blocks, the
+     stem's and the gdMlp's CUDA-core forms on bf16 above C = 256, and a
+     case each that only the bf16 lo halves of the stem's LN output and
+     of the gdMlp's split weights carry), checked only;
   4. gradients: each autograd wrapper of the VSSBlock (stem, gdMlp, tail,
      row pair, column pair) and linear_scan on the card vs its plain
      composition, at the training shapes, fp32;
@@ -58,8 +60,9 @@ The kernels' phase also holds the three classifier kernels (the fused core,
 its clamped form, its backward) and selective_scan_fused (scans 1 and 2
 inputs) against their plain versions at the four VMamba-T stage shapes
 (batch 2; the backward also at stage 0 and the training batch 128, the
-fused core and its clamped form at stages 0 and 2 and batch 128 bf16, the
-plain versions on slices of 4 images; every backward case launched twice,
+fused core, its clamped form and selective_scan_fused at stages 0 and 2
+and batch 128 bf16, the plain versions on slices of 4 images; every
+backward case launched twice,
 its outputs bit-identical), each output row against its own largest entry, with a clamp
 probe (x zero at every other position of the clamped channels, where the
 clamp changes y by a factor of e or more) held apart; each fused forward

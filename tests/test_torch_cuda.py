@@ -240,3 +240,53 @@ def test_chunked_fused_forward_and_column_summary_grid_on_card():
             if case.name == "ss2d_col_sum":
                 err, tol = smoke.compare(case)
                 assert err <= tol and case.other_clamp > 1, (dtype, err, tol, case.other_clamp)
+
+
+@pytest.mark.cuda
+def test_tensor_core_stem_and_chunked_selective_scan_on_card():
+    """The stem's tensor-core form (bf16, C = Dh = 40 / 80 / 160, with and
+    without the LN, and smoke.edge_cases' stem cases: K padding, Dh != C,
+    tile remainders, the case only the LN output's lo halves carry, the
+    CUDA-core form at C = 288) vs the plain version; selective_scan_fused
+    as a chunked scan at super-chunks of 32 and 64 positions and one >= L
+    (and smoke.edge_cases' cases at the S the source picks) vs the plain
+    version per row with the clamp probe, failing against the clamped
+    function; and the source's super-chunk rule at VMamba-T S0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    import numpy as np
+
+    from bem_tpu_torch import smoke
+    from bem_tpu_torch.ops import scan_fused as sf
+
+    for case in smoke.edge_cases():
+        if case.name in ("stem_fused_cf", "selective_scan_fused"):
+            err, tol = smoke.compare(case)
+            assert err <= tol, (case.name, case.label, case.dtype, err, tol)
+    rng = np.random.default_rng(13)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()  # noqa: E731
+    for B, C, H, W in ((2, 40, 17, 70), (1, 80, 9, 40), (1, 160, 6, 33)):
+        x = t(rng.standard_normal((B, C, H * W))).to(torch.bfloat16)
+        for ln in (True, False):
+            lns, lnb = (1 + 0.1 * rng.standard_normal(C), 0.1 * rng.standard_normal(C))
+            case = smoke._stem_case(f"{H}x{W} ln{int(ln)}", torch.bfloat16, rng, t, x, H, W,
+                                    lns, lnb)
+            if not ln:
+                case.args = case.args[:7] + (None, None)
+            err, tol = smoke.compare(case)
+            assert err <= tol, (case.label, err, tol)
+    for i, (B, C, L, N) in enumerate(((2, 24, 100, 16), (1, 40, 49, 4), (2, 16, 130, 1))):
+        for case in smoke._scan_fused_edge(f"L{L} N{N}", B, C, L, N, "cuda", 40 + i):
+            ins = sf._cuda_args(*case.args)
+            ref = sf.selective_scan_fused_plain(*case.args)
+            clamped = sf.selective_scan_fused_plain(*case.args, clamp=True)
+            for S in sorted({32, 64, -(-L // 32) * 32}):
+                y = sf._kernels(*ins, True, S)
+                err, tol = smoke.row_scaled(y, ref, smoke.TOL[case.dtype], case.probe)
+                assert err <= tol, (B, C, L, N, case.dtype, S, err, tol)
+                err, tol = smoke.row_scaled(y, clamped, smoke.TOL[case.dtype], case.probe)
+                assert err > tol, (B, C, L, N, case.dtype, S, "clamped", err, tol)
+    # VMamba-T S0 (C 192, N 16, L 3136): 17 super-chunks of 192 positions at
+    # batch 2 (8 sequences), one at batch 128
+    assert sf.scan_chunk(8, 192, 16, 3136) == 192
+    assert sf.scan_chunk(512, 192, 16, 3136) >= 3136
