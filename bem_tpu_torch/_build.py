@@ -35,9 +35,10 @@ _SIGNATURES = {
     "bem_ss2d_seq_sum": [_P] * 13 + [_I] * 6 + [_P],
     "bem_ss2d_seq_full": [_P] * 13 + [_I] * 6 + [_P],
     "bem_ss2d_tail": [_P] * 8 + [_I] * 5 + [_P],
+    "bem_ss2d_tail_tc_with": [_P] * 8 + [_I] * 7 + [_P, _P],
     "bem_ss2d_col_sum": [_P] * 13 + [_I] * 8 + [_P],
     "bem_ss2d_col_full": [_P] * 14 + [_I] * 8 + [_P],
-    "bem_linear_scan": [_P] * 5 + [_I] * 5 + [_P],
+    "bem_linear_scan": [_P] * 5 + [_I] * 9 + [_P],
     "bem_ss2d_fused_project": [_P] * 3 + [_I] * 5 + [_P],
     "bem_ss2d_fused_fwd_sum": [_P] * 7 + [_I] * 8 + [_P],
     "bem_ss2d_fused_fwd": [_P] * 9 + [_I] * 8 + [_P],
@@ -138,6 +139,8 @@ def load():
         lib.bem_selective_scan_chunk.restype = ctypes.c_int
         lib.bem_ss2d_fused_bwd_cb.argtypes = [_I]
         lib.bem_ss2d_fused_bwd_cb.restype = ctypes.c_int
+        lib.bem_linear_scan_ws.argtypes = [_I] * 6
+        lib.bem_linear_scan_ws.restype = ctypes.c_long
         _LIB = lib
     return _LIB
 

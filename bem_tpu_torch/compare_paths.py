@@ -1,6 +1,6 @@
 """Time the BEM nets' and VMamba-T's paths of two checkouts in turns on one card.
 
-    python -m bem_tpu_torch.compare_paths PARENT_DIR CHANGE_DIR
+    python -m bem_tpu_torch.compare_paths PARENT_DIR CHANGE_DIR [--bem]
 
 Each of 8 runs is a fresh process in one checkout (each with its own
 kernel build) that calls that checkout's ``chip_smoke.train_phase`` (IE and
@@ -8,8 +8,9 @@ CG, 1 warm-up + 5 timed steps each), ``chip_smoke.serve`` (the flagship
 K=16 pipeline, 3 requests), ``chip_smoke.cls_train_phase`` (VMamba-T v2,
 batch 128, 1 warm-up + 5 timed steps) and ``chip_smoke.cls_throughput_phase``
 (bf16, batch 128, forward types v2 and v052d), with chip_smoke's own
-settings; runs alternate parent,
-change, parent, ... Prints each run's numbers, then per metric the medians
+settings (``--bem``: the BEM paths alone, the train steps and serving);
+runs alternate parent, change, parent, ... Prints each run's numbers, then
+per metric the medians
 over the runs of each side, beside the card's name and power limit.
 Compares two versions inside one call, where the host's share of a step
 varies least.
@@ -31,10 +32,12 @@ card = cs.card_info()
 cs.build_kernels()
 cs.train_phase(card)
 cs.serve(card)
-cs.cls_train_phase(card)
+"""
+RUN_CLS = """cs.cls_train_phase(card)
 cs.cls_throughput_phase(card)
 cs.cls_throughput_phase(card, "v052d", ("selective_scan_fused",))
 """
+BEM_METRICS = ("IE ms/step", "CG ms/step", "serving ms/request")
 METRICS = {
     "IE ms/step": r"ImageEnhancer train .*median ([\d.]+) ms/step",
     "CG ms/step": r"ConditionGenerator train .*median ([\d.]+) ms/step",
@@ -49,25 +52,29 @@ METRICS = {
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
+    bem_only = "--bem" in argv
+    argv = [a for a in argv if a != "--bem"]
     if len(argv) != 2:
         sys.exit(__doc__)
     dirs = {"parent": Path(argv[0]), "change": Path(argv[1])}
+    run = RUN if bem_only else RUN + RUN_CLS
+    metrics = {m: rx for m, rx in METRICS.items() if not bem_only or m in BEM_METRICS}
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip()
-    results = {side: {m: [] for m in METRICS} for side in dirs}
+    results = {side: {m: [] for m in metrics} for side in dirs}
     for i in range(RUNS):
         side = "parent" if i % 2 == 0 else "change"
-        out = subprocess.run([sys.executable, "-c", RUN], cwd=dirs[side],
+        out = subprocess.run([sys.executable, "-c", run], cwd=dirs[side],
                              capture_output=True, text=True, timeout=900)
         if out.returncode != 0:
             sys.exit(f"run {i + 1} ({side}) failed:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
-        vals = {m: float(re.search(rx, out.stdout).group(1)) for m, rx in METRICS.items()}
+        vals = {m: float(re.search(rx, out.stdout).group(1)) for m, rx in metrics.items()}
         for m, v in vals.items():
             results[side][m].append(v)
         print(f"run {i + 1} ({side}): " + ", ".join(f"{m} {v}" for m, v in vals.items()),
               flush=True)
-    for m in METRICS:
+    for m in metrics:
         par, chg = results["parent"][m], results["change"][m]
         print(f"{m}: parent median {statistics.median(par)} (runs {par}), change median "
               f"{statistics.median(chg)} (runs {chg}) ({card})")

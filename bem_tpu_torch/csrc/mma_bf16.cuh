@@ -1,7 +1,8 @@
-// bf16 tensor-core building blocks shared by the stem's and the gdMlp's
-// tensor-core forms: mma.sync m16n8k16 (bf16 in, fp32 accumulate), its A
-// fragment from a row-major bf16 matrix in shared memory, and the split of
-// an fp32 value into two bf16 terms.
+// bf16 tensor-core building blocks shared by the stem's, the gdMlp's and
+// the tail's tensor-core forms: mma.sync m16n8k16 (bf16 in, fp32
+// accumulate), its A and B fragments from bf16 matrices in shared memory
+// (by 32-bit loads or ldmatrix), and the split of an fp32 value into two
+// bf16 terms.
 //
 // Fragments (lane = 4 g + t): A rows g and g + 8, columns 2t, 2t + 1 and
 // 2t + 8, 2t + 9; B (K x N, "col") column g, rows 2t, 2t + 1 (b0) and
@@ -55,6 +56,29 @@ __device__ __forceinline__ void load_a(uint32_t* a, const bf16_t* m, int S, int 
   a[1] = ld32(p + 8 * S);
   a[2] = ld32(p + 8);
   a[3] = ld32(p + 8 * S + 8);
+}
+
+// ldmatrix .x4: the same A fragment as load_a, in one instruction (lanes
+// 0-15 give rows row0..row0+15 at k0, lanes 16-31 the same rows at k0 + 8;
+// 16-byte aligned rows)
+__device__ __forceinline__ void ldsm_a(uint32_t* a, const bf16_t* m, int S, int row0, int k0,
+                                       int lane) {
+  const bf16_t* p = m + (row0 + (lane & 15)) * S + k0 + ((lane >> 4) << 3);
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// ldmatrix .x2: the B fragment (b0, b1) of columns n0..n0+7, rows k0..k0+15
+// of a K x N operand stored N-major (row n of stride S holds column n)
+__device__ __forceinline__ void ldsm_b(uint32_t& b0, uint32_t& b1, const bf16_t* m, int S, int n0,
+                                       int k0, int lane) {
+  const bf16_t* p = m + (n0 + (lane & 7)) * S + k0 + (((lane >> 3) & 1) << 3);
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(addr));
 }
 
 }  // namespace bem

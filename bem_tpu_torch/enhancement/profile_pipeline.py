@@ -2,7 +2,7 @@
 
 Runs the flagship pipeline (K=16, two 400x600 images, bf16) once to warm
 up, then one request under torch.profiler, and prints device time summed
-by kernel name, the share of the request's wall time the device was busy,
+by kernel name (every kernel, the longest first), the share of the request's wall time the device was busy,
 and the card's name and power limit:
 
     python -m bem_tpu_torch.enhancement.profile_pipeline
@@ -42,7 +42,7 @@ def main():
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"{card}: request {wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f} %), idle {100 - 100 * busy_ms / wall_ms:.1f} %")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
         ms = e.self_device_time_total / 1e3
         print(f"{ms:9.2f} ms {100 * ms / busy_ms:5.1f} % {e.count:6d}x  {e.key[:90]}")
 

@@ -107,6 +107,11 @@ SERVE_SHAPES = [("IE-L0 448x640 C40 B=32", 32, 40, 448, 640),
                 ("IE-L1 224x320 C80 B=32", 32, 80, 224, 320)]
 SERVE_STEM_SHAPES = [("IE-L2 112x160 C160 B=32", 32, 160, 112, 160)]
 PLAIN_SLICE = 4
+# linear_scan's carries on the serving path, (label, M, L, D): the row and
+# column pairs' carry over (B, chunks, C*N) at IE-L0 B=32 (32-position row
+# chunks of 448x640, 14 column chunks of 640 columns) and the CG's at
+# 28x40 B=2 (35 row chunks)
+SERVE_SCAN_SHAPES = [("IE-L0 carry B=32", 32, 8960, 40), ("CG-L0 carry 28x40", 2, 35, 40)]
 # (label, B, d_inner, H, W, dt rank, d_state): the SS2D cores of the VMamba-T
 # classifier's four stages (dims 96 / 192 / 384 / 768, ssm_ratio 2) at
 # 224x224, two images each
@@ -152,9 +157,10 @@ PER_OUTPUT = ("ss2d_dir_fused_bwd",)
 # probe's positions (see _clamp_probe) as rows of their own
 PER_ROW = ("ss2d_dir_fused", "ss2d_dir_fused_g", "ss2d_dir_fused_bwd", "selective_scan_fused")
 GRAD_TOL = 1e-4  # of each gradient's largest entry: two fp32 orders of summation
-# kernels whose every output must be bit-identical over two launches (no
-# atomics: each cross-block sum is an ordered pass)
-BIT_EXACT = ("ss2d_dir_fused_bwd",)
+# kernels whose every output must be bit-identical over two launches (each
+# cross-block sum is an ordered pass, or, linear_scan's look-back, folds
+# its predecessors in a fixed order)
+BIT_EXACT = ("ss2d_dir_fused_bwd", "linear_scan")
 
 
 @dataclass
@@ -178,6 +184,8 @@ class Case:
     row_axis: int = -1  # PER_ROW / probe checks: the axis a row runs along
     # BIT_EXACT kernels: whether a second launch gave the same bits (compare)
     repeatable: bool | None = None
+    # a path shape whose bound chip_smoke prints beside its times
+    report: bool = False
 
     @property
     def fn(self) -> Callable:
@@ -373,6 +381,43 @@ def _serve_batch_cases(label, B, C, H, W, device, seed):
     return cases
 
 
+def _serve_tail_case(label, B, C, H, W, device, seed):
+    """The tail in its path form at the serving batch, bf16: merged (the
+    column pair has added y_row, y_colT None), with the block's residual,
+    no bout, on a mean-dominated scan output (+3); the plain version on
+    slices of PLAIN_SLICE images."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    s = lambda a: t(a).to(torch.bfloat16)  # noqa: E731
+    y = s(3.0 + 2.0 * rng.standard_normal((B, C, H * W), dtype=np.float32))
+    res = s(rng.standard_normal((B, C, H * W), dtype=np.float32))
+    return Case("ss2d_tail_cf", label + " merged res", torch.bfloat16,
+                (y, None, t(1.0 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C)),
+                 t(_uniform(rng, (C, C), C ** -0.5)), None, res),
+                plain_slice=PLAIN_SLICE, batch_args=(0, 6))
+
+
+def _scan_decays(rng, shape, lo=0.0, hi=3.0, zeros=0.0):
+    """exp(-U(lo, hi)) decays (a chunk's product of clamped step decays),
+    a ``zeros`` share of them exactly 0 (a state that restarts)."""
+    a = np.exp(-rng.uniform(lo, hi, shape)).astype(np.float32)
+    if zeros:
+        a[rng.random(shape) < zeros] = 0.0
+    return a
+
+
+def _carry_cases(device, seed=760):
+    """linear_scan at SERVE_SCAN_SHAPES, forward and reverse."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    out = []
+    for label, M, L, D in SERVE_SCAN_SHAPES:
+        a, b = t(_scan_decays(rng, (M, L, D))), t(rng.standard_normal((M, L, D), dtype=np.float32))
+        out += [Case("linear_scan", label + (" rev" if rev else ""), torch.float32, (a, b, rev),
+                     report=True) for rev in (False, True)]
+    return out
+
+
 def _serve_stem_case(label, B, C, H, W, device, seed):
     """The stem alone at the serving batch, bf16, the plain version on
     slices of PLAIN_SLICE images."""
@@ -386,9 +431,10 @@ def _serve_stem_case(label, B, C, H, W, device, seed):
 
 
 def edge_cases(device="cuda", seed=800):
-    """Rows 1, 2, 4, 5, 6, 9 and 11 where their tiling has edges (rows 5 and
-    6 as _col_cases, row 9 as _fused_bwd_case, row 11 as _scan_fused_edge,
-    all below), fp32 and bf16: the stem at C = 24 (K padded to 32), Dh !=
+    """Rows 1-7, 9 and 11 where their tiling has edges (rows 5 and 6 as
+    _col_cases, row 9 as _fused_bwd_case, row 11 as _scan_fused_edge, row 7
+    as _scan_edge_cases, row 3 as _tail_edge_cases, all below), fp32 and
+    bf16: the stem at C = 24 (K padded to 32), Dh !=
     C, H and W no multiples of its tile, without the LN (one product) and at
     C = 288 (bf16 then runs the CUDA-core form), and the case only the LN
     output's bf16 lo halves carry (_lo_carried_stem); row 11 at N = 1 / 4 /
@@ -464,6 +510,60 @@ def edge_cases(device="cuda", seed=800):
     for i, (B, C, L, N) in enumerate(((2, 40, 49, 4), (1, 24, 49, 16), (2, 70, 300, 1),
                                       (2, 24, 1000, 16), (2, 40, 777, 4))):
         out += _scan_fused_edge(f"B{B} C{C} L{L} N{N}", B, C, L, N, device, seed + 10 + i)
+    out += _scan_edge_cases(rng, t)
+    out += _tail_edge_cases(rng, t)
+    return out
+
+
+def _scan_edge_cases(rng, t):
+    """linear_scan (row 7) where its plan changes form: L = 1; the walk's
+    limit (WALK_L, WALK_L + 1); one look-back chunk at D = 40 (96
+    positions) and one position either side; 40 chunks at D = 40 (anchors:
+    a second group); a long L (2^20) at D = 1 (256 chunks of 4096, 8
+    groups); D = 3072 over 12 channel tiles of one-thread segments (the
+    fused core's width, M below the walk's fill), D = 100 (P = 2), and M * D
+    at the walk's fill; decays in (0.9, 1) with 1 % exact zeros, forward
+    and reverse."""
+    out = []
+    W = _scan.WALK_L
+    for M, L, D in ((3, 1, 40), (2, W, 40), (2, W + 1, 40), (2, 95, 40), (2, 96, 40),
+                    (2, 97, 40), (3, 3841, 40), (2, 1 << 20, 1), (2, 300, 3072), (1, 777, 100),
+                    (_scan.WALK_FILL // 64, 100, 64)):
+        a = t(_scan_decays(rng, (M, L, D), 0.0, -np.log(0.9), zeros=0.01))
+        b = t(rng.standard_normal((M, L, D), dtype=np.float32))
+        out += [Case("linear_scan", f"M{M} L{L} D{D}" + (" rev" if rev else ""), torch.float32,
+                     (a, b, rev)) for rev in (False, True)]
+    return out
+
+
+def _tail_edge_cases(rng, t):
+    """The tail (row 3) at its tiles' edges, fp32 and bf16 (the tensor-core
+    form): C = 40 (K padded to 48), C_out != C either way, L = 1, a tile
+    + 1 (L = 33 and 65; 2 x 4225 positions take 64-position tiles, the
+    smaller shapes 32), L off the 16-byte vector width (the scalar path),
+    C = 160 (512-thread blocks), merged and unmerged, with and without
+    bout and the residual, on mean-dominated inputs (+3); and, bf16 alone
+    (the CUDA-core form's fp32 Wout does not fit at C = 256), C = 256
+    unmerged, where one stage is all that fits."""
+    out = []
+    both = (torch.float32, torch.bfloat16)
+    for B, C, Cout, L, merged, bias, resid, dtypes in (
+            (2, 40, 40, 1, False, True, True, both), (1, 40, 56, 33, True, False, True, both),
+            (2, 80, 40, 65, False, True, False, both), (2, 40, 40, 4225, True, True, True, both),
+            (2, 40, 24, 64 * 70, False, False, True, both),
+            (1, 160, 160, 1000, True, False, True, both), (2, 24, 24, 203, True, True, True, both),
+            (1, 48, 24, 296, False, False, False, both),
+            (1, 256, 256, 100, False, True, True, (torch.bfloat16,))):
+        y = 3.0 + 2.0 * rng.standard_normal((B, C, L))
+        yc = None if merged else rng.standard_normal((B, C, L))
+        r = rng.standard_normal((B, Cout, L)) if resid else None
+        w = (t(1.0 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C)),
+             t(_uniform(rng, (C, Cout), C ** -0.5)), t(_uniform(rng, Cout, 0.3)) if bias else None)
+        for dtype in dtypes:
+            s = lambda a: None if a is None else t(a).to(dtype)  # noqa: E731
+            out.append(Case("ss2d_tail_cf", f"B{B} C{C} Cout{Cout} L{L} m{int(merged)} "
+                            f"b{int(bias)} r{int(resid)}", dtype,
+                            (s(y), s(yc), w[0], w[1], w[2], w[3], s(r))))
     return out
 
 
@@ -685,7 +785,8 @@ def _microbench_cases(small, device):
 
 def kernel_cases(small: bool = False, device="cuda"):
     """Every kernel at every serving, training and classifier shape, fp32 and
-    bf16, rows 2 and 4 at the serving batch (bf16), and the microbenchmarks
+    bf16, rows 1-6 at the serving batch (bf16; row 3 in its path form),
+    linear_scan at the serving carries, and the microbenchmarks
     at the tool's shapes; or at tiny shapes (``small``)."""
     shapes = SMALL_SHAPES if small else PATH_SHAPES + TRAIN_SHAPES
     out = []
@@ -699,6 +800,9 @@ def kernel_cases(small: bool = False, device="cuda"):
             out += _serve_batch_cases(*shape, device, seed=700 + i)
         for i, shape in enumerate(SERVE_STEM_SHAPES):
             out.append(_serve_stem_case(*shape, device, seed=720 + i))
+        for i, shape in enumerate(SERVE_SHAPES + SERVE_STEM_SHAPES):
+            out.append(_serve_tail_case(*shape, device, seed=740 + i))
+        out += _carry_cases(device)
     for i, shape in enumerate(SMALL_CLS_SHAPES if small else CLS_SHAPES):
         out += _cls_cases(*shape, device, seed=300 + i)
         out += _scan_fused_cases(*shape, device, seed=500 + 4 * i)

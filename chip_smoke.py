@@ -17,14 +17,22 @@ result line):
      the row pair, the gdMlp and the column pair's two passes at the
      serving batch (B=32, IE-L0 and IE-L1, the stem also IE-L2, bf16, the
      plain versions on slices of 4 images): max abs error beside its
-     tolerance, and both versions' times; then the stem, the row pair,
-     the gdMlp, the column pair, the fused core's backward and
-     selective_scan_fused at the edges of their tiles (smoke.edge_cases:
+     tolerance, and both versions' times; the tail in its path form
+     (merged, with the residual, bf16) at the serving batch B=32 at
+     IE-L0 / L1 / L2, and linear_scan at the serving path's carries (the
+     IE-L0 row / column carry at B=32 and the CG's), forward and reverse,
+     each with its bound; every linear_scan case launched twice, its
+     outputs bit-identical; then the stem, the row pair, the gdMlp, the
+     column pair, the fused core's backward, selective_scan_fused,
+     linear_scan and the tail at the edges of their tiles (smoke.edge_cases:
      chunk, super-chunk and tile remainders, K padding, C = 288 where the
      column chunk halves and the backward takes many channel blocks, the
-     stem's and the gdMlp's CUDA-core forms on bf16 above C = 256, and a
+     stem's and the gdMlp's CUDA-core forms on bf16 above C = 256, a
      case each that only the bf16 lo halves of the stem's LN output and
-     of the gdMlp's split weights carry), checked only;
+     of the gdMlp's split weights carry, linear_scan at L = 1, around its
+     walk limit and chunk, over several anchor groups, at L = 2^20 and D =
+     1 and 3072, the tail at C = 40, C_out != C, L = 1, a tile + 1 and off
+     the vector width), checked only;
   4. gradients: each autograd wrapper of the VSSBlock (stem, gdMlp, tail,
      row pair, column pair) and linear_scan on the card vs its plain
      composition, at the training shapes, fp32;
@@ -162,9 +170,9 @@ def compare_kernels():
             summary[case.name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                       bound_ms=bound, bound_by=by, library_ms=None)
             print(f"  headline {case.name}: bound {bound:.4f} ms ({by})")
-        elif case.plain_slice:  # the serving / training batch: its bound beside its time
+        elif case.plain_slice or case.report:  # a path shape: its bound beside its time
             bound, by = smoke.bound_ms(case)
-            print(f"  large batch {case.name} {case.label}: kernel {ms:.4f} ms, "
+            print(f"  path shape {case.name} {case.label}: kernel {ms:.4f} ms, "
                   f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
         torch.cuda.empty_cache()
     missing = set(smoke.KERNELS) - set(summary)

@@ -290,3 +290,51 @@ def test_tensor_core_stem_and_chunked_selective_scan_on_card():
     # batch 2 (8 sequences), one at batch 128
     assert sf.scan_chunk(8, 192, 16, 3136) == 192
     assert sf.scan_chunk(512, 192, 16, 3136) >= 3136
+
+
+@pytest.mark.cuda
+def test_single_pass_scan_and_tensor_core_tail_on_card():
+    """linear_scan's walk and single-pass look-back forms and the tail's
+    tensor-core and CUDA-core forms vs their plain versions at their
+    edges (smoke.edge_cases: L = 1, the walk's limit, a chunk +- 1, several
+    anchor groups, L = 2^20 at D = 1, D = 3072 over channel tiles; the
+    tail at C = 40 padded to 48, C_out != C, L = 1, a tile + 1, the scalar
+    path, C = 160), every linear_scan case bit-identical over two
+    launches; linear_scan bit-identical over two launches at the training
+    backward's (8, 16384, 40) and the IE-L0 carry (32, 8960, 40), both
+    directions; one kernel launch a call at short and long L (profiler);
+    and row 9's backward, whose carry then takes the look-back form,
+    bit-identical over two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    from torch.profiler import ProfilerActivity, profile
+
+    from bem_tpu_torch import smoke
+    from bem_tpu_torch.ops.scan import linear_scan, linear_scan_plain, scan_plan
+
+    for case in smoke.edge_cases():
+        if case.name in ("linear_scan", "ss2d_tail_cf"):
+            err, tol = smoke.compare(case)
+            assert err <= tol, (case.name, case.label, case.dtype, err, tol)
+            assert case.name != "linear_scan" or case.repeatable, case.label
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for M, L, D in ((8, 16384, 40), (32, 8960, 40), (2, 35, 40)):
+        a = torch.exp(-3 * torch.rand((M, L, D), generator=g, device="cuda"))
+        b = torch.randn((M, L, D), generator=g, device="cuda")
+        for rev in (False, True):
+            h = linear_scan(a, b, rev)
+            assert torch.equal(h, linear_scan(a, b, rev)), (M, L, D, rev)
+            ref = linear_scan_plain(a, b, rev)
+            assert (h - ref).abs().max() <= smoke.TOL[torch.float32] * max(1.0, ref.abs().max())
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                linear_scan(a, b, rev)
+                torch.cuda.synchronize()
+            launches = sum(e.count for e in prof.key_averages()
+                           if e.device_type.name == "CUDA" and "scan_" in e.key)
+            assert launches == 1, (M, L, D, rev, launches, scan_plan(M, L, D))
+    # 70 chunks of 32 positions: row 9's reverse carry over (4, 70, 96) looks back
+    assert not scan_plan(4, 70, 96).walk
+    case = smoke._fused_bwd_case("L2240", 1, 24, 2240, 2, 4, "cuda", 950)
+    err, tol = smoke.compare(case)
+    assert err <= tol and case.repeatable, (err, tol)
