@@ -14,12 +14,14 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
 
+from .enhancement.clip import flatten_params
 from .ops import gdmlp_fused as _gd
 from .ops import scan as _scan
 from .ops import scan_fused as _sf
@@ -28,6 +30,7 @@ from .ops import ss2d_seq as _seq
 from .ops import ss2d_tail as _tail
 from .ops.cross_scan import cross_scan_cf_input
 from .tools import microbench_vpu as _mb
+from .utils.img_util import imwrite
 
 # kernel name -> (wrapper, plain version, CUDA source, the TPU kernel it replaces)
 KERNELS = {
@@ -111,7 +114,16 @@ PLAIN_SLICE = 4
 # column pairs' carry over (B, chunks, C*N) at IE-L0 B=32 (32-position row
 # chunks of 448x640, 14 column chunks of 640 columns) and the CG's at
 # 28x40 B=2 (35 row chunks)
-SERVE_SCAN_SHAPES = [("IE-L0 carry B=32", 32, 8960, 40), ("CG-L0 carry 28x40", 2, 35, 40)]
+SERVE_SCAN_SHAPES = [("IE-L0 carry B=32", 32, 8960, 40), ("CG-L0 carry 28x40", 2, 35, 40),
+                     ("eval IE-L0 carry B=8", 8, 8960, 40), ("eval CG-L0 carry B=1", 1, 35, 40)]
+# the eval CLI's network on the fp32 stream: the IE on parallel_num = 8
+# candidates at a time, the CG on one weight sample at a time (K forwards)
+EVAL_SHAPES = [("eval IE-L0 448x640 C40 B=8", 8, 40, 448, 640),
+               ("eval IE-L1 224x320 C80 B=8", 8, 80, 224, 320),
+               ("eval IE-L2 112x160 C160 B=8", 8, 160, 112, 160),
+               ("eval CG-L0 28x40 C40 B=1", 1, 40, 28, 40),
+               ("eval CG-L1 14x20 C80 B=1", 1, 80, 14, 20),
+               ("eval CG-L2 7x10 C160 B=1", 1, 160, 7, 10)]
 # (label, B, d_inner, H, W, dt rank, d_state): the SS2D cores of the VMamba-T
 # classifier's four stages (dims 96 / 192 / 384 / 768, ssm_ratio 2) at
 # 224x224, two images each
@@ -245,7 +257,7 @@ def _dir(w, d, with_d=True):
     return out + ((w[4][d].contiguous() if with_d else None),)
 
 
-def _cases_for(label, B, C, H, W, dtype, device, seed):
+def _cases_for(label, B, C, H, W, dtype, device, seed, col_probe=True):
     rng = np.random.default_rng(seed)
     L = H * W
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
@@ -260,7 +272,8 @@ def _cases_for(label, B, C, H, W, dtype, device, seed):
     cases.append(Case("ss2d_seq_pair", label, dtype, (s(xs), *scan_w, "row")))
     cases.append(Case("ss2d_seq_pair", label + " clamp", dtype, (s(xs), *clamp_w, "col")))
     cases += _col_cases(label, dtype, rng, t, xs, H, W, scan_w, False, device)
-    cases += _col_cases(label, dtype, rng, t, xs, H, W, clamp_w, True, device)
+    if col_probe:
+        cases += _col_cases(label, dtype, rng, t, xs, H, W, clamp_w, True, device)
     N = scan_w[3].shape[-1]
     if dtype == torch.float32:  # a carry over (B, W, C*N) fp32
         a = t(np.exp(-rng.uniform(0.0, 3.0, (B, W, C * N))))
@@ -378,6 +391,22 @@ def _serve_batch_cases(label, B, C, H, W, device, seed):
     cases.append(_stem_case(label, torch.bfloat16, rng, t, s(x), H, W, lns, lnb))
     for c in cases:
         c.plain_slice = PLAIN_SLICE
+    return cases
+
+
+def _eval_cases(label, B, C, H, W, device, seed):
+    """Rows 1-7 as _cases_for builds them, fp32, at an eval shape, each a
+    path shape (its bound beside its time); above PLAIN_SLICE images the
+    plain versions run on slices of PLAIN_SLICE. At an odd H (CG-L2, 7
+    rows, one column chunk) no chunk ends on a row the column probe zeroes,
+    so that shape has no probe (_col_cases)."""
+    cases = _cases_for(label, B, C, H, W, torch.float32, device, seed, col_probe=H % 2 == 0)
+    batched = {"linear_scan": (0, 1), "ss2d_tail_cf": (0, 1, 6)}  # beside the stream
+    for c in cases:
+        c.report = True
+        if B > PLAIN_SLICE:
+            c.plain_slice = PLAIN_SLICE
+            c.batch_args = batched.get(c.name, c.batch_args)
     return cases
 
 
@@ -786,7 +815,8 @@ def _microbench_cases(small, device):
 def kernel_cases(small: bool = False, device="cuda"):
     """Every kernel at every serving, training and classifier shape, fp32 and
     bf16, rows 1-6 at the serving batch (bf16; row 3 in its path form),
-    linear_scan at the serving carries, and the microbenchmarks
+    rows 1-7 at the eval CLI's shapes (fp32), linear_scan at the serving
+    and eval carries, and the microbenchmarks
     at the tool's shapes; or at tiny shapes (``small``)."""
     shapes = SMALL_SHAPES if small else PATH_SHAPES + TRAIN_SHAPES
     out = []
@@ -802,6 +832,8 @@ def kernel_cases(small: bool = False, device="cuda"):
             out.append(_serve_stem_case(*shape, device, seed=720 + i))
         for i, shape in enumerate(SERVE_SHAPES + SERVE_STEM_SHAPES):
             out.append(_serve_tail_case(*shape, device, seed=740 + i))
+        for i, shape in enumerate(EVAL_SHAPES):
+            out += _eval_cases(*shape, device, seed=780 + i)
         out += _carry_cases(device)
     for i, shape in enumerate(SMALL_CLS_SHAPES if small else CLS_SHAPES):
         out += _cls_cases(*shape, device, seed=300 + i)
@@ -1185,3 +1217,58 @@ def compare_grads(case: GradCase):
             return e, GRAD_TOL * scale
         err, tol = max(err, e), max(tol, GRAD_TOL * scale)
     return err, tol
+
+
+def write_clip_bundle(path, seed: int = 0, width: int = 768, layers: int = 12, patch: int = 32,
+                      image_size: int = 224, proj_dim: int = 512, mlp_dim: int = 0):
+    """Write a CLIP-IQA bundle in bem_tpu's ``BEM_CLIP_NPZ`` layout with
+    seeded weights of a tower's shapes (ViT-B/32's by default: 87.8 M
+    parameters, 351 MB): kernels and biases N(0, 0.02), LayerNorms at
+    scale 1 / bias 0, unit-norm prompt embeddings. Real scores need the
+    converted openai weights; these prove the scoring path."""
+    prompts = ("brightness", "noisiness", "quality")
+    rng = np.random.default_rng(seed)
+    mlp_dim = mlp_dim or 4 * width
+
+    def normal(*shape):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(0.02)
+
+    def dense(i, o, bias=True):
+        return {"kernel": normal(i, o), "bias": normal(o)} if bias else {"kernel": normal(i, o)}
+
+    def ln():
+        return {"scale": np.ones(width, np.float32), "bias": np.zeros(width, np.float32)}
+
+    params = {"patch_embedding": {"kernel": normal(patch, patch, 3, width)},
+              "class_embedding": normal(width),
+              "position_embedding": normal((image_size // patch) ** 2 + 1, width),
+              "pre_layrnorm": ln()}
+    for i in range(layers):
+        params[f"layer_{i}"] = {
+            "self_attn": {n: dense(width, width) for n in ("q_proj", "k_proj", "v_proj",
+                                                          "out_proj")},
+            "layer_norm1": ln(), "layer_norm2": ln(),
+            "fc1": dense(width, mlp_dim), "fc2": dense(mlp_dim, width)}
+    params["post_layernorm"] = ln()
+    params["visual_projection"] = dense(width, proj_dim, bias=False)
+    te = rng.standard_normal((2 * len(prompts), proj_dim)).astype(np.float32)
+    bundle = flatten_params(params)
+    bundle["text_embeds"] = te / np.linalg.norm(te, axis=-1, keepdims=True)
+    bundle["prompts"] = np.str_(",".join(prompts))
+    bundle["logit_scale"] = np.float32(100.0)
+    np.savez(path, **bundle)
+    return path
+
+
+def write_eval_images(root, n: int, h: int, w: int, seed: int):
+    """n seeded low-light inputs ``root/input/{i}.png`` and their targets
+    ``root/target/{i}.png`` (a smooth pattern plus noise; the input is the
+    target x 0.3), written by the port's PNG writer."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w] / 23.0
+    for i in range(n):
+        base = 0.5 + 0.35 * np.sin(yy + (0.5 + i) * xx)[..., None] * rng.random((1, 1, 3))
+        gt = np.clip(base + 0.05 * rng.standard_normal((h, w, 3)), 0, 1)
+        imwrite((gt * 255).round().astype(np.uint8), os.path.join(root, "target", f"{i}.png"))
+        imwrite((gt * 0.3 * 255).round().astype(np.uint8),
+                os.path.join(root, "input", f"{i}.png"))

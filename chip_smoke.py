@@ -6,7 +6,8 @@ Run from the repository root with one card and no arguments:
 
 Phases (each prints its own lines; any failure exits non-zero before the
 result line):
-  1. card name and power limit (nvidia-smi); TF32 off for matmul and cuDNN;
+  1. card name and power limit (nvidia-smi); TF32 off for matmul and cuDNN
+     (every phase but 9);
   2. build the CUDA kernels from bem_tpu_torch/csrc with nvcc (sm_90a, one
      nvcc per source, all started together) and load them;
   3. each of the seven kernels vs its plain PyTorch version on the card,
@@ -21,7 +22,11 @@ result line):
      (merged, with the residual, bf16) at the serving batch B=32 at
      IE-L0 / L1 / L2, and linear_scan at the serving path's carries (the
      IE-L0 row / column carry at B=32 and the CG's), forward and reverse,
-     each with its bound; every linear_scan case launched twice, its
+     each with its bound; rows 1-7 at the eval CLI's shapes on the fp32
+     stream (the IE levels at B=8, the CG's at B=1, the plain versions on
+     slices of 4 images, no column probe at the CG's 7 rows) and
+     linear_scan at its carries (IE-L0 B=8, CG-L0 B=1), each with its
+     bound; every linear_scan case launched twice, its
      outputs bit-identical; then the stem, the row pair, the gdMlp, the
      column pair, the fused core's backward, selective_scan_fused,
      linear_scan and the tail at the edges of their tiles (smoke.edge_cases:
@@ -46,23 +51,37 @@ result line):
   7. the flagship serving pipeline (n_feat 40, blocks (2,2,2), K=16, two
      400x600 images padded to 448x640, bf16 stream, seeded weights)
      answering 3 requests; every kernel of phases 6-7 must launch;
-  8. the VMamba classifier (VSSM, forward_type v2) at narrow width (embed
+  8. the eval CLI (bem_tpu_torch.enhancement.eval) on the card and on the
+     CPU: the LOLv1 option files (read by the port's parse) copied with
+     noise_level 0, seeded weights, --deterministic, two seeded 112x176 PNG
+     inputs with targets, K=2, in three modes (full reference with
+     --GT_mean --Monte_Carlo, --no_ref niqe, --no_ref clip on a seeded
+     ViT-B/32 bundle): the same candidate per image, the written PNGs
+     within 1 LSB, PSNR within 0.01 dB, SSIM within 1e-4, NIQE within 0.05,
+     CLIP scores within 1e-4;
+  9. the eval CLI at full width on the card: three seeded 400x600 PNG
+     inputs with targets, the LOLv1 option files as they are, seeded
+     weights, K=16, parallel_num 8, the fp32 stream, in the same three
+     modes; each mode's steady-state s/img, with TF32 at PyTorch's
+     defaults (cuDNN convolutions in TF32, matmuls not), as a user runs
+     the CLI; every kernel of phases 6-7 must launch;
+ 10. the VMamba classifier (VSSM, forward_type v2) at narrow width (embed
      16, depths (1,1), d_state 16, 32x32), fp32: logits and one train step
      on the card vs the CPU at B=1 (the fused core) and B=2 (its clamped
      form, as pick_group(2, d_inner) > 1 selects it), clamp-hitting biases;
-  9. VMamba-T training (the harness defaults: depths (2,2,9,2), embed 96,
+ 11. VMamba-T training (the harness defaults: depths (2,2,9,2), embed 96,
      d_state 16, batch 128, 224x224, fp32), 1 warm-up + 5 timed steps;
- 10. VMamba-T throughput (bf16 images, fp32 params, batch 128), through the
+ 12. VMamba-T throughput (bf16 images, fp32 params, batch 128), through the
      harness's throughput() (1 warm-up + 5 timed batches), and one
      forward's logits checked; the fused core and its backward must launch;
- 11. the scan-pattern forward types: a narrow VSSM with forward_type v052d
+ 13. the scan-pattern forward types: a narrow VSSM with forward_type v052d
      (logits and two train steps at B=2) and v051d (logits) on the card vs
      the CPU; VMamba-T v052d training at batch 8 (1 warm-up + 3 timed
      steps: the backward recomputes through the unfolded composition,
      whose (4 B, d_inner, L, d_state) fp32 tensors take 19.7 GB each at
      batch 128) and its bf16 throughput at batch 128; selective_scan_fused
      must launch 15 times per forward;
- 12. the microbenchmarks (bem_tpu_torch.tools.microbench_vpu): the lanes /
+ 14. the microbenchmarks (bem_tpu_torch.tools.microbench_vpu): the lanes /
      npass sweep and the four modes, each line as the tool prints it.
 The kernels' phase also holds the three classifier kernels (the fused core,
 its clamped form, its backward) and selective_scan_fused (scans 1 and 2
@@ -90,8 +109,11 @@ line is {"ok": true, ...}. Imports nothing of JAX or of bem_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -106,11 +128,13 @@ from bem_tpu_torch.classification import build_model_from_config, get_config, ma
 from bem_tpu_torch.classification import synthetic_batch as cls_batch
 from bem_tpu_torch.classification import throughput
 from bem_tpu_torch.nn.ss2d import SS2D
+from bem_tpu_torch.enhancement.eval import main as eval_main
 from bem_tpu_torch.enhancement.pipeline import build_pipeline, padded_size
 from bem_tpu_torch.models import build_model
 from bem_tpu_torch.options import lolv1_options
 from bem_tpu_torch.tools import microbench_vpu
 from bem_tpu_torch.train import synthetic_batch
+from bem_tpu_torch.utils.img_util import imread
 
 K = 16
 NIMG = 2
@@ -123,6 +147,11 @@ CLS_BATCH = 128
 SCAN_TRAIN_BATCH = 8
 SCAN_TRAIN_STEPS = 3
 T0 = time.perf_counter()
+REPO = os.path.dirname(os.path.abspath(__file__))
+EVAL_DIR = os.path.join(REPO, "results", "chip_smoke_eval")  # gitignored, removed at the end
+EVAL_OPTIONS = ("CG_UNet_LOLv1.yml", "IE_UNet_LOLv1.yml")
+EVAL_MODES = {"full reference": ["--GT_mean", "--Monte_Carlo"], "niqe": ["--no_ref", "niqe"],
+              "clip": ["--no_ref", "clip"]}
 IMAGENET_TRAIN = 1281167  # images per epoch of the harness's schedule
 
 
@@ -396,6 +425,109 @@ def serve(card: str):
     return counts
 
 
+def _eval_files(root, n, h, w, seed, noise_level=None):
+    """n seeded low-light inputs with their targets (``smoke.write_eval_images``)
+    and the LOLv1 option files, copied with ``noise_level`` where given.
+    Returns the two option paths."""
+    smoke.write_eval_images(root, n, h, w, seed)
+    if noise_level is None:
+        return [os.path.join(REPO, "Options", name) for name in EVAL_OPTIONS]
+    paths = []
+    for name in EVAL_OPTIONS:
+        with open(os.path.join(REPO, "Options", name)) as f:
+            text = f.read()
+        if "noise_level: 0.1" not in text:
+            raise AssertionError(f"{name}: no noise_level line to change")
+        paths.append(os.path.join(root, name))
+        with open(paths[-1], "w") as f:
+            f.write(text.replace("noise_level: 0.1", f"noise_level: {noise_level}"))
+    return paths
+
+
+def _eval_args(opts, root, out, mode, device, K, P, extra=()):
+    args = ["--opt", opts[0], "--cond_opt", opts[1], "--input_dir", os.path.join(root, "input"),
+            "--result_dir", os.path.join(root, out), "--num_samples", str(K),
+            "--parallel_num", str(P), "--seed", "5", "--device", device, *EVAL_MODES[mode],
+            *extra]
+    if mode == "full reference":
+        args += ["--target_dir", os.path.join(root, "target")]
+    return args
+
+
+def eval_reference_check():
+    """The eval CLI at flagship widths on the card vs the CPU (phase 8)."""
+    root = os.path.join(EVAL_DIR, "reference")
+    opts = _eval_files(root, 2, 112, 176, seed=21, noise_level=0)
+    for mode in EVAL_MODES:
+        out = {dev: f"{mode}_{dev}".replace(" ", "_") for dev in ("cuda", "cpu")}
+        res = {dev: eval_main(_eval_args(opts, root, out[dev], mode, dev, 2, 8,
+                                         ["--deterministic"])) for dev in out}
+        g, c = res["cuda"], res["cpu"]
+        written = {dev: [imread(os.path.join(root, out[dev], "dataset", f"{i}.png"),
+                                float32=False).astype(int) for i in range(2)] for dev in out}
+        lsb = max(int(np.abs(a - b).max()) for a, b in zip(written["cuda"], written["cpu"]))
+        score_err = max(abs(a - b) for sg, sc in zip(g["scores"], c["scores"])
+                        for a, b in zip(sg, sc))
+        checks = [("written images max LSB", lsb, 1), ("selected", int(g["selected"] !=
+                                                                    c["selected"]), 0)]
+        if mode == "full reference":
+            checks += [("PSNR dB", abs(g["psnr"] - c["psnr"]), 0.01),
+                       ("SSIM", abs(g["ssim"] - c["ssim"]), 1e-4)]
+        elif mode == "niqe":
+            checks += [("NIQE", score_err, 0.05), ("mean NIQE", abs(g["niqe"] - c["niqe"]), 0.05)]
+        else:
+            checks += [("CLIP score", score_err, 1e-4)]
+        print(f"eval reference {mode} 112x176 K=2 fp32: selected card {g['selected']} cpu "
+              f"{c['selected']}; " + "; ".join(f"{n} {e:.3g} (tol {t:g})" for n, e, t in checks),
+              flush=True)
+        if not all(e <= t for _, e, t in checks):  # NaN fails
+            raise AssertionError(f"eval {mode} on the card disagrees with the CPU")
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def torch_tf32_defaults():
+    """PyTorch's own TF32 settings (cuDNN on, matmul off), restored after."""
+    flags = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def eval_phase(card: str):
+    """The eval CLI at full width on the card (phase 9): every BEM kernel
+    must launch; each mode's steady-state s/img."""
+    root = os.path.join(EVAL_DIR, "full")
+    opts = _eval_files(root, 3, H, W, seed=22)
+    smoke.reset_launch_counts()
+    for mode in EVAL_MODES:
+        before = smoke.launch_counts()
+        res = eval_main(_eval_args(opts, root, mode.replace(" ", "_"), mode, "cuda", K, 8))
+        scores = [v for s in res["scores"] for v in s]
+        if not (all(0 <= i < K for i in res["selected"]) and len(scores) == 3 * K
+                and np.isfinite(scores).all() and res["steady_s_per_img"]):
+            raise AssertionError(f"eval {mode}: bad result {res}")
+        if mode == "full reference" and not (np.isfinite(res["psnr"]) and 0 < res["ssim"] <= 1):
+            raise AssertionError(f"eval {mode}: bad PSNR / SSIM {res}")
+        for i in range(3):
+            out = imread(os.path.join(root, mode.replace(" ", "_"), "dataset", f"{i}.png"))
+            if out.shape != (H, W, 3):
+                raise AssertionError(f"eval {mode}: output {i} has shape {out.shape}")
+        counts = smoke.launch_counts()
+        print(f"eval {mode} K={K} parallel_num 8 {H}x{W} fp32, TF32 defaults: steady-state "
+              f"{res['steady_s_per_img']:.4f} s/img (median of images 2-3), selected "
+              f"{res['selected']}; launches {[counts[k] - before[k] for k in smoke.BEM_KERNELS]}"
+              f" ({card})", flush=True)
+        torch.cuda.empty_cache()
+    counts = smoke.launch_counts()
+    print(f"launches over the eval phase: {counts}")
+    if min(counts[k] for k in smoke.BEM_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the eval path never launched: {counts}")
+    return counts
+
+
 def _narrow_cls_config(forward_type="v2"):
     c = get_config()
     v = c.MODEL.VSSM
@@ -631,6 +763,17 @@ def main() -> int:
     train_counts = train_phase(card)
     phase("serving pipeline")
     serve_counts = serve(card)
+    os.makedirs(EVAL_DIR, exist_ok=True)
+    try:
+        os.environ["BEM_CLIP_NPZ"] = smoke.write_clip_bundle(
+            os.path.join(EVAL_DIR, "clip_vitb32.npz"), seed=0)
+        phase("eval CLI reference checks")
+        eval_reference_check()
+        phase("eval CLI at full width")
+        with torch_tf32_defaults():
+            eval_counts = eval_phase(card)
+    finally:
+        shutil.rmtree(EVAL_DIR, ignore_errors=True)
     phase("classifier reference checks")
     cls_ref_counts = cls_reference_check()
     phase("classifier training")
@@ -648,11 +791,11 @@ def main() -> int:
     phase("microbenchmarks")
     mb_counts = microbench_phase()
     # each kernel's launches over the runs of its own paths: the BEM kernels
-    # over the serving and training runs, the fused core and its backward
+    # over the serving, eval and training runs, the fused core and its backward
     # over VMamba-T's, the clamped form over the narrow reference runs,
     # selective_scan_fused over VMamba-T v052d's, the microbenchmarks over
     # their sweeps
-    paths = {name: (train_counts, serve_counts) for name in smoke.BEM_KERNELS}
+    paths = {name: (train_counts, serve_counts, eval_counts) for name in smoke.BEM_KERNELS}
     paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts),
                  ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts),
                  ss2d_dir_fused_g=(cls_ref_counts,),
