@@ -31,7 +31,7 @@ _L = ctypes.c_long
 # ctypes passes them at full width.
 _SIGNATURES = {
     "bem_stem_fused": [_P] * 8 + [_I] * 6 + [_P],
-    "bem_gdmlp_fused": [_P] * 10 + [_I] * 8 + [_P],
+    "bem_gdmlp_fused": [_P] * 11 + [_I] * 8 + [_P],
     "bem_ss2d_seq_sum": [_P] * 13 + [_I] * 6 + [_P],
     "bem_ss2d_seq_full": [_P] * 13 + [_I] * 6 + [_P],
     "bem_ss2d_tail": [_P] * 8 + [_I] * 5 + [_P],
@@ -139,6 +139,12 @@ def load():
         lib.bem_selective_scan_chunk.restype = ctypes.c_int
         lib.bem_ss2d_fused_bwd_cb.argtypes = [_I]
         lib.bem_ss2d_fused_bwd_cb.restype = ctypes.c_int
+        lib.bem_gdmlp_form.argtypes = [_I] * 7
+        lib.bem_gdmlp_form.restype = ctypes.c_int
+        lib.bem_gdmlp_ws.argtypes = [_I] * 7
+        lib.bem_gdmlp_ws.restype = ctypes.c_long
+        lib.bem_stem_form.argtypes = [_I] * 6
+        lib.bem_stem_form.restype = ctypes.c_int
         lib.bem_linear_scan_ws.argtypes = [_I] * 6
         lib.bem_linear_scan_ws.restype = ctypes.c_long
         _LIB = lib

@@ -58,6 +58,23 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// 16 bytes global -> shared by cp.async (zeros where ``full`` is not set),
+// then the group's commit and the wait for every committed group
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // Shared-memory budget a block may plan for (the card allows 227 KB).
 constexpr size_t kSmemBudget = 200 * 1024;
 

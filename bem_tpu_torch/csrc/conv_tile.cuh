@@ -125,6 +125,72 @@ __device__ void load_tile_ln_pm(const T* __restrict__ xb, const float* __restric
   }
 }
 
+// The fp32 stream's tile for the tensor-core forms: y = x at halo pixel p,
+// LN'd when lns != nullptr (fp32 stats over the fp32 x, the variance from
+// sums shifted by the pixel's first channel, eps 1e-5); 0 at pixels
+// outside the image, at pixels NP..NPp-1 and at channels C..Kp-1 (Kp
+// even). SPLIT (bf16 products): hi = bf16(y) at xh[p * S + c] and
+// lo = bf16(y - hi) at xl[p * S + c]; else (tf32 products) fp32 y at
+// xh[p * S + c]. One warp per 8 pixels, four lanes a pixel (lane 4 g + t
+// takes pixel g and the channel pairs t, t + 4, ...): each load
+// instruction reads 8 neighbouring pixels of 4 channels, and the bf16
+// pairs' stores are conflict-free at S / 2 = 4 mod 8 words. ``nthreads``
+// threads take part.
+template <bool SPLIT>
+__device__ inline void stage_tile_f32(const float* __restrict__ xb, const float* __restrict__ lns,
+                                      const float* __restrict__ lnb, void* xh, void* xl,
+                                      const Tile& g, int C, int Kp, int S, int NPp, int H, int W,
+                                      int r0, int c0, int nthreads) {
+  const long L = (long)H * W;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gq = lane >> 2, tq = lane & 3;
+  const float invc = 1.f / (float)C;
+  for (int pg = warp; pg < NPp / 8; pg += nthreads / 32) {
+    const int p = pg * 8 + gq;
+    const int hy = p / g.WW, hx = p - hy * g.WW;
+    const int gy = r0 - 1 + hy, gx = c0 - 1 + hx;
+    const bool in = p < g.NP && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const float* xp = xb + (in ? (long)gy * W + gx : 0L);
+    float m = 0.f, inv = 1.f;
+    if (lns != nullptr) {
+      const float xr = in ? xp[0] : 0.f;
+      float s1 = 0.f, s2 = 0.f;
+      if (in)
+        for (int c = tq; c < C; c += 4) {
+          const float d = xp[c * L] - xr;
+          s1 += d;
+          s2 = fmaf(d, d, s2);
+        }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+      }
+      const float ms = s1 * invc;
+      m = xr + ms;
+      inv = rsqrtf(fmaxf(s2 * invc - ms * ms, 0.f) + 1e-5f);
+    }
+    for (int w = tq; w < Kp / 2; w += 4) {
+      const int c = 2 * w;
+      float y0 = 0.f, y1 = 0.f;
+      if (in) {
+        if (c < C) y0 = lns != nullptr ? (xp[c * L] - m) * inv * lns[c] + lnb[c] : xp[c * L];
+        if (c + 1 < C)
+          y1 = lns != nullptr ? (xp[(c + 1) * L] - m) * inv * lns[c + 1] + lnb[c + 1]
+                              : xp[(c + 1) * L];
+      }
+      if (SPLIT) {
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(y0, y1);
+        const float2 hf = __bfloat1622float2(hi);
+        reinterpret_cast<__nv_bfloat162*>(xh)[(long)p * S / 2 + w] = hi;
+        reinterpret_cast<__nv_bfloat162*>(xl)[(long)p * S / 2 + w] =
+            __floats2bfloat162_rn(y0 - hf.x, y1 - hf.y);
+      } else {
+        reinterpret_cast<float2*>(xh)[(long)p * S / 2 + w] = make_float2(y0, y1);
+      }
+    }
+  }
+}
+
 // depthwise 3x3 of one hidden row at interior pixel (ty, tx), taps [dy][dx]
 __device__ __forceinline__ float dw3x3(const float* hrow, const float* taps, int ww, int ty,
                                        int tx) {
@@ -134,6 +200,32 @@ __device__ __forceinline__ float dw3x3(const float* hrow, const float* taps, int
 #pragma unroll
     for (int dx = 0; dx < 3; ++dx) s = fmaf(taps[dy * 3 + dx], hrow[(ty + dy) * ww + tx + dx], s);
   return s;
+}
+
+// The depthwise 3x3 (taps [dy][dx] at tp[0..8]) + bj of one hidden
+// channel down one tile column of TH rows: hr is the column's first halo
+// entry in an fp32 hidden row (halo rows kTileW + 2 apart); the window's
+// TH + 2 rows x 3 taps sit in registers, dw3x3's order (rows, then
+// columns). out[ty] for the TH rows.
+template <int TH>
+__device__ __forceinline__ void conv_column(const float* hr, const float* tp, float bj,
+                                            float* out) {
+  float t[9], win[TH + 2][3];
+#pragma unroll
+  for (int e = 0; e < 9; ++e) t[e] = tp[e];
+#pragma unroll
+  for (int r = 0; r < TH + 2; ++r)
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx) win[r][dx] = hr[r * (kTileW + 2) + dx];
+#pragma unroll
+  for (int ty = 0; ty < TH; ++ty) {
+    float s = 0.f;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) s = fmaf(t[dy * 3 + dx], win[ty + dy][dx], s);
+    out[ty] = s + bj;
+  }
 }
 
 // Largest tile height in {8, 4, 2, 1} whose shared memory fits the budget.

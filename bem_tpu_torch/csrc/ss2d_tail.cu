@@ -237,21 +237,6 @@ __device__ __forceinline__ void tc_project(const bf16_t* ws, const bf16_t* yn, c
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Stage positions l0 .. l0 + TL - 1 of ``rows`` rows of length L at src
 // (row r at src + r * L) into dst (row stride TLs), 0 past L: by cp.async
 // where vec, else by plain loads and stores.

@@ -2,13 +2,13 @@
 // zero padding (+bdw) -> SiLU, channel-first (B, C, H*W) -> (B, Dh, H*W).
 //
 // Replaces bem_tpu/ops/gdmlp_fused.py::stem_fused_cf (Pallas body _stem_body
-// :446, pallas_call :603). Both forms below take one TH x 32 pixel tile a
+// :446, pallas_call :603). The three forms below, picked by the entry
+// point bem_stem_fused, take one TH x 32 pixel tile a
 // block, load it with a one-pixel halo ((TH+2) x 34 pixels, all C channels)
 // into shared memory, and walk the hidden width in chunks, each projected
 // over the whole halo (the halo's projection is recomputed instead of
 // exchanged, as the Pallas kernel recomputes its halo rows), convolved and
-// stored; the Dh-wide hidden map never leaves the SM. Two forms, one
-// function:
+// stored; the Dh-wide hidden map never leaves the SM.
 //
 // stem_tc_kernel, the bf16 stream (C, Dh <= 256): the projection on the
 // tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate). Its rounding
@@ -40,9 +40,34 @@
 // small share even at C = 160, where the two-row tile's halo doubles
 // them); smoke.py's bound counts the bytes (read x, write the output).
 //
-// stem_kernel, the fp32 stream (IE training) and C or Dh above 256: the
-// projection as fp32 FMAs on the CUDA cores, one thread per halo pixel and
-// kChunk hidden channels, the weights read from shared memory.
+// stem_tc32_kernel, the fp32 stream (the eval CLI, the LOLv1 train steps;
+// C, Dh <= 256): the projection on the tensor cores at fp32 accuracy. Both
+// operands are fp32 here: the LN output (x itself without the LN) and W1,
+// which the wrapper does not pre-round on this stream. The tile is staged
+// in fp32 from the fp32 x, with the LN statistics taken in fp32
+// (stage_tile_f32), and the W1 chunk in fp32; each fragment is split as
+// it is loaded into tf32 big and small and each product runs three
+// times, small.big + big.small + big.big, into one fp32 accumulator
+// (3xTF32, mma.sync m16n8k8 tf32: about 2^-22 of sum |w| |y|). A bf16
+// split of the same three products (about 2^-16, the gdMlp's form) is
+// not enough here: the stem's output feeds the scan's dt directly, and
+// with it the LOLv1 IE train step's gradients on the card missed the CPU
+// run's by 6.6e-3 of a leaf's largest entry (chip_smoke's tolerance:
+// 1e-3). Tiles of 8 or 4 rows
+// (halo at most 1.6x the output pixels) come first in stem_tc32_plan,
+// then two blocks an SM, then the largest chunk; the depthwise 3x3 and
+// SiLU (expf, exact division) run as in the bf16 form, with fp32 stores.
+// Where the pixel grid gives fewer blocks than the card has SMs (the eval
+// CG's B = 1 levels), chunks of 16 hidden channels are dealt across
+// blocks (blockIdx.z = image x split); no reduction follows, each block
+// writes its own channels. Bound: bytes at the IE's shapes (read x, write
+// the output), with the staging, the LN, the fragment splits and the
+// depthwise conv on the CUDA cores the instructions per value that hold
+// it above that.
+//
+// stem_kernel, C or Dh above 256 (either stream): the projection as fp32
+// FMAs on the CUDA cores, one thread per halo pixel and kChunk hidden
+// channels, the weights read from shared memory.
 #include "conv_tile.cuh"
 #include "mma_bf16.cuh"
 
@@ -394,16 +419,209 @@ int launch_stem_tc_split(const void* x, const float* lns, const float* lnb, cons
 #undef BEM_STEM_TC
 }
 
+// ---------------------------------------------------------------------------
+// the tensor-core form of the fp32 stream
+
+// byte offsets of the fp32 form's shared-memory regions; every region
+// 16-byte aligned
+struct StemTc32Layout {
+  int Kp, S1, NPp, Sh, MC;
+  size_t xs, w1, hid, bk, total;
+  __host__ __device__ StemTc32Layout(int C, int MT, int TH) {
+    const Tile g(TH);
+    Kp = (C + 7) / 8 * 8;  // the k-steps of 8
+    S1 = Kp + 4;           // fp32 stride of a pixel / W1 row, 4 mod 8: conflict-free fragments
+    NPp = (g.NP + 7) / 8 * 8;
+    Sh = NPp % 16 ? NPp : NPp + 8;
+    MC = 16 * MT;
+    xs = 0;                                // fp32 (NPp, S1): the tile
+    w1 = xs + (size_t)NPp * S1 * 4;        // fp32 (MC, S1): the W1 chunk
+    hid = w1 + (size_t)MC * S1 * 4;        // fp32 (MC, Sh): the hidden chunk
+    bk = hid + (size_t)MC * Sh * 4;        // fp32 (MC,): its b1
+    total = bk + (size_t)MC * 4;
+  }
+};
+
+struct StemTc32Plan {
+  int TH, MT, nsplit;  // TH = 0: nothing fits
+  size_t smem;
+};
+
+// Tiles whose halo is at most 1.6x their pixels (TH 8, then 4) before the
+// rest, two blocks an SM before one, the largest chunk that fits; where
+// the pixel grid gives fewer blocks than the card has SMs, chunks of 16
+// hidden channels, split across blocks.
+inline StemTc32Plan stem_tc32_plan(int B, int C, int Dh, int H, int W) {
+  const int mtmax = (Dh + 15) / 16 < kStemMaxMT ? (Dh + 15) / 16 : kStemMaxMT;
+  const int ths[2][2] = {{8, 4}, {2, 1}};
+  const size_t budgets[2] = {kStemTwoBlocks, kStemOneBlock};
+  StemTc32Plan pl{0, 0, 1, 0};
+  for (int set = 0; set < 2 && pl.TH == 0; ++set)
+    for (size_t budget : budgets)
+      for (int th : ths[set])
+        for (int mt = mtmax; mt >= 1 && pl.TH == 0; --mt) {
+          const size_t sm = StemTc32Layout(C, mt, th).total;
+          if (sm <= budget) pl = StemTc32Plan{th, mt, 1, sm};
+        }
+  if (pl.TH == 0) return pl;
+  const long blocks = (long)((W + kTileW - 1) / kTileW) * ((H + pl.TH - 1) / pl.TH) * B;
+  if (blocks < kCardSMs) {
+    const long nch = (Dh + 15) / 16, want = (kCardSMs + blocks - 1) / blocks;
+    pl.MT = 1;
+    pl.smem = StemTc32Layout(C, 1, pl.TH).total;
+    pl.nsplit = (int)(want < nch ? want : nch);
+  }
+  return pl;
+}
+
+// The depthwise 3x3 (+bj), SiLU and the fp32 store of one hidden channel
+// down one tile column (conv_column's window), oc the channel's output at
+// the column's image column.
+template <int TH>
+__device__ __forceinline__ void silu_column(const float* hr, const float* __restrict__ tp,
+                                            float bj, float* oc, int r0, int H, int W) {
+  float v[TH];
+  conv_column<TH>(hr, tp, bj, v);
+#pragma unroll
+  for (int ty = 0; ty < TH; ++ty)
+    if (r0 + ty < H) oc[(long)(r0 + ty) * W] = v[ty] / (1.f + expf(-v[ty]));
+}
+
+template <int MT>
+__global__ void __launch_bounds__(kStemThreads, 2)
+stem_tc32_kernel(const float* __restrict__ x, const float* __restrict__ lns,
+                 const float* __restrict__ lnb, const float* __restrict__ W1,
+                 const float* __restrict__ b1, const float* __restrict__ dw,
+                 const float* __restrict__ bdw, float* __restrict__ out, int C, int Dh, int H,
+                 int W, int TH, int nsplit) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int MC = 16 * MT;
+  const Tile g(TH);
+  const StemTc32Layout lay(C, MT, TH);
+  const int Kp = lay.Kp, S1 = lay.S1, NPp = lay.NPp, Sh = lay.Sh;
+  float* xs = reinterpret_cast<float*>(smem_raw + lay.xs);
+  float* w1s = reinterpret_cast<float*>(smem_raw + lay.w1);
+  float* hid = reinterpret_cast<float*>(smem_raw + lay.hid);
+  float* bk = reinterpret_cast<float*>(smem_raw + lay.bk);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, tq = lane & 3, gq = lane >> 2;
+  const int split = blockIdx.z % nsplit, b = blockIdx.z / nsplit;
+  const int r0 = blockIdx.y * TH, c0 = blockIdx.x * kTileW;
+  const long L = (long)H * W;
+
+  stage_tile_f32<false>(x + (long)b * C * L, lns, lnb, xs, nullptr, g, C, Kp, S1, NPp, H, W, r0,
+                        c0, kStemThreads);
+
+  for (int j0 = split * MC; j0 < Dh; j0 += nsplit * MC) {
+    const int nj = min(MC, Dh - j0);
+    __syncthreads();  // the tile is staged; the previous chunk's readers are done
+    // the chunk's W1 rows (0 past nj and C) and b1
+    for (int i = tid; i < MC * Kp; i += kStemThreads) {
+      const int k = i / Kp, c = i - k * Kp;
+      w1s[k * S1 + c] = (k < nj && c < C) ? W1[(long)(j0 + k) * C + c] : 0.f;
+    }
+    for (int k = tid; k < MC; k += kStemThreads)
+      bk[k] = (k < nj && b1 != nullptr) ? b1[j0 + k] : 0.f;
+    __syncthreads();
+
+    // hid = W1 chunk . tile over every halo pixel: M = MC, N = NPp, K = Kp,
+    // in k-steps of 8, three tf32 products each
+    for (int nt = warp; nt < NPp / 8; nt += kStemThreads / 32) {
+      float d[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[m][e] = 0.f;
+      for (int k0 = 0; k0 < Kp; k0 += 8) {
+        uint32_t bb[2], bs[2];
+        load_b_tf32(bb, bs, xs, S1, nt * 8, k0, gq, tq);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) {
+          uint32_t ab[4], as[4];
+          load_a_tf32(ab, as, w1s, S1, 16 * m, k0, gq, tq);
+          mma3_tf32(d[m], ab, as, bb, bs);
+        }
+      }
+      // pixels p and p + 1 of rows 16 m + gq (+ 8): + b1 inside the image, 0 outside
+      const int p = nt * 8 + 2 * tq;
+      bool in[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int hy = (p + e) / g.WW, hx = p + e - hy * g.WW;
+        const int gy = r0 - 1 + hy, gx = c0 - 1 + hx;
+        in[e] = p + e < g.NP && gy >= 0 && gy < H && gx >= 0 && gx < W;
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = 16 * m + gq + 8 * half;
+          const float bv = bk[row];
+          *reinterpret_cast<float2*>(hid + row * Sh + p) =
+              make_float2(in[0] ? d[m][2 * half] + bv : 0.f, in[1] ? d[m][2 * half + 1] + bv : 0.f);
+        }
+    }
+    __syncthreads();
+
+    // depthwise 3x3 (+bdw), SiLU, fp32 stores: a thread per (hidden
+    // channel, tile column) down the tile's rows
+    for (int i = tid; i < nj * kTileW; i += kStemThreads) {
+      const int k = i / kTileW, tx = i - k * kTileW, gx = c0 + tx;
+      if (gx >= W) continue;
+      const int j = j0 + k;
+      const float* hr = hid + k * Sh + tx;
+      float* oc = out + ((long)b * Dh + j) * L + gx;
+      const float bj = bdw != nullptr ? bdw[j] : 0.f;
+      switch (TH) {
+        case 8: silu_column<8>(hr, dw + j * 9, bj, oc, r0, H, W); break;
+        case 4: silu_column<4>(hr, dw + j * 9, bj, oc, r0, H, W); break;
+        case 2: silu_column<2>(hr, dw + j * 9, bj, oc, r0, H, W); break;
+        default: silu_column<1>(hr, dw + j * 9, bj, oc, r0, H, W); break;
+      }
+    }
+  }
+}
+
+template <int MT>
+int launch_stem_tc32_mt(const StemTc32Plan& pl, const void* x, const float* lns,
+                        const float* lnb, const float* W1, const float* b1, const float* dw,
+                        const float* bdw, void* out, int B, int C, int Dh, int H, int W,
+                        cudaStream_t stream) {
+  cudaError_t e = allow_smem(stem_tc32_kernel<MT>, pl.smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((W + kTileW - 1) / kTileW, (H + pl.TH - 1) / pl.TH, B * pl.nsplit);
+  stem_tc32_kernel<MT><<<grid, kStemThreads, pl.smem, stream>>>(
+      static_cast<const float*>(x), lns, lnb, W1, b1, dw, bdw, static_cast<float*>(out), C, Dh,
+      H, W, pl.TH, pl.nsplit);
+  return (int)cudaGetLastError();
+}
+
+inline int launch_stem_tc32(const void* x, const float* lns, const float* lnb, const float* W1,
+                            const float* b1, const float* dw, const float* bdw, void* out, int B,
+                            int C, int Dh, int H, int W, cudaStream_t s) {
+  const StemTc32Plan pl = stem_tc32_plan(B, C, Dh, H, W);
+#define BEM_STEM_TC32(MT) \
+  launch_stem_tc32_mt<MT>(pl, x, lns, lnb, W1, b1, dw, bdw, out, B, C, Dh, H, W, s)
+  switch (pl.MT) {
+    case 1: return BEM_STEM_TC32(1);
+    case 2: return BEM_STEM_TC32(2);
+    case 3: return BEM_STEM_TC32(3);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BEM_STEM_TC32
+}
+
 }  // namespace bem
 
-// bf16 with C and Dh <= 256 runs the tensor-core form, the rest the
-// CUDA-core form.
+// C and Dh <= 256 run the tensor-core forms (bf16: stem_tc_kernel; fp32:
+// stem_tc32_kernel), wider nets the CUDA-core form.
 extern "C" int bem_stem_fused(const void* x, const float* lns, const float* lnb,
                               const float* W1, const float* b1, const float* dw,
                               const float* bdw, void* out, int B, int C, int Dh, int H, int W,
                               int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (bf16 && C <= bem::kTcMaxC && Dh <= bem::kTcMaxC) {
+  if (C <= bem::kTcMaxC && Dh <= bem::kTcMaxC) {
+    if (!bf16)
+      return bem::launch_stem_tc32(x, lns, lnb, W1, b1, dw, bdw, out, B, C, Dh, H, W, s);
     if (lns != nullptr)
       return bem::launch_stem_tc_split<true>(x, lns, lnb, W1, b1, dw, bdw, out, B, C, Dh, H, W,
                                              s);
@@ -414,4 +632,14 @@ extern "C" int bem_stem_fused(const void* x, const float* lns, const float* lnb,
     return bem::launch_stem<__nv_bfloat16>(x, lns, lnb, W1, b1, dw, bdw, out, B, C, Dh, H, W,
                                            s);
   return bem::launch_stem<float>(x, lns, lnb, W1, b1, dw, bdw, out, B, C, Dh, H, W, s);
+}
+
+// The form bem_stem_fused runs: 0 the CUDA-core form, n >= 1 a tensor-core
+// form with its hidden width split over n blocks a tile (1 on bf16), -1
+// where no fp32 plan fits.
+extern "C" int bem_stem_form(int B, int C, int Dh, int H, int W, int bf16) {
+  if (C > bem::kTcMaxC || Dh > bem::kTcMaxC) return 0;
+  if (bf16) return 1;
+  const bem::StemTc32Plan pl = bem::stem_tc32_plan(B, C, Dh, H, W);
+  return pl.TH ? pl.nsplit : -1;
 }

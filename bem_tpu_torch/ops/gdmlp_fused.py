@@ -24,6 +24,19 @@ runs its projection on the tensor cores the other way round: W1 is one
 exact bf16 operand (pre-rounded here) and the fp32 LN output is cut into
 hi = bf16(y) and lo = bf16(y - hi) as the tile is staged, each product run
 twice into one fp32 accumulator (once, on x itself, without the LN).
+On the fp32 stream (C and Cout / Dh <= 256) both kernels run their
+projections on the tensor cores at fp32 accuracy. The gdMlp cuts every
+fp32 operand (the LN output, the gate, W1, W2) into bf16 hi and lo (the
+weights once a call, by a first launch, into a workspace allocated
+here) and runs each product three times into one fp32 accumulator,
+hi.hi + lo.hi + hi.lo (about 2^-16 of sum |w| |v|); the stem cuts the LN
+output (or x) and W1 into tf32 big and small and runs small.big +
+big.small + big.big (3xTF32, about 2^-22). Where the pixel grid is
+smaller than the card, the gdMlp splits its hidden width over blocks
+(partial outputs in the workspace, added in split order by a last
+launch) and the stem deals its hidden chunks over blocks;
+:func:`gdmlp_form` and :func:`stem_form` say which form a call runs.
+Wider nets run CUDA-core forms on either stream.
 
 Both are differentiable: the backward recomputes through the jnp oracles'
 counterparts :func:`_stem_ref` and :func:`_gdmlp_ref`
@@ -158,14 +171,34 @@ def _gdmlp_run(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual):
         return _gdmlp_plain(*args)
     x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual = args
     B, C, L = x.shape
-    Cout = W2.shape[0]
+    Cout, h = W2.shape
+    bf = int(x.dtype == torch.bfloat16)
+    nbytes = _build.load().bem_gdmlp_ws(B, C, h, Cout, H, Wd, bf)
     out = torch.empty((B, Cout, L), dtype=x.dtype, device=x.device)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=x.device) if nbytes else None
     _build.call("bem_gdmlp_fused", ptr(x), ptr(lns), ptr(lnb), ptr(W1),
-                ptr(b1), ptr(dw), ptr(bdw), ptr(W2), ptr(b2), ptr(out),
-                B, C, W1.shape[0] // 2, Cout, H, Wd, int(residual),
-                int(x.dtype == torch.bfloat16))
-    gdmlp_fused_cf.launches += 1
+                ptr(b1), ptr(dw), ptr(bdw), ptr(W2), ptr(b2), ptr(out), ptr(ws),
+                B, C, h, Cout, H, Wd, int(residual), bf)
+    launches = 1
+    if nbytes:  # the fp32 tensor-core form: the weights' chunk images, the
+        # kernel and, where the hidden width splits, the partials' sum
+        launches = 2 + (gdmlp_form(B, C, h, Cout, H, Wd, x.dtype) > 1)
+    gdmlp_fused_cf.launches += launches
     return out
+
+
+def gdmlp_form(B, C, h, Cout, H, Wd, dtype) -> int:
+    """The form the card runs for a gdMlp call: 0 the CUDA-core form, n >= 1
+    a tensor-core form, n > 1 the fp32 one with its hidden width split over
+    n blocks a tile, -1 where no shared-memory plan fits."""
+    return _build.load().bem_gdmlp_form(B, C, h, Cout, H, Wd, int(dtype == torch.bfloat16))
+
+
+def stem_form(B, C, Dh, H, Wd, dtype) -> int:
+    """The form the card runs for a stem call: 0 the CUDA-core form, n >= 1
+    a tensor-core form with its hidden chunks dealt over n blocks a tile,
+    -1 where no shared-memory plan fits."""
+    return _build.load().bem_stem_form(B, C, Dh, H, Wd, int(dtype == torch.bfloat16))
 
 
 # ---------------------------------------------------------------------------

@@ -149,6 +149,24 @@ HEADLINE["vpu_scan_step"] = ("lanes 4096 npass 10", "float32")
 HEADLINE["vpu_op_rounds"] = ("mode exp", "float32")
 
 
+def kernel_form(case: Case) -> str:
+    """Which form of the stem or the gdMlp the card runs for ``case``
+    (tensor-core or CUDA-core, and the fp32 form's hidden split), else ""."""
+    if case.name not in ("stem_fused_cf", "gdmlp_fused_cf"):
+        return ""
+    B, C, _ = case.args[0].shape
+    if case.name == "stem_fused_cf":
+        H, W = case.args[5:7]
+        n = _gd.stem_form(B, C, case.args[1].shape[0], H, W, case.dtype)
+    else:
+        H, W = case.args[7:9]
+        Cout, h = case.args[5].shape
+        n = _gd.gdmlp_form(B, C, h, Cout, H, W, case.dtype)
+    if n <= 0:
+        return "CUDA-core form" if n == 0 else "no plan"
+    return "tensor-core form" + (f", hidden split {n}" if n > 1 else "")
+
+
 def reset_launch_counts() -> None:
     for fn, *_ in KERNELS.values():
         fn.launches = 0
@@ -171,8 +189,9 @@ PER_ROW = ("ss2d_dir_fused", "ss2d_dir_fused_g", "ss2d_dir_fused_bwd", "selectiv
 GRAD_TOL = 1e-4  # of each gradient's largest entry: two fp32 orders of summation
 # kernels whose every output must be bit-identical over two launches (each
 # cross-block sum is an ordered pass, or, linear_scan's look-back, folds
-# its predecessors in a fixed order)
-BIT_EXACT = ("ss2d_dir_fused_bwd", "linear_scan")
+# its predecessors in a fixed order; the gdMlp's hidden-split partials are
+# added in split order)
+BIT_EXACT = ("ss2d_dir_fused_bwd", "linear_scan", "gdmlp_fused_cf", "stem_fused_cf")
 
 
 @dataclass
@@ -502,6 +521,19 @@ def edge_cases(device="cuda", seed=800):
                             (t(x).to(dtype), *wts)))
     out.append(Case("gdmlp_fused_cf", "lo-carried C32 9x20", torch.bfloat16,
                     _lo_carried_gdmlp(rng, t)))
+    out.append(Case("gdmlp_fused_cf", "lo-carried fp32 C32 9x20", torch.float32,
+                    lo_carried_gdmlp_f32(rng, t)))
+    # the fp32 form's hidden split at the eval CG's B = 1 levels, h no
+    # multiple of the 16-channel chunk (168, 312), Cout != C without the
+    # residual (W2 scaled so that the output is of order 1)
+    for C, H, W, Cout in ((42, 7, 10, 42), (78, 14, 20, 56)):
+        h = 4 * C
+        out.append(Case("gdmlp_fused_cf", f"split B1 C{C} {H}x{W} Cout{Cout}", torch.float32, (
+            t(rng.standard_normal((1, C, H * W))), t(_uniform(rng, (2 * h, C), C ** -0.5)),
+            t(_uniform(rng, 2 * h, 0.1)), t(_uniform(rng, (2 * h, 9), 1 / 3)),
+            t(_uniform(rng, 2 * h, 0.3)), t(_uniform(rng, (Cout, h), 8 * h ** -0.5)),
+            t(_uniform(rng, Cout, 0.1)), H, W, t(1 + 0.1 * rng.standard_normal(C)),
+            t(0.1 * rng.standard_normal(C)), Cout == C)))
     # the column pair (rows 5 and 6): H a multiple of the chunk, not a
     # multiple, shorter than it; W no multiple of 16 or 32; N = 1 / 2 / 4;
     # C = 160 and 288, where the chunk halves (to 8 / 4 and 2 / 1 rows)
@@ -534,6 +566,15 @@ def edge_cases(device="cuda", seed=800):
                             (t(x).to(dtype), *wts)))
     out.append(Case("stem_fused_cf", "lo-carried C32 9x20", torch.bfloat16,
                     _lo_carried_stem(rng, t)))
+    out.append(Case("stem_fused_cf", "lo-carried fp32 C32 9x20", torch.float32,
+                    lo_carried_stem_f32(rng, t)))
+    # the fp32 form's hidden chunks dealt over blocks at the eval CG's B = 1
+    # levels, Dh no multiple of 16
+    for C, Dh, H, W in ((42, 90, 7, 10), (78, 78, 14, 20)):
+        out.append(Case("stem_fused_cf", f"split B1 C{C} Dh{Dh} {H}x{W}", torch.float32, (
+            t(rng.standard_normal((1, C, H * W))), t(_uniform(rng, (Dh, C), C ** -0.5)),
+            t(_uniform(rng, Dh, 0.1)), t(_uniform(rng, (Dh, 9), 1 / 3)), t(_uniform(rng, Dh, 0.3)),
+            H, W, t(1 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C)))))
     # row 11: one super-chunk of two chunks at L = 49; several super-chunks,
     # the last ragged (B=2: M = 8 sequences), at N = 1 / 4 / 16
     for i, (B, C, L, N) in enumerate(((2, 40, 49, 4), (1, 24, 49, 16), (2, 70, 300, 1),
@@ -793,6 +834,64 @@ def _lo_carried_stem(rng, t, B=1, C=32, H=9, W=20):
             None, H, W, t(np.full(C, 2.0 ** -11)), t(np.ones(C)))
 
 
+def _lo_carried_x(rng, t, B, C, H, W, d):
+    """An fp32 stream whose split into hi + lo is exact and known: x = X + d
+    on the first C/2 channels and X on the rest, X = +-1 (channels c and
+    c + C/2 equal), d under half an ulp of 1 in the split's format (hi = X,
+    lo = d or 0)."""
+    X = rng.choice(np.float32([-1, 1]), (B, C // 2, H * W))
+    return t(np.concatenate([X + np.float32(d), X], 1))
+
+
+def _lo_carried_w1_row(C, lo):
+    """A W1 row whose split is exact and known, against _lo_carried_x: hi =
+    +1 on the first C/2 channels, -1 on the rest but -0.9375 on channel
+    C/2; lo = 0 on the first half, ``lo`` on the rest. With x's halves
+    equal the hi.hi sum is 0.0625 X_{C/2}, lo.hi ``lo`` (sum of X's second
+    half), hi.lo (C/2) d, lo.lo exactly 0: fp32 sums all of it exactly."""
+    row = np.concatenate([np.ones(C // 2), np.full(C // 2, -1 + lo)])
+    row[C // 2] = -0.9375 + lo
+    return row.astype(np.float32)
+
+
+def lo_carried_stem_f32(rng, t, B=1, C=32, H=9, W=20):
+    """Stem arguments (fp32, no LN, no biases) where each of the kernel's
+    three tf32 products (3xTF32) carries a share of the projection (the
+    weight's small halves some 0.4 %, the activation's 3 %, varying by
+    pixel): x from _lo_carried_x with d = 2^-13 and every W1 row
+    _lo_carried_w1_row with lo = 2^-14 (tf32 keeps 10 fraction bits), so
+    the kernel's products and the plain version's fp32 sums are exact; the
+    taps scaled by 2^7 so that the output is of order 1 and more. Dropping
+    any one product moves the output past TOL times max(1, its largest
+    entry); the dropped small.small is 0 here."""
+    x = _lo_carried_x(rng, t, B, C, H, W, 2.0 ** -13)
+    return (x, t(np.tile(_lo_carried_w1_row(C, 2.0 ** -14), (C, 1))), None,
+            t(np.tile(2.0 ** 7 * _uniform(rng, 9, 1 / 3), (C, 1))), None, H, W, None, None)
+
+
+def lo_carried_gdmlp_f32(rng, t, B=1, C=32, H=9, W=20):
+    """gdMlp arguments (fp32, no LN, no b1 / b2, no residual) where each of
+    the three bf16 products of both projections carries a share of the
+    output above TOL: x from _lo_carried_x with d = 2^-9 and the gate rows
+    of W1 _lo_carried_w1_row with lo = 2^-10 (bf16 keeps 7 fraction bits;
+    the W1 product exact, each of its products some % of it, every
+    gate channel's hidden value u the same), the value rows 0 and bdw 1
+    on them (v = 1), taps scaled by 2^4 and bdw 8 on the gate channels
+    (a = 8 + dw3x3(u), the gate ~ a), and every W2 entry 2^-7 (1 + 3 *
+    2^-10): hi 2^-7, lo 3 * 2^-17, so the output is ~ the gate (order 1
+    and more), lo.hi carries 2.9e-3 of it and hi.lo the gate's lo (up to
+    2^-8 of it), 10x and more TOL's 2e-4, while the dropped lo.lo is under
+    2^-8 * 2.9e-3 of it."""
+    h = 4 * C
+    x = _lo_carried_x(rng, t, B, C, H, W, 2.0 ** -9)
+    W1 = np.zeros((2 * h, C), np.float32)
+    W1[:h] = _lo_carried_w1_row(C, 2.0 ** -10)
+    dw = np.tile(2.0 ** 4 * _uniform(rng, 9, 1 / 3), (2 * h, 1))
+    bdw = np.concatenate([np.full(h, 8.0), np.ones(h)])
+    W2 = np.full((C, h), 2.0 ** -7 * (1 + 3 * 2.0 ** -10), np.float32)
+    return (x, t(W1), None, t(dw), t(bdw), t(W2), None, H, W, None, None, False)
+
+
 def _microbench_cases(small, device):
     """The microbenchmarks on the tool's data at every lanes / npass / mode
     of its sweeps, or on 2 blocks of (40, 512) (``small``)."""
@@ -1009,7 +1108,7 @@ def time_ms(fn, args, budget_ms: float = 300.0) -> float:
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12       # CUDA cores, fp32 (also the rate of exp / softplus work)
-BF16_TC_FLOPS = 989e12   # tensor cores, dense bf16
+BF16_TC_FLOPS = 989e12   # tensor cores, dense bf16 (fp32-accurate products: a third)
 
 
 def _nbytes(*ts):
@@ -1082,10 +1181,14 @@ def work(case: Case):
 def bound_ms(case: Case):
     """(least ms on an H100 SXM, "bytes" or "operations"): the larger of
     bytes over the HBM rate and operations over the peak rate of their
-    type (matmul work on bf16 tensor cores for the bf16 stream, fp32 CUDA
-    cores otherwise; elementwise work at the fp32 rate)."""
+    type (elementwise work at the fp32 rate). Matmul work runs on the bf16
+    tensor cores: at their peak on the bf16 stream, at a third of it on the
+    fp32 stream, where near-fp32 accuracy takes at least three bf16
+    products (hi.hi, lo.hi and hi.lo of operands split into bf16 hi + lo,
+    the gdMlp's fp32 form; the stem's 3xTF32 takes twice that time, and
+    the fp32 CUDA cores, 67 TFLOP/s, longer still)."""
     nbytes, mm, ew = work(case)
-    mm_rate = BF16_TC_FLOPS if case.dtype == torch.bfloat16 else FP32_FLOPS
+    mm_rate = BF16_TC_FLOPS if case.dtype == torch.bfloat16 else BF16_TC_FLOPS / 3
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = mm / mm_rate + ew / FP32_FLOPS
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")

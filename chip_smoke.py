@@ -24,17 +24,24 @@ result line):
      IE-L0 row / column carry at B=32 and the CG's), forward and reverse,
      each with its bound; rows 1-7 at the eval CLI's shapes on the fp32
      stream (the IE levels at B=8, the CG's at B=1, the plain versions on
-     slices of 4 images, no column probe at the CG's 7 rows) and
+     slices of 4 images, no column probe at the CG's 7 rows; the stem's
+     and the gdMlp's lines name the form that ran) and
      linear_scan at its carries (IE-L0 B=8, CG-L0 B=1), each with its
-     bound; every linear_scan case launched twice, its
+     bound; every linear_scan, stem and gdMlp case launched twice, its
      outputs bit-identical; then the stem, the row pair, the gdMlp, the
      column pair, the fused core's backward, selective_scan_fused,
      linear_scan and the tail at the edges of their tiles (smoke.edge_cases:
      chunk, super-chunk and tile remainders, K padding, C = 288 where the
      column chunk halves and the backward takes many channel blocks, the
-     stem's and the gdMlp's CUDA-core forms on bf16 above C = 256, a
+     stem's and the gdMlp's CUDA-core forms above C = 256, a
      case each that only the bf16 lo halves of the stem's LN output and
-     of the gdMlp's split weights carry, linear_scan at L = 1, around its
+     of the gdMlp's split weights carry, their fp32 tensor-core forms on a
+     case each where every one of the three bf16 products carries a share of
+     the output far above the fp32 tolerance, and on the eval CG's B = 1
+     levels, where the gdMlp splits its hidden width over blocks and the
+     stem deals its hidden chunks, each stem and gdMlp case launched twice,
+     its output bit-identical, each line naming the form that ran
+     (tensor-core or CUDA-core), linear_scan at L = 1, around its
      walk limit and chunk, over several anchor groups, at L = 2^20 and D =
      1 and 3072, the tail at C = 40, C_out != C, L = 1, a tile + 1 and off
      the vector width), checked only;
@@ -201,8 +208,10 @@ def compare_kernels():
             print(f"  headline {case.name}: bound {bound:.4f} ms ({by})")
         elif case.plain_slice or case.report:  # a path shape: its bound beside its time
             bound, by = smoke.bound_ms(case)
+            form = smoke.kernel_form(case)
             print(f"  path shape {case.name} {case.label}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+                  f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by})"
+                  + (f", {form}" if form else ""))
         torch.cuda.empty_cache()
     missing = set(smoke.KERNELS) - set(summary)
     if missing:
@@ -211,8 +220,9 @@ def compare_kernels():
 
 
 def _notes(case):
-    """The clamp check's and the repeat check's results, where a case has them."""
-    out = ""
+    """The clamp check's and the repeat check's results, and the stem's and
+    the gdMlp's form, where a case has them."""
+    out = f"  {smoke.kernel_form(case)}" if smoke.kernel_form(case) else ""
     if case.other_clamp is not None:
         out += f"  vs other clamp err/tol {case.other_clamp:.3g}"
     if case.repeatable is not None:

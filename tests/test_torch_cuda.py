@@ -137,10 +137,10 @@ def test_v052d_classifier_on_card_matches_cpu():
 
 @pytest.mark.cuda
 def test_chunked_row_pair_and_tensor_core_gdmlp_edges_on_card():
-    """The chunked row pair and the gdMlp's forms (tensor cores on bf16 up
-    to C = 256, the CUDA cores on fp32 and wider bf16) vs their plain
-    versions where their tiles have edges, and on the case only the
-    weights' bf16 lo halves carry (smoke.edge_cases), at smoke.TOL."""
+    """The chunked row pair and the gdMlp's forms (tensor cores up to C =
+    256 on either stream, the CUDA cores above) vs their plain versions
+    where their tiles have edges, and on the cases only the bf16 lo halves
+    carry (smoke.edge_cases), at smoke.TOL."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU form")
     from bem_tpu_torch import smoke
@@ -338,3 +338,28 @@ def test_single_pass_scan_and_tensor_core_tail_on_card():
     case = smoke._fused_bwd_case("L2240", 1, 24, 2240, 2, 4, "cuda", 950)
     err, tol = smoke.compare(case)
     assert err <= tol and case.repeatable, (err, tol)
+
+
+@pytest.mark.cuda
+def test_fp32_tensor_core_stem_and_gdmlp_on_card():
+    """The stem's and the gdMlp's fp32 tensor-core forms (three bf16
+    products a projection) vs their plain versions at smoke.TOL: every fp32
+    case of smoke.edge_cases up to C = 256 (tile remainders, Cout / Dh !=
+    C, the lo-carried cases where each product carries a share far above
+    the tolerance, the eval CG's B = 1 levels with the hidden width split
+    over blocks), and the eval CLI's CG levels at B = 1; each bit-identical
+    over two launches, each run by the tensor-core form."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    from bem_tpu_torch import smoke
+
+    cases = [c for c in smoke.edge_cases() if c.dtype == torch.float32
+             and c.name in ("stem_fused_cf", "gdmlp_fused_cf") and c.args[0].shape[1] <= 256]
+    for i, shape in enumerate(smoke.EVAL_SHAPES[3:]):
+        cases += [c for c in smoke._eval_cases(*shape, "cuda", seed=780 + i)
+                  if c.name in ("stem_fused_cf", "gdmlp_fused_cf")]
+    assert any("split" in smoke.kernel_form(c) for c in cases)
+    for case in cases:
+        assert smoke.kernel_form(case).startswith("tensor-core"), (case.name, case.label)
+        err, tol = smoke.compare(case)
+        assert err <= tol and case.repeatable, (case.name, case.label, err, tol)
