@@ -68,11 +68,13 @@ def flax_to_state_dict(params) -> dict:
     return sd
 
 
-def state_dict_to_flax(module: nn.Module, state=None) -> dict:
+def state_dict_to_flax(module: nn.Module, state=None, subset: bool = False) -> dict:
     """The port's parameters (or ``state``, a {name: tensor} mapping over the
-    same names, e.g. a Bayesian weight sample) -> a nested flax params dict."""
+    same names, e.g. a Bayesian weight sample or Adam's moments) -> a nested
+    flax params dict; with ``subset``, only the names of ``state`` (e.g. the
+    Bayesian prior's)."""
     kinds = {name: type(m) for name, m in module.named_modules()}
-    state = dict(module.named_parameters(), **(state or {}))
+    state = dict(state or {}) if subset else dict(module.named_parameters(), **(state or {}))
     tree: dict = {}
     for name, t in state.items():
         a = t.detach().float().cpu().numpy()

@@ -45,7 +45,7 @@ from ..nn.layers import sample_bayes
 from ..ops.resize import resize_bilinear
 from ..utils.checkpoint import load_params
 from ..utils.histogram import histogram_condition
-from ..utils.img_util import imread, imwrite
+from ..utils.img_util import downsample, imread, imwrite
 from ..utils.options import parse
 
 IMAGE_EXTS = ("png", "jpg", "bmp", "tif")  # bem_tpu's glob; jpg / tif raise on reading
@@ -70,14 +70,6 @@ def pad_img(inp: np.ndarray, factor: int) -> np.ndarray:
     if padh or padw:
         inp = np.pad(inp, ((0, padh), (0, padw), (0, 0)), "reflect")
     return inp
-
-
-def downsample(img: np.ndarray, factor: int) -> np.ndarray:
-    """``cv2.resize(img, None, fx=1/factor, fy=1/factor, INTER_LINEAR)``:
-    bilinear with half-pixel centres and no antialiasing, (H, W, C) float."""
-    h, w = img.shape[:2]
-    x = torch.from_numpy(np.ascontiguousarray(img, np.float32))[None]
-    return resize_bilinear(x, (round(h / factor), round(w / factor)))[0].numpy()
 
 
 def build_parser():

@@ -5,7 +5,8 @@ The network is built Bayesian. A train step (condition_generator_model.py:
 67-102) first moves the EMA prior toward the current posterior (decay
 min(0.998, (1+s)/(10+s))), then samples one weight set, runs the forward
 on the downsampled input, and minimises L1 + 0.01 * KL / batch. Mixup and
-the MIM mask are not ported and raise.
+the MIM mask are not ported and raise. Validation
+(condition_generator_model.py:144) runs the mean weights, no sample.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from torch.func import functional_call
 from ..bayesian import get_kl_loss, update_prior_ema
 from ..losses import build_loss
 from ..nn.layers import sample_bayes
-from .base_model import BaseModel
+from .base_model import BaseModel, reflect_pad
 
 
 class ConditionGenerator(BaseModel):
@@ -70,3 +71,17 @@ class ConditionGenerator(BaseModel):
         lq = lq.to(self.device)
         return torch.stack([functional_call(self.net, sample_bayes(self.net, gen), (lq,))[-1]
                             for _ in range(num_samples)])
+
+    def pad_test(self, lq, window_size: int):
+        """Reflect-pad H and W to a multiple of ``window_size``, forward, crop."""
+        h, w = lq.shape[1], lq.shape[2]
+        return self.nonpad_test(reflect_pad(lq, window_size))[:, :h, :w, :]
+
+    def _val_forward(self, val_data, window_size: int):
+        lq_key, gt_key = self._keys()
+        lq = torch.from_numpy(val_data[lq_key])
+        out = self.pad_test(lq, window_size) if window_size else self.nonpad_test(lq)
+        return out, val_data.get(gt_key)
+
+    def _val_images_to_save(self, sr_img, gt_img):
+        return () if self.cond_type == "histogram" else (sr_img,)

@@ -5,7 +5,9 @@ A train step (image_enhancer_model.py:63-102): condition noise on the
 downsampled ground truth, bilinear upsample to the input size, concat with
 the low-light input, the forward, the pixel loss, its gradients, and the
 clip -> AdamW update. Perceptual loss, mixup and the MIM mask are not
-ported and raise.
+ported and raise. Validation (image_enhancer_model.py:131) runs the EMA
+params when kept, reflect-padded to ``val.window_size``, and scores the
+uint8 outputs with the host metrics.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from torch.func import functional_call
 
 from ..losses import build_loss
 from ..ops.resize import resize_bilinear
-from .base_model import BaseModel
+from .base_model import BaseModel, reflect_pad
 
 
 class ImageEnhancer(BaseModel):
@@ -54,6 +56,7 @@ class ImageEnhancer(BaseModel):
         l_pix = self.cri_pix(preds, b["gt"])
         aux = {"l_pix": l_pix / self.opt["train"]["pixel_opt"].get("loss_weight", 1),
                "l_total": l_pix}
+        self.last_visuals = {"pred": preds[0].detach().clamp(0.0, 1.0), "gt": b["gt"][0]}
         return self._apply_updates(self._grads(l_pix), aux)
 
     @torch.no_grad()
@@ -66,6 +69,10 @@ class ImageEnhancer(BaseModel):
     def pad_test(self, lq, conds, window_size: int):
         """Reflect-pad H and W to a multiple of ``window_size``, forward, crop."""
         h, w = lq.shape[1], lq.shape[2]
-        pad = (0, (-w) % window_size, 0, (-h) % window_size)
-        img = torch.nn.functional.pad(lq.permute(0, 3, 1, 2), pad, mode="reflect")
-        return self.nonpad_test(img.permute(0, 2, 3, 1), conds)[:, :h, :w, :]
+        return self.nonpad_test(reflect_pad(lq, window_size), conds)[:, :h, :w, :]
+
+    def _val_forward(self, val_data, window_size: int):
+        lq = torch.from_numpy(val_data["lq"])
+        conds = torch.from_numpy(val_data[self._cond_key()])
+        out = self.pad_test(lq, conds, window_size) if window_size else self.nonpad_test(lq, conds)
+        return out, val_data.get("gt")

@@ -1,5 +1,8 @@
-"""Reading bem_tpu's ``net_g_*.msgpack`` checkpoints (counterpart of
-bem_tpu/utils/checkpoint.py ``load_params``) without flax or msgpack.
+"""bem_tpu's checkpoints without flax or msgpack (counterpart of
+bem_tpu/utils/checkpoint.py): ``net_g_<iter>.msgpack`` network files
+(``save_params`` / ``load_params``) and ``<iter>.state`` training states
+(``save_state`` / ``load_state``), read and written in
+``flax.serialization``'s msgpack layout.
 
 ``msgpack_restore`` decodes what ``flax.serialization.msgpack_serialize``
 writes: maps, arrays, str, bin, ints, floats, nil and bools; ext type 1
@@ -8,17 +11,27 @@ type 3 (a numpy scalar, the same payload); and the
 ``__msgpack_chunked_array__`` dicts flax splits arrays over 2^30 bytes
 into. bfloat16 leaves come back as float32 (numpy has no bfloat16; the
 widening is exact). The tree feeds ``bem_tpu_torch.convert.load_flax_params``.
+
+``msgpack_serialize`` writes what ``flax.serialization.msgpack_serialize``
+writes for the same tree, byte for byte: dict keys sorted, msgpack's smallest encodings,
+Python floats as float64, numpy arrays (and torch tensors, bf16 ones as
+``bfloat16``) as ext type 1, numpy scalars as ext type 3, and arrays over
+2^30 bytes split into ``__msgpack_chunked_array__`` dicts.
 """
 
 from __future__ import annotations
 
+import os
+import re
 import struct
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
+import torch
 
 _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 _CHUNKED = "__msgpack_chunked_array__"
+MAX_CHUNK_SIZE = 2 ** 30  # flax's limit on the bytes of one array leaf
 
 
 class _Decoder:
@@ -139,3 +152,145 @@ def load_params(path: str, param_key: str = "params") -> Any:
     if len(tree) == 1:
         return next(iter(tree.values()))
     return tree
+
+
+def _ndarray_payload(a) -> bytes:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu()
+        if a.dtype == torch.bfloat16:
+            return _encode(((*a.shape,), "bfloat16", a.contiguous().view(torch.int16).numpy().tobytes()))
+        a = a.numpy()
+    return _encode((a.shape, a.dtype.name, np.ascontiguousarray(a).tobytes()))
+
+
+def _sized(out: list, n: int, fix, tags) -> None:
+    """Append the header of a length-``n`` object: ``fix`` = (tag, limit)
+    gives tag | n below the limit, else the first of ``tags`` (tag, length
+    format) that holds n."""
+    if fix is not None and n < fix[1]:
+        out.append(bytes([fix[0] | n]))
+        return
+    for tag, fmt in tags:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            out.append(bytes([tag]) + struct.pack(fmt, n))
+            return
+    raise ValueError(f"msgpack: object of length {n} too large")
+
+
+def _pack(obj, out: list) -> None:
+    if obj is None:
+        out.append(b"\xc0")
+    elif obj is True or obj is False:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int):
+        if 0 <= obj < 128:
+            out.append(bytes([obj]))
+        elif -32 <= obj < 0:
+            out.append(struct.pack(">b", obj))
+        elif obj >= 0:
+            tag, fmt = next((t, f) for t, f in ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"),
+                                                 (0xCF, ">Q")) if obj < 1 << (8 * struct.calcsize(f)))
+            out.append(bytes([tag]) + struct.pack(fmt, obj))
+        else:
+            tag, fmt = next((t, f) for t, f in ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"),
+                                                 (0xD3, ">q")) if obj >= -(1 << (8 * struct.calcsize(f) - 1)))
+            out.append(bytes([tag]) + struct.pack(fmt, obj))
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        b = obj.encode("utf-8")
+        _sized(out, len(b), (0xA0, 32), ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I")))
+        out.append(b)
+    elif isinstance(obj, (bytes, bytearray)):
+        _sized(out, len(obj), None, ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I")))
+        out.append(bytes(obj))
+    elif isinstance(obj, (list, tuple)):
+        _sized(out, len(obj), (0x90, 16), ((0xDC, ">H"), (0xDD, ">I")))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, dict):
+        _sized(out, len(obj), (0x80, 16), ((0xDE, ">H"), (0xDF, ">I")))
+        for k, v in obj.items():
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (np.ndarray, torch.Tensor, np.generic)):
+        code = _EXT_NPSCALAR if isinstance(obj, np.generic) else _EXT_NDARRAY
+        payload = _ndarray_payload(np.asarray(obj) if code == _EXT_NPSCALAR else obj)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if len(payload) in fixext:
+            out.append(bytes([fixext[len(payload)]]))
+        else:
+            _sized(out, len(payload), None, ((0xC7, ">B"), (0xC8, ">H"), (0xC9, ">I")))
+        out.append(struct.pack(">b", code) + payload)
+    else:
+        raise TypeError(f"msgpack: cannot serialize {type(obj).__name__}")
+
+
+def _encode(obj) -> bytes:
+    out: list = []
+    _pack(obj, out)
+    return b"".join(out)
+
+
+def _chunk(tree):
+    """Sort dict keys (flax copies the tree with jax.tree_util, which sorts
+    them) and split array leaves over MAX_CHUNK_SIZE bytes
+    (serialization._chunk)."""
+    if isinstance(tree, dict):
+        return {k: _chunk(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, torch.Tensor) and tree.dtype != torch.bfloat16:
+        tree = tree.detach().cpu().numpy()
+    if isinstance(tree, np.ndarray) and tree.nbytes > MAX_CHUNK_SIZE:
+        flat = tree.reshape(-1)
+        n = max(1, MAX_CHUNK_SIZE // tree.dtype.itemsize)
+        chunks = [flat[i:i + n] for i in range(0, flat.size, n)]
+        return {_CHUNKED: True, "shape": {str(i): d for i, d in enumerate(tree.shape)},
+                "chunks": {str(i): c for i, c in enumerate(chunks)}}
+    return tree
+
+
+def msgpack_serialize(tree) -> bytes:
+    """flax.serialization.msgpack_serialize without flax: nested dicts (str
+    keys), lists, Python scalars, numpy arrays and torch tensors."""
+    return _encode(_chunk(tree))
+
+
+def _write(path: str, data: bytes) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def save_params(path: str, params, param_key: str = "params", extra: dict = None):
+    """A ``net_g`` file: {param_key: params, **extra} (checkpoint.py:23), the
+    trees in flax's layout (``convert.state_dict_to_flax``)."""
+    tree = {param_key: params}
+    tree.update(extra or {})
+    _write(path, msgpack_serialize(tree))
+
+
+def save_state(path: str, state: dict):
+    """A training state: the tree of bem_tpu's ``TrainState`` (step, params,
+    opt_state, rng, ema_params, bayes_prior), as ``flax.serialization.to_bytes``
+    writes it (checkpoint.py:44)."""
+    _write(path, msgpack_serialize(state))
+
+
+def load_state(path: str) -> dict:
+    """A training state's tree (checkpoint.py:52; the trainer maps it onto
+    itself, where bem_tpu restores it onto a template)."""
+    with open(path, "rb") as f:
+        return msgpack_restore(f.read())
+
+
+def find_latest_state(state_dir: str) -> Optional[str]:
+    """The ``<iter>.state`` file of the largest iter in ``state_dir``, None
+    where there is none (checkpoint.py:57)."""
+    if not os.path.isdir(state_dir):
+        return None
+    best, best_iter = None, -1
+    for name in os.listdir(state_dir):
+        m = re.fullmatch(r"(\d+)\.state", name)
+        if m and int(m.group(1)) > best_iter:
+            best_iter, best = int(m.group(1)), os.path.join(state_dir, name)
+    return best

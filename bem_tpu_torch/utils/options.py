@@ -1,5 +1,6 @@
 """Options files (counterpart of bem_tpu/utils/options.py ``yaml_load``,
-``parse`` and ``_expand``), read with :mod:`.yaml_lite`.
+``parse_options``, ``parse``, ``_expand`` and ``copy_opt_file``), read
+with :mod:`.yaml_lite`.
 
 ``bem_tpu_torch.options.lolv1_options`` stays the LOLv1 training options
 as Python dicts; ``parse`` reads any ``Options/*.yml``.
@@ -7,12 +8,17 @@ as Python dicts; ``parse`` reads any ``Options/*.yml``.
 
 from __future__ import annotations
 
+import argparse
 import os
 import random
+import sys
+import time
 from os import path as osp
+from shutil import copyfile
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
 from .yaml_lite import load
 
@@ -28,6 +34,63 @@ def yaml_load(f: str) -> Dict[str, Any]:
 def set_random_seed(seed: int):
     random.seed(seed)
     np.random.seed(seed)
+
+
+def _set_nested(opt: Dict, keys, value):
+    d = opt
+    for k in keys[:-1]:
+        d = d.setdefault(k, {})
+    d[keys[-1]] = value
+
+
+def parse_options(root_path: str, is_train: bool = True, args_list=None):
+    """The CLIs' options (options.py:43): the YAML of ``--opt`` with the
+    ``--force_yml key:sub=value`` overrides (values read as YAML), the
+    ``--debug`` name and frequencies, the seed, and ``--device`` (cuda by
+    default: there is no CPU fallback). One process on one device: rank 0,
+    world size 1. Returns (opt, args)."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-opt", "--opt", type=str, required=True, help="Path to option YAML file.")
+    parser.add_argument("--launcher", choices=["none", "pytorch", "slurm"], default="none",
+                        help="distributed launcher (only 'none' is ported)")
+    parser.add_argument("--auto_resume", action="store_true")
+    parser.add_argument("--debug", action="store_true")
+    parser.add_argument("--force_yml", nargs="+", default=None,
+                        help="Force to update yml files. Examples: train:ema_decay=0.999")
+    parser.add_argument("--device", default="cuda", type=str,
+                        help="cuda (the port's kernels) or cpu (their plain versions)")
+    args = parser.parse_args(args_list)
+    if args.launcher != "none":
+        raise NotImplementedError(f"--launcher {args.launcher}: multi-GPU runs are not ported")
+    if args.device.startswith("cuda") and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: no CUDA device; --device cpu runs the "
+                           f"plain versions of the kernels")
+
+    opt = yaml_load(args.opt)
+    opt["dist"], opt["rank"], opt["world_size"] = False, 0, 1
+    opt["device"] = args.device
+    seed = opt.get("manual_seed")
+    if seed is None:
+        seed = opt["manual_seed"] = random.randint(1, 10000)
+    set_random_seed(seed + opt["rank"])
+    for entry in args.force_yml or ():
+        keys, value = entry.replace(" ", "").split("=")
+        _set_nested(opt, keys.split(":"), load(value))
+    opt["auto_resume"] = args.auto_resume
+    opt["is_train"] = is_train
+    if args.debug and not opt["name"].startswith("debug"):
+        opt["name"] = "debug_" + opt["name"]
+    if opt.get("num_gpu") == "auto":
+        opt["num_gpu"] = 1
+    if opt.get("num_gpu", 1) != 1:
+        raise NotImplementedError(f"num_gpu {opt['num_gpu']}: multi-GPU runs are not ported")
+    _expand(opt, root_path, is_train)
+    if args.debug:
+        if "val" in opt:
+            opt["val"]["val_freq"] = 8
+        opt["logger"]["print_freq"] = 1
+        opt["logger"]["save_checkpoint_freq"] = 8
+    return opt, args
 
 
 def parse(opt_path: str, root_path: str = ".", is_train: bool = True) -> Dict[str, Any]:
@@ -69,3 +132,16 @@ def _expand(opt: Dict[str, Any], root_path: str, is_train: bool):
         root = osp.join(root_path, "results", opt["name"])
         opt["path"].update(results_root=root, log=root,
                            visualization=osp.join(root, "visualization"))
+
+
+def copy_opt_file(opt_file: str, experiments_root: str):
+    """Copy the options file into the experiment with a header of the time
+    and the command line (options.py:154)."""
+    os.makedirs(experiments_root, exist_ok=True)
+    filename = osp.join(experiments_root, osp.basename(opt_file))
+    copyfile(opt_file, filename)
+    with open(filename, "r+") as f:
+        lines = f.readlines()
+        lines.insert(0, f"# GENERATE TIME: {time.asctime()}\n# CMD:\n# {' '.join(sys.argv)}\n\n")
+        f.seek(0)
+        f.writelines(lines)

@@ -55,6 +55,22 @@ result line):
   6. training: the IE (batch 8, 128x128) and the CG (batch 8, 8x8) trainers
      of the LOLv1 options at full width, 1 warm-up + 5 timed steps each;
      every kernel's launch count over the phase must be > 0;
+  6b. the train and test CLIs at full width (bem_tpu_torch.train /
+     bem_tpu_torch.test): 24 seeded 400x600 PNG pairs to train on (three
+     batches of 8 an epoch: steps 2-3 show the loader's prefetch, step 4
+     an epoch's first batch), two to validate on, the LOLv1 option files as
+     they are, --force_yml only for the dataroots, the name, total_iter 4,
+     print_freq 1, save_checkpoint_freq 2, val_freq 2, no tensorboard or
+     wandb, 2 loader threads and an SSIM metric; for the IE and the CG:
+     finite losses, the net_g / state / best_psnr files, finite PSNR / SSIM,
+     then --auto_resume to total_iter 6 (it must start at iter 5 from
+     net_g_4's exact params, at the 5th update's learning rate), then the
+     test CLI on the last net_g (the last validation's PSNR), then a saved
+     checkpoint's validation on the card against the CPU (the IE's on two
+     120x180 images, the CG's on the val set: PSNR within 0.01 dB, SSIM
+     within 1e-4); the device prefetcher's batches against the host's;
+     each trainer's CLI ms/step and data_time, validation s/img; every
+     kernel of the training path must launch over the phase;
   7. the flagship serving pipeline (n_feat 40, blocks (2,2,2), K=16, two
      400x600 images padded to 448x640, bf16 stream, seeded weights)
      answering 3 requests; every kernel of phases 6-7 must launch;
@@ -119,7 +135,9 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import logging
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -131,17 +149,23 @@ import torch
 
 from bem_tpu_torch import _build, smoke
 from bem_tpu_torch.archs import build_network
+from bem_tpu_torch.convert import state_dict_to_flax
 from bem_tpu_torch.classification import build_model_from_config, get_config, make_trainer
 from bem_tpu_torch.classification import synthetic_batch as cls_batch
 from bem_tpu_torch.classification import throughput
+from bem_tpu_torch.data import CPUPrefetcher, DevicePrefetcher, build_dataloader, build_dataset
 from bem_tpu_torch.nn.ss2d import SS2D
 from bem_tpu_torch.enhancement.eval import main as eval_main
 from bem_tpu_torch.enhancement.pipeline import build_pipeline, padded_size
 from bem_tpu_torch.models import build_model
 from bem_tpu_torch.options import lolv1_options
 from bem_tpu_torch.tools import microbench_vpu
-from bem_tpu_torch.train import synthetic_batch
+from bem_tpu_torch.models.base_model import BaseModel
+from bem_tpu_torch.test import test_pipeline
+from bem_tpu_torch.train import synthetic_batch, train_pipeline
+from bem_tpu_torch.utils.checkpoint import load_params
 from bem_tpu_torch.utils.img_util import imread
+from bem_tpu_torch.utils.options import parse
 
 K = 16
 NIMG = 2
@@ -157,6 +181,10 @@ T0 = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 EVAL_DIR = os.path.join(REPO, "results", "chip_smoke_eval")  # gitignored, removed at the end
 EVAL_OPTIONS = ("CG_UNet_LOLv1.yml", "IE_UNet_LOLv1.yml")
+CLI_DIR = os.path.join(REPO, "results", "chip_smoke_cli")  # gitignored, removed at the end
+CLI_TRAINERS = (("ImageEnhancer", "IE_UNet_LOLv1.yml"), ("ConditionGenerator", "CG_UNet_LOLv1.yml"))
+CLI_TRAIN_IMAGES = 24  # three batches of 8 an epoch
+SSIM = ["val:metrics:ssim:type=calculate_ssim", "val:metrics:ssim:crop_border=0"]
 EVAL_MODES = {"full reference": ["--GT_mean", "--Monte_Carlo"], "niqe": ["--no_ref", "niqe"],
               "clip": ["--no_ref", "clip"]}
 IMAGENET_TRAIN = 1281167  # images per epoch of the harness's schedule
@@ -404,6 +432,194 @@ def train_phase(card: str):
     if min(total[k] for k in smoke.BEM_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the training path never launched: {total}")
     return total
+
+
+def _leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def _test_options(name, root):
+    """The option file with its train set removed: the test CLI validates
+    on every dataset it is given."""
+    with open(os.path.join(REPO, "Options", name)) as f:
+        text = f.read()
+    cut = re.sub(r"  train:\n(    .*\n)+", "", text)
+    if cut == text:
+        raise AssertionError(f"{name}: no train dataset block to remove")
+    path = os.path.join(root, "test_" + name)
+    with open(path, "w") as f:
+        f.write(cut)
+    return path
+
+
+class _Lines(logging.Handler):
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def _cli_run(name, args, root, lines):
+    """train_pipeline on the option file ``name``; returns the trainer, its
+    log lines, and the step, the params and the learning rate of its first
+    update."""
+    first = {}
+    orig = BaseModel._apply_updates
+
+    def record(self, grads, aux):
+        if not first:
+            first.update(step=self.step, params={k: p.detach().cpu().clone()
+                                                 for k, p in self.params.items()})
+        out = orig(self, grads, aux)
+        first.setdefault("lr", out["lr"])
+        return out
+
+    del lines.lines[:]
+    BaseModel._apply_updates = record
+    try:
+        model = train_pipeline(root, ["--opt", os.path.join(REPO, "Options", name), *args])
+    finally:
+        BaseModel._apply_updates = orig
+    return model, list(lines.lines), first
+
+
+def _check_validation(tag, res):
+    psnr, ssim = res.get("psnr"), res.get("ssim")
+    if not (np.isfinite(psnr) and np.isfinite(ssim) and -1 <= ssim <= 1):
+        raise AssertionError(f"{tag}: bad validation PSNR / SSIM {res}")
+
+
+def cli_phase(card: str):
+    """The train and test CLIs at full width (phase 6b)."""
+    root = CLI_DIR
+    for sub, n, h, w, seed in (("train", CLI_TRAIN_IMAGES, H, W, 31), ("val", 2, H, W, 32),
+                               ("small", 2, 120, 180, 33)):
+        smoke.write_eval_images(os.path.join(root, sub), n, h, w, seed)
+    data = lambda sub, phase: [  # noqa: E731
+        f"datasets:{phase}:dataroot_gt={os.path.join(root, sub, 'target')}",
+        f"datasets:{phase}:dataroot_lq={os.path.join(root, sub, 'input')}"]
+    lines = _Lines()
+    logging.getLogger("bem_tpu_torch").addHandler(lines)
+    smoke.reset_launch_counts()
+    try:
+        for mt, opt_name in CLI_TRAINERS:
+            short = opt_name.split("_")[0]
+            exp = os.path.join(root, "experiments", f"smoke_{short}")
+            common = ["--device", "cuda", "--force_yml", *data("train", "train"), *data("val", "val"),
+                      f"name=smoke_{short}", "logger:print_freq=1", "logger:save_checkpoint_freq=2",
+                      "val:val_freq=2", "logger:use_tb_logger=false", "logger:wandb:project=~",
+                      "datasets:train:num_worker_per_gpu=2", *SSIM]
+            model, log, _ = _cli_run(opt_name, common + ["train:total_iter=4"], root, lines)
+            losses = [float(m) for line in log for m in re.findall(r"l_total: (\S+)", line)]
+            files = {sub: sorted(os.listdir(os.path.join(exp, sub)))
+                     for sub in ("models", "training_states")}
+            best = [f for f in os.listdir(exp) if f.startswith("best_psnr_")]
+            if not (len(losses) == 4 and np.isfinite(losses).all()):
+                raise AssertionError(f"{mt} CLI: losses {losses}")
+            want = {"models": [f"net_g_{i}.msgpack" for i in (2, 4, 5)],
+                    "training_states": [f"{i}.state" for i in (2, 4, 5)]}
+            if files != want or len(best) != 1 or model.step != 4:
+                raise AssertionError(f"{mt} CLI: files {files} {best}, step {model.step}")
+            _check_validation(f"{mt} CLI", model.metric_results)
+            per_iter = ", ".join(f"{i}: {1e3 * wall:.1f} ({1e3 * data:.1f})"
+                                 for i, _, data, wall in model.timings)
+            in_epoch = model.timings[1:3]  # iter 1 builds and warms up; iter 4 starts epoch 1
+            print(f"{mt} train CLI 4 iters B=8 fp32: losses {[f'{x:.5f}' for x in losses]}; "
+                  f"validation {H}x{W} PSNR {model.metric_results['psnr']:.4f} SSIM "
+                  f"{model.metric_results['ssim']:.4f}; wall ms/step (data_time ms) by iter "
+                  f"{per_iter}; iters 2-3 (in an epoch) mean wall "
+                  f"{1e3 * statistics.mean(t[3] for t in in_epoch):.1f} ms/step, data_time "
+                  f"{1e3 * statistics.mean(t[2] for t in in_epoch):.1f} ms; iter 4 (an epoch's "
+                  f"first batch) {1e3 * model.timings[3][3]:.1f} ms/step, data_time "
+                  f"{1e3 * model.timings[3][2]:.1f} ms; files {files['models']} "
+                  f"{files['training_states']} {best} ({card})", flush=True)
+
+            # take up the last state (5.state, step 4) and go on to 6
+            resumed, log, first = _cli_run(
+                opt_name, common + ["train:total_iter=6", "--auto_resume"], root, lines)
+            step, lr = first["step"], first["lr"]
+            net4 = _leaves(load_params(os.path.join(exp, "models", "net_g_4.msgpack")))
+            start = _leaves(state_dict_to_flax(resumed.net, first["params"]))
+            same = all(np.array_equal(start[k], v) for k, v in net4.items()) and set(start) == set(net4)
+            epoch = 4 // (CLI_TRAIN_IMAGES // 8)
+            resumed_line = any(f"Resuming training from epoch: {epoch}, iter: 4." in x for x in log)
+            lr_want = resumed.lr_schedule(4)
+            print(f"{mt} auto-resume: first step iter {step + 1}, params bit-equal to net_g_4 "
+                  f"{same}, lr {lr:.9e} (iter 5 of an unbroken run {lr_want:.9e}); ends at "
+                  f"iter {resumed.step}, PSNR {resumed.metric_results['psnr']:.4f}", flush=True)
+            if not (step == 4 and same and resumed_line and lr == lr_want and resumed.step == 6
+                    and resumed.optimizer.count == 6):
+                raise AssertionError(f"{mt}: the resumed run did not take up net_g_4 at iter 5")
+            _check_validation(f"{mt} resumed CLI", resumed.metric_results)
+
+            # validation s/img on the trainer the CLI returned (warm)
+            val_opt = dict(parse(os.path.join(REPO, "Options", opt_name))["datasets"]["val"],
+                           dataroot_gt=os.path.join(root, "val", "target"),
+                           dataroot_lq=os.path.join(root, "val", "input"))
+            loader = build_dataloader(build_dataset(val_opt), val_opt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resumed.validation(loader, 6)
+            torch.cuda.synchronize()
+            val_s = (time.perf_counter() - t0) / len(loader.dataset)
+            print(f"{mt} validation {H}x{W} fp32 on the card: {val_s:.4f} s/img ({card})")
+
+            # the test CLI on the last net_g, then card vs CPU on a saved checkpoint
+            last = max(os.listdir(os.path.join(exp, "models")),
+                       key=lambda f: int(re.search(r"(\d+)", f).group(1)))
+            test_opts = _test_options(opt_name, root)
+
+            def run_test(device, sub, ckpt):
+                return test_pipeline(root, ["--opt", test_opts, "--device", device, "--force_yml",
+                                            *data(sub, "val"), f"name=smoke_test_{short}_{sub}_{device}",
+                                            f"path:pretrain_network_g={ckpt}", *SSIM]).metric_results
+
+            tested = run_test("cuda", "val", os.path.join(exp, "models", last))
+            dpsnr = abs(tested["psnr"] - resumed.metric_results["psnr"])
+            print(f"{mt} test CLI on {last}: PSNR {tested['psnr']:.6f}, the train CLI's last "
+                  f"validation {resumed.metric_results['psnr']:.6f} (diff {dpsnr:.2e}, tol 5e-5)")
+            if not dpsnr <= 5e-5:
+                raise AssertionError(f"{mt}: the test CLI does not give the last validation's PSNR")
+            sub = "small" if mt == "ImageEnhancer" else "val"
+            ckpt = os.path.join(exp, "models", "net_g_4.msgpack")
+            g, c = run_test("cuda", sub, ckpt), run_test("cpu", sub, ckpt)
+            dp, ds = abs(g["psnr"] - c["psnr"]), abs(g["ssim"] - c["ssim"])
+            size = "120x180" if sub == "small" else f"{H}x{W}"
+            print(f"{mt} validation of net_g_4 at {size}, card vs CPU: PSNR {g['psnr']:.6f} / "
+                  f"{c['psnr']:.6f} (diff {dp:.2e}, tol 0.01 dB), SSIM {g['ssim']:.6f} / "
+                  f"{c['ssim']:.6f} (diff {ds:.2e}, tol 1e-4)", flush=True)
+            if not (dp <= 0.01 and ds <= 1e-4):  # NaN fails
+                raise AssertionError(f"{mt}: validation on the card disagrees with the CPU")
+            torch.cuda.empty_cache()
+
+        # the device prefetcher: the host loader's batches, on the card
+        host, dev = CPUPrefetcher(loader), DevicePrefetcher(loader)
+        n = 0
+        while (hb := host.next()) is not None:
+            db = dev.next()
+            for k, v in hb.items():
+                if isinstance(v, np.ndarray) and not (db[k].is_cuda and np.array_equal(
+                        db[k].cpu().numpy(), v)):
+                    raise AssertionError(f"DevicePrefetcher batch {n} {k} differs")
+            n += 1
+        if n != len(loader) or dev.next() is not None:
+            raise AssertionError("DevicePrefetcher yields another number of batches")
+        print(f"DevicePrefetcher: {n} batches equal to the host loader's, on the card")
+    finally:
+        logging.getLogger("bem_tpu_torch").removeHandler(lines)
+    counts = smoke.launch_counts()
+    print(f"launches over the CLI phase: {counts}")
+    if min(counts[k] for k in smoke.BEM_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the training path never launched in the CLIs: {counts}")
+    return counts
 
 
 def serve(card: str):
@@ -771,6 +987,11 @@ def main() -> int:
     train_reference_check()
     phase("training")
     train_counts = train_phase(card)
+    phase("train and test CLIs at full width")
+    try:
+        cli_counts = cli_phase(card)
+    finally:
+        shutil.rmtree(CLI_DIR, ignore_errors=True)
     phase("serving pipeline")
     serve_counts = serve(card)
     os.makedirs(EVAL_DIR, exist_ok=True)
@@ -801,11 +1022,12 @@ def main() -> int:
     phase("microbenchmarks")
     mb_counts = microbench_phase()
     # each kernel's launches over the runs of its own paths: the BEM kernels
-    # over the serving, eval and training runs, the fused core and its backward
+    # over the training, train / test CLI, serving and eval runs, the fused core and its backward
     # over VMamba-T's, the clamped form over the narrow reference runs,
     # selective_scan_fused over VMamba-T v052d's, the microbenchmarks over
     # their sweeps
-    paths = {name: (train_counts, serve_counts, eval_counts) for name in smoke.BEM_KERNELS}
+    paths = {name: (train_counts, cli_counts, serve_counts, eval_counts)
+             for name in smoke.BEM_KERNELS}
     paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts),
                  ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts),
                  ss2d_dir_fused_g=(cls_ref_counts,),
