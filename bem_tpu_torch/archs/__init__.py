@@ -7,9 +7,10 @@ from copy import deepcopy
 import torch
 
 from ..nn.init import initialize
+from .decomp_archs import DECOMP_ARCHS
 from .unet_arch import BasicBlock, Network, SubNetwork
 
-_ARCHS = {"Network": Network}
+_ARCHS = {"Network": Network, **DECOMP_ARCHS}
 
 
 def build_network(opt: dict, gen: torch.Generator = None):

@@ -1,4 +1,6 @@
-"""U-Net building blocks, NCHW: counterpart of bem_tpu/archs/arch_util.py."""
+"""U-Net building blocks, NCHW: counterpart of bem_tpu/archs/arch_util.py
+(PatchMerging, DualUpSample; the Decomp family's CrossFusionBlock, SEBlock,
+SpatialAttention)."""
 
 from __future__ import annotations
 
@@ -85,3 +87,44 @@ class DualUpSample(nn.Module):
         xp = self.up_p_conv2(pixel_shuffle_cf(p, 2))
         xb = self.up_b_conv2(_upsample2(b))
         return self.conv(torch.cat([xp, xb], dim=1))
+
+
+class CrossFusionBlock(nn.Module):
+    """x_tgt + gate * 1x1(x_src), ``gate`` (C,) ones at init."""
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        self.gate = nn.Parameter(torch.empty(in_channels))
+        self.transform = Conv2d(in_channels, in_channels, 1)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen):
+        self.gate.fill_(1.0)
+
+    def forward(self, x_src, x_tgt):
+        return x_tgt + self.gate.to(x_tgt.dtype)[:, None, None] * self.transform(x_src)
+
+
+class SEBlock(nn.Module):
+    """Squeeze-excitation channel attention."""
+
+    def __init__(self, channel: int, reduction: int = 16):
+        super().__init__()
+        self.fc1 = Conv2d(channel, channel // reduction, 1, bias=False)
+        self.fc2 = Conv2d(channel // reduction, channel, 1, bias=False)
+
+    def forward(self, x):
+        y = self.fc2(F.relu(self.fc1(x.mean(dim=(2, 3), keepdim=True))))
+        return x * torch.sigmoid(y)
+
+
+class SpatialAttention(nn.Module):
+    """Channel mean / max pooled spatial attention."""
+
+    def __init__(self, kernel_size: int = 7):
+        super().__init__()
+        self.conv = Conv2d(2, 1, kernel_size, padding=kernel_size // 2, bias=False)
+
+    def forward(self, x):
+        pooled = torch.cat([x.mean(dim=1, keepdim=True), x.amax(dim=1, keepdim=True)], dim=1)
+        return x * torch.sigmoid(self.conv(pooled))

@@ -1,14 +1,19 @@
-"""flax params <-> the port's state_dict, for bem_tpu's ``Network`` and ``VSSM``.
+"""flax params <-> the port's state_dict, for bem_tpu's ``Network``, ``VSSM``
+and the Decomp family.
 
 The port's modules carry the flax tree's names, so the map is mechanical:
 a path ``a/b/leaf`` becomes ``a.b.<leaf'>`` with the layout rules of
 bem_tpu/archs/convert_network.py applied in reverse:
 
 - conv ``kernel`` HWIO -> ``weight`` OIHW (depthwise (3,3,1,C) -> (C,1,3,3));
+  a transposed conv's (kh, kw, in, out) kernel by the same rule (the
+  port's ``ConvTranspose2d`` mirrors the taps at use); the QD model2
+  branch's raw ``conv1_kernel`` -> ``conv1_weight``;
 - dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - ``mu_kernel`` / ``rho_kernel`` pairs -> ``mu_weight`` / ``rho_weight``, same rules;
 - LayerNorm ``scale`` and PReLU ``slope`` -> ``weight``;
-- ``mask_token`` (1,1,1,C) -> (1,C,1,1); everything else as it is.
+- ``mask_token`` (1,1,1,C) -> (1,C,1,1); everything else as it is (e.g.
+  CrossFusionBlock's (C,) ``gate``).
 
 Reference PyTorch checkpoints reach the port by composing with
 ``bem_tpu.archs.convert_network.convert_network_state`` (torch -> flax).
@@ -22,7 +27,9 @@ from torch import nn
 
 from .nn.layers import LayerNorm2d, PReLU
 
-_KERNELS = {"kernel": "weight", "mu_kernel": "mu_weight", "rho_kernel": "rho_weight"}
+_KERNELS = {"kernel": "weight", "mu_kernel": "mu_weight", "rho_kernel": "rho_weight",
+            "conv1_kernel": "conv1_weight"}
+_WEIGHTS = {v: k for k, v in _KERNELS.items()}
 
 
 def _to_torch_layout(a: np.ndarray) -> np.ndarray:
@@ -84,8 +91,8 @@ def state_dict_to_flax(module: nn.Module, state=None, subset: bool = False) -> d
             leaf = "scale"
         elif leaf == "weight" and kind is PReLU:
             leaf = "slope"
-        elif leaf in ("weight", "mu_weight", "rho_weight"):
-            leaf, a = leaf.replace("weight", "kernel"), _to_flax_layout(a)
+        elif leaf in _WEIGHTS:
+            leaf, a = _WEIGHTS[leaf], _to_flax_layout(a)
         elif leaf == "mask_token":
             a = a.transpose(0, 2, 3, 1)
         node = tree

@@ -11,9 +11,12 @@ over chunks of candidates), the rest of the wall (reading, scoring and
 selection, writing), and device time by kernel; with the card's name and
 power limit:
 
-    python -m bem_tpu_torch.enhancement.profile_eval [--mode niqe|clip|full]
+    python -m bem_tpu_torch.enhancement.profile_eval [--mode niqe|clip|full] [--flagship]
 
 ``clip`` scores on a seeded ViT-B/32 bundle (``smoke.write_clip_bundle``).
+``--flagship``: the IE is DecompDualBranchDDWavelet, its option file as it
+is, on a net_g of ``smoke.write_flagship_checkpoint`` (seeded, with the
+frozen QD model4).
 The files go to ``results/profile_eval/`` of the checkout, removed at the
 end.
 """
@@ -40,6 +43,8 @@ N_IMAGES = 3
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--mode", default="niqe", choices=sorted(MODES))
+    p.add_argument("--flagship", action="store_true",
+                   help="the flagship (DecompDualBranchDDWavelet) as the IE")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_eval: needs a CUDA device")
@@ -52,8 +57,12 @@ def main(argv=None):
         if args.mode == "clip":
             os.environ["BEM_CLIP_NPZ"] = smoke.write_clip_bundle(
                 os.path.join(root, "clip_vitb32.npz"), seed=0)
-        cli = ["--opt", os.path.join(REPO, "Options", "CG_UNet_LOLv1.yml"),
-               "--cond_opt", os.path.join(REPO, "Options", "IE_UNet_LOLv1.yml"),
+        ie = ["--cond_opt", os.path.join(REPO, "Options", "IE_UNet_LOLv1.yml")]
+        if args.flagship:
+            opt = os.path.join(REPO, "Options", "DecompDualBranch2DDWavelet_4.yml")
+            ie = ["--cond_opt", opt, "--cond_weights", smoke.write_flagship_checkpoint(
+                os.path.join(root, "net_g_flagship.msgpack"), opt)]
+        cli = ["--opt", os.path.join(REPO, "Options", "CG_UNet_LOLv1.yml"), *ie,
                "--input_dir", os.path.join(root, "input"), "--result_dir",
                os.path.join(root, "out"), "--num_samples", "16", "--parallel_num", "8",
                "--device", "cuda", *MODES[args.mode]]
@@ -75,7 +84,8 @@ def main(argv=None):
     span = {e.key: e.device_time_total for e in events
             if e.device_type.name == "CUDA" and e.key.startswith("eval.")}
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-    print(f"{card}: eval {args.mode} 400x600 K=16 parallel_num 8 fp32, per image over {n}: "
+    print(f"{card}: eval {args.mode} 400x600 K=16 parallel_num 8 fp32"
+          f"{', flagship IE' if args.flagship else ''}, per image over {n}: "
           f"{wall_ms:.1f} ms wall, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f} %), idle {100 - 100 * busy_ms / wall_ms:.1f} %")
     host = 0.0

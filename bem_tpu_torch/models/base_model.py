@@ -12,7 +12,13 @@ optimizer reproduces bem_tpu's optax chain (base_model.py:63-111):
 - the clip scales by max_norm / ||g|| only when ||g|| >= max_norm (no
   epsilon, unlike ``torch.nn.utils.clip_grad_norm_``);
 - AdamW decays every parameter, biases and LayerNorm weights included;
-- the learning rate of update k (k = 0, 1, ...) is ``schedule(k)``.
+- the learning rate of update k (k = 0, 1, ...) is ``schedule(k)``;
+- a net with ``frozen_subtrees`` (the Decomp family's ``decomp``) gets
+  ``load_frozen`` when the trainer takes it (bem_tpu's ``init_state``),
+  and the optimizer leaves those parameters alone: no update, no weight
+  decay (bem_tpu's ``multi_transform`` with ``set_to_zero``). Their
+  gradients are 0 (the frozen outputs carry none), so the clip's norm is
+  the one over the trained parameters; Adam's moments of them stay 0.
 
 Checkpoints are bem_tpu's files (base_model.py:219-321): ``net_g_<iter>.msgpack``
 and ``<iter>.state`` in flax's layout, through ``convert.py``'s per-leaf
@@ -49,8 +55,9 @@ class AdamWChain:
 
     def __init__(self, params: Dict[str, torch.Tensor], schedule, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
-                 max_norm: float = 0.0):
+                 max_norm: float = 0.0, frozen=()):
         self.schedule = schedule
+        self.frozen = frozenset(frozen)  # names of parameters left as they are
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.max_norm = max_norm
@@ -71,6 +78,8 @@ class AdamWChain:
         bc1 = 1.0 - self.b1 ** self.count
         bc2 = 1.0 - self.b2 ** self.count
         for k, p in params.items():
+            if k in self.frozen:
+                continue
             g = grads[k]
             mu = self.mu[k].mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             nu = self.nu[k].mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
@@ -99,6 +108,8 @@ class BaseModel:
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         if net is None:
             net = build_network(opt["network_g"], torch.Generator().manual_seed(seed))
+        if hasattr(net, "load_frozen"):
+            net.load_frozen()
         self.net = net.to(self.device)
         self.params = dict(self.net.named_parameters())
         self.step = 0
@@ -122,8 +133,11 @@ class BaseModel:
         sched_opt = train_opt.get("scheduler")
         schedule = build_schedule(base_lr, sched_opt) if sched_opt else (lambda step: base_lr)
         self.lr_schedule = with_warmup(schedule, train_opt.get("warmup_iter", -1), base_lr)
+        frozen = self.net.frozen_subtrees() if hasattr(self.net, "frozen_subtrees") else ()
+        prefixes = tuple(p + "." for p in frozen)
         self.optimizer = AdamWChain(self.params, self.lr_schedule, betas[0], betas[1],
-                                    weight_decay=wd, max_norm=train_opt.get("max_grad_norm", 0))
+                                    weight_decay=wd, max_norm=train_opt.get("max_grad_norm", 0),
+                                    frozen=[k for k in self.params if k.startswith(prefixes)])
         self.ema_decay = train_opt.get("ema_decay", 0)
         if self.ema_decay > 0:
             self.ema_params = {k: p.detach().clone() for k, p in self.params.items()}

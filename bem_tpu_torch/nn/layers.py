@@ -103,6 +103,12 @@ class Conv2d(BayesLayer):
     def reset_parameters(self, gen):
         if self.weight_init == "kaiming_normal_fan_out":
             self._init("weight", lambda t: init.kaiming_normal_(t, self.fan_out, 1.0, gen))
+        elif self.weight_init == "kaiming_normal_fan_in":
+            self._init("weight", lambda t: init.kaiming_normal_(t, self.fan_in, 1.0, gen))
+        elif self.weight_init == "laplacian":
+            # the QD sharpening conv: the Laplacian on every channel pair / C
+            lap = torch.tensor([[0., -1., 0.], [-1., 4., -1.], [0., -1., 0.]])
+            self._init("weight", lambda t: t.copy_((lap / t.shape[0]).expand(t.shape)))
         else:
             self._init("weight", lambda t: init.torch_default_(t, self.fan_in, gen))
         if self.value("bias") is not None:
@@ -115,6 +121,33 @@ class Conv2d(BayesLayer):
         w, b = self.weights()
         return F.conv2d(x, w.to(x.dtype), None if b is None else b.to(x.dtype),
                         self.stride, self.padding, 1, self.groups)
+
+
+class ConvTranspose2d(nn.Module):
+    """Transposed conv with kernel == stride (bem_tpu ConvTranspose2d, the
+    Decomp family's k2 s2 up-sampling), NCHW.
+
+    ``weight`` is (out, in, kh, kw) in the flax kernel's tap order: the
+    layout the conv rule of ``bem_tpu_torch.convert`` gives the flax
+    (kh, kw, in, out) kernel. ``lax.conv_transpose`` (no
+    ``transpose_kernel``) places the taps mirrored against torch's
+    ``conv_transpose2d``, so the forward mirrors them and swaps in / out:
+    torch's weight is ``kernel[::-1, ::-1].transpose(2, 3, 0, 1)``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 2):
+        super().__init__()
+        self.stride = kernel_size
+        self.fan_in = in_ch * kernel_size * kernel_size
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel_size, kernel_size))
+        self.bias = nn.Parameter(torch.empty(out_ch))
+
+    def reset_parameters(self, gen):
+        init.torch_default_(self.weight, self.fan_in, gen)
+        init.torch_default_(self.bias, self.fan_in, gen)
+
+    def forward(self, x):
+        w = self.weight.flip(2, 3).transpose(0, 1).to(x.dtype)
+        return F.conv_transpose2d(x, w, self.bias.to(x.dtype), self.stride)
 
 
 class Dense(BayesLayer):

@@ -113,9 +113,11 @@ PLAIN_SLICE = 4
 # linear_scan's carries on the serving path, (label, M, L, D): the row and
 # column pairs' carry over (B, chunks, C*N) at IE-L0 B=32 (32-position row
 # chunks of 448x640, 14 column chunks of 640 columns) and the CG's at
-# 28x40 B=2 (35 row chunks)
+# 28x40 B=2 (35 row chunks); the eval CLI's (B=8, B=1) and the flagship's
+# top level (224x320 B=8: 2240 row chunks, 7 column chunks of 320 columns)
 SERVE_SCAN_SHAPES = [("IE-L0 carry B=32", 32, 8960, 40), ("CG-L0 carry 28x40", 2, 35, 40),
-                     ("eval IE-L0 carry B=8", 8, 8960, 40), ("eval CG-L0 carry B=1", 1, 35, 40)]
+                     ("eval IE-L0 carry B=8", 8, 8960, 40), ("eval CG-L0 carry B=1", 1, 35, 40),
+                     ("flagship L0 carry B=8", 8, 2240, 40)]
 # the eval CLI's network on the fp32 stream: the IE on parallel_num = 8
 # candidates at a time, the CG on one weight sample at a time (K forwards)
 EVAL_SHAPES = [("eval IE-L0 448x640 C40 B=8", 8, 40, 448, 640),
@@ -124,6 +126,12 @@ EVAL_SHAPES = [("eval IE-L0 448x640 C40 B=8", 8, 40, 448, 640),
                ("eval CG-L0 28x40 C40 B=1", 1, 40, 28, 40),
                ("eval CG-L1 14x20 C80 B=1", 1, 80, 14, 20),
                ("eval CG-L2 7x10 C160 B=1", 1, 160, 7, 10)]
+# the flagship (DecompDualBranchDDWavelet) as the eval CLI's IE, fp32: its
+# two branches and shared bottleneck run at half the 448x640 padded input,
+# on parallel_num = 8 candidates at a time
+FLAGSHIP_SHAPES = [("flagship L0 224x320 C40 B=8", 8, 40, 224, 320),
+                   ("flagship L1 112x160 C80 B=8", 8, 80, 112, 160),
+                   ("flagship L2 56x80 C160 B=8", 8, 160, 56, 80)]
 # (label, B, d_inner, H, W, dt rank, d_state): the SS2D cores of the VMamba-T
 # classifier's four stages (dims 96 / 192 / 384 / 768, ssm_ratio 2) at
 # 224x224, two images each
@@ -190,8 +198,9 @@ GRAD_TOL = 1e-4  # of each gradient's largest entry: two fp32 orders of summatio
 # kernels whose every output must be bit-identical over two launches (each
 # cross-block sum is an ordered pass, or, linear_scan's look-back, folds
 # its predecessors in a fixed order; the gdMlp's hidden-split partials are
-# added in split order)
-BIT_EXACT = ("ss2d_dir_fused_bwd", "linear_scan", "gdmlp_fused_cf", "stem_fused_cf")
+# added in split order; vpu_scan_step has no cross-thread sum at all)
+BIT_EXACT = ("ss2d_dir_fused_bwd", "linear_scan", "gdmlp_fused_cf", "stem_fused_cf",
+             "vpu_scan_step")
 
 
 @dataclass
@@ -914,8 +923,9 @@ def _microbench_cases(small, device):
 def kernel_cases(small: bool = False, device="cuda"):
     """Every kernel at every serving, training and classifier shape, fp32 and
     bf16, rows 1-6 at the serving batch (bf16; row 3 in its path form),
-    rows 1-7 at the eval CLI's shapes (fp32), linear_scan at the serving
-    and eval carries, and the microbenchmarks
+    rows 1-7 at the eval CLI's and the flagship's shapes (fp32),
+    linear_scan at the serving, eval and flagship carries, and the
+    microbenchmarks
     at the tool's shapes; or at tiny shapes (``small``)."""
     shapes = SMALL_SHAPES if small else PATH_SHAPES + TRAIN_SHAPES
     out = []
@@ -931,7 +941,7 @@ def kernel_cases(small: bool = False, device="cuda"):
             out.append(_serve_stem_case(*shape, device, seed=720 + i))
         for i, shape in enumerate(SERVE_SHAPES + SERVE_STEM_SHAPES):
             out.append(_serve_tail_case(*shape, device, seed=740 + i))
-        for i, shape in enumerate(EVAL_SHAPES):
+        for i, shape in enumerate(EVAL_SHAPES + FLAGSHIP_SHAPES):
             out += _eval_cases(*shape, device, seed=780 + i)
         out += _carry_cases(device)
     for i, shape in enumerate(SMALL_CLS_SHAPES if small else CLS_SHAPES):
@@ -1138,8 +1148,12 @@ def work(case: Case):
         # state: dt*A, exp, du*B (3), the step's FMA and the readout's (4)
         N = a[2].shape[-1]
         return io, 0, a[0].numel() * (9 + 7 * N)
-    if case.name == "vpu_scan_step":  # per round: two selects, an FMA, a multiply
-        return io, 0, a[0].numel() * (5 * a[1] + 2)
+    if case.name == "vpu_scan_step":
+        # per round and segment: an FMA (2) and a multiply on each of the
+        # 32 - sh lanes the roll reaches (the masked lanes keep a and b);
+        # b = x / 2 and the final a + b on every element
+        lanes = sum(32 - (1 << (r % 5)) for r in range(a[1]))
+        return io, 0, a[0].numel() // 32 * 3 * lanes + 2 * a[0].numel()
     if case.name == "vpu_op_rounds":  # per round: arith FMA + mul; exp mul, exp,
         # FMA; softplus mul, max / abs / exp / log1p / add, FMA; roll FMA
         per = {"arith": 3, "exp": 4, "softplus": 8, "roll": 2}[a[1]]
@@ -1375,3 +1389,20 @@ def write_eval_images(root, n: int, h: int, w: int, seed: int):
         imwrite((gt * 255).round().astype(np.uint8), os.path.join(root, "target", f"{i}.png"))
         imwrite((gt * 0.3 * 255).round().astype(np.uint8),
                 os.path.join(root, "input", f"{i}.png"))
+
+
+def write_flagship_checkpoint(path: str, opt_path: str) -> str:
+    """A ``net_g`` file of the net of ``opt_path`` (the flagship's options):
+    the seeded init from its ``manual_seed``, then ``load_frozen`` of its QD
+    decomposition, written by the port's ``save_params``. Returns ``path``."""
+    from .archs import build_network
+    from .convert import state_dict_to_flax
+    from .utils.checkpoint import save_params
+    from .utils.options import parse
+
+    opt = parse(opt_path, is_train=False)
+    net = build_network(opt["network_g"],
+                        torch.Generator().manual_seed(int(opt.get("manual_seed") or 0)))
+    net.load_frozen()
+    save_params(path, state_dict_to_flax(net))
+    return path

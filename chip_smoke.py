@@ -22,11 +22,13 @@ result line):
      (merged, with the residual, bf16) at the serving batch B=32 at
      IE-L0 / L1 / L2, and linear_scan at the serving path's carries (the
      IE-L0 row / column carry at B=32 and the CG's), forward and reverse,
-     each with its bound; rows 1-7 at the eval CLI's shapes on the fp32
-     stream (the IE levels at B=8, the CG's at B=1, the plain versions on
+     each with its bound; rows 1-7 at the eval CLI's and the flagship's
+     shapes on the fp32 stream (the IE levels at B=8, the flagship's
+     branch levels 224x320 / 112x160 / 56x80 at B=8, the CG's at B=1,
+     the plain versions on
      slices of 4 images, no column probe at the CG's 7 rows; the stem's
      and the gdMlp's lines name the form that ran) and
-     linear_scan at its carries (IE-L0 B=8, CG-L0 B=1), each with its
+     linear_scan at its carries (IE-L0 B=8, CG-L0 B=1, flagship L0 B=8), each with its
      bound; every linear_scan, stem and gdMlp case launched twice, its
      outputs bit-identical; then the stem, the row pair, the gdMlp, the
      column pair, the fused core's backward, selective_scan_fused,
@@ -88,6 +90,17 @@ result line):
      modes; each mode's steady-state s/img, with TF32 at PyTorch's
      defaults (cuDNN convolutions in TF32, matmuls not), as a user runs
      the CLI; every kernel of phases 6-7 must launch;
+  9b. the flagship, DecompDualBranchDDWavelet, from its option file as it
+     is (n_feat 40, blocks (2,2,2), gdMlp, QD model4): a net_g written by
+     the port (seeded init, then load_frozen of model4); its forward on a
+     2x128x192 input on the card vs the CPU (TF32 off, 2e-4 of max(1,
+     |plain|)); the eval CLI with it as the IE (--cond_weights) on one
+     112x176 image, card vs CPU (noise 0, --deterministic, K=2, niqe: the
+     same pick, the PNG within 1 LSB); the eval CLI at 400x600, K=16,
+     parallel_num 8, niqe on three seeded PNGs with TF32 at PyTorch's
+     defaults (s/img) and the IE's forward at batch 8 on 448x640 (ms);
+     the test CLI on two 400x600 validation images (PSNR / SSIM); every
+     kernel of rows 1-7 must launch over the phase;
  10. the VMamba classifier (VSSM, forward_type v2) at narrow width (embed
      16, depths (1,1), d_state 16, 32x32), fp32: logits and one train step
      on the card vs the CPU at B=1 (the fused core) and B=2 (its clamped
@@ -124,7 +137,8 @@ every 32-position chunk, which the backward reads) are held against
 streams, clamped and not, each (image, stream, direction, channel) row
 over its chunks and states against its own largest entry, and must fail
 against the other clamp setting. The two microbenchmark kernels are held
-against their plain versions at every point of the tool's sweeps. The gradients' phase
+against their plain versions at every point of the tool's sweeps, and
+vpu_scan_step must give the same bits over two launches. The gradients' phase
 holds the autograd wrappers. The line before the last is the per-kernel
 JSON summary, the one before it the card's name and power limit; the last
 line is {"ok": true, ...}. Imports nothing of JAX or of bem_tpu.
@@ -149,7 +163,7 @@ import torch
 
 from bem_tpu_torch import _build, smoke
 from bem_tpu_torch.archs import build_network
-from bem_tpu_torch.convert import state_dict_to_flax
+from bem_tpu_torch.convert import load_flax_params, state_dict_to_flax
 from bem_tpu_torch.classification import build_model_from_config, get_config, make_trainer
 from bem_tpu_torch.classification import synthetic_batch as cls_batch
 from bem_tpu_torch.classification import throughput
@@ -188,6 +202,9 @@ SSIM = ["val:metrics:ssim:type=calculate_ssim", "val:metrics:ssim:crop_border=0"
 EVAL_MODES = {"full reference": ["--GT_mean", "--Monte_Carlo"], "niqe": ["--no_ref", "niqe"],
               "clip": ["--no_ref", "clip"]}
 IMAGENET_TRAIN = 1281167  # images per epoch of the harness's schedule
+FLAGSHIP_OPTION = "DecompDualBranch2DDWavelet_4.yml"
+FLAGSHIP_DIR = os.path.join(REPO, "results", "chip_smoke_flagship")  # gitignored, removed at the end
+FLAGSHIP_TIMED = 3  # IE forwards timed at batch 8, after one warm-up
 
 
 def phase(name):
@@ -449,7 +466,7 @@ def _test_options(name, root):
     on every dataset it is given."""
     with open(os.path.join(REPO, "Options", name)) as f:
         text = f.read()
-    cut = re.sub(r"  train:\n(    .*\n)+", "", text)
+    cut = re.sub(r"  train:\n(?:(?:    .*)?\n)+", "", text)  # its lines, blank ones too
     if cut == text:
         raise AssertionError(f"{name}: no train dataset block to remove")
     path = os.path.join(root, "test_" + name)
@@ -651,15 +668,15 @@ def serve(card: str):
     return counts
 
 
-def _eval_files(root, n, h, w, seed, noise_level=None):
+def _eval_files(root, n, h, w, seed, noise_level=None, options=EVAL_OPTIONS):
     """n seeded low-light inputs with their targets (``smoke.write_eval_images``)
-    and the LOLv1 option files, copied with ``noise_level`` where given.
-    Returns the two option paths."""
+    and the option files (the CG's, the IE's; LOLv1's by default), copied
+    with ``noise_level`` where given. Returns the two option paths."""
     smoke.write_eval_images(root, n, h, w, seed)
     if noise_level is None:
-        return [os.path.join(REPO, "Options", name) for name in EVAL_OPTIONS]
+        return [os.path.join(REPO, "Options", name) for name in options]
     paths = []
-    for name in EVAL_OPTIONS:
+    for name in options:
         with open(os.path.join(REPO, "Options", name)) as f:
             text = f.read()
         if "noise_level: 0.1" not in text:
@@ -751,6 +768,103 @@ def eval_phase(card: str):
     print(f"launches over the eval phase: {counts}")
     if min(counts[k] for k in smoke.BEM_KERNELS) <= 0:
         raise AssertionError(f"a kernel of the eval path never launched: {counts}")
+    return counts
+
+
+def flagship_phase(card: str):
+    """The flagship, DecompDualBranchDDWavelet (its option file as it is),
+    through the eval and test CLIs at full width (phase 9b)."""
+    root = FLAGSHIP_DIR
+    opt_path = os.path.join(REPO, "Options", FLAGSHIP_OPTION)
+    os.makedirs(root, exist_ok=True)
+    ckpt = smoke.write_flagship_checkpoint(os.path.join(root, "net_g_flagship.msgpack"), opt_path)
+    net_opt = parse(opt_path, is_train=False)["network_g"]
+    smoke.reset_launch_counts()
+
+    # card vs CPU (TF32 off): the forward on a small padded image, then the eval CLI
+    x = torch.from_numpy(np.random.default_rng(41).random((2, 128, 192, 6), np.float32))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        net = load_flax_params(build_network(net_opt), load_params(ckpt)).to(dev).eval()
+        with torch.inference_mode():
+            outs[dev] = net(x.to(dev))[-1].float().cpu()
+        del net
+    ref = outs["cpu"]
+    err = (outs["cuda"] - ref).abs().max().item()
+    tol = 2e-4 * max(1.0, ref.abs().max().item())
+    print(f"flagship forward 2x128x192 fp32, card vs CPU: max_abs_err {err:.3e} (tol "
+          f"{tol:.3e}), output {tuple(outs['cuda'].shape)}", flush=True)
+    if not (outs["cuda"].shape == (2, 128, 192, 3) and err <= tol):  # NaN fails
+        raise AssertionError("the flagship forward on the card disagrees with the CPU")
+    small = os.path.join(root, "eval_small")
+    opts = _eval_files(small, 1, 112, 176, seed=42, noise_level=0,
+                       options=(EVAL_OPTIONS[0], FLAGSHIP_OPTION))
+    res = {dev: eval_main(_eval_args(opts, small, f"niqe_{dev}", "niqe", dev, 2, 2,
+                                     ["--deterministic", "--cond_weights", ckpt]))
+           for dev in ("cuda", "cpu")}
+    written = {dev: imread(os.path.join(small, f"niqe_{dev}", "dataset", "0.png"),
+                           float32=False).astype(int) for dev in res}
+    lsb = int(np.abs(written["cuda"] - written["cpu"]).max())
+    print(f"flagship eval CLI 112x176 K=2 niqe, card vs CPU: selected card "
+          f"{res['cuda']['selected']} cpu {res['cpu']['selected']}; written image max LSB "
+          f"{lsb} (tol 1); NIQE card {res['cuda']['niqe']:.4f} cpu {res['cpu']['niqe']:.4f}",
+          flush=True)
+    if not (res["cuda"]["selected"] == res["cpu"]["selected"] and lsb <= 1):
+        raise AssertionError("the flagship eval CLI on the card disagrees with the CPU")
+    torch.cuda.empty_cache()
+
+    # the eval CLI at full width, and the IE's forward at batch 8, TF32 at PyTorch's defaults
+    with torch_tf32_defaults():
+        full = os.path.join(root, "eval_full")
+        opts = _eval_files(full, 3, H, W, seed=43, options=(EVAL_OPTIONS[0], FLAGSHIP_OPTION))
+        res = eval_main(_eval_args(opts, full, "niqe", "niqe", "cuda", K, 8,
+                                   ["--cond_weights", ckpt]))
+        scores = [v for s in res["scores"] for v in s]
+        if not (all(0 <= i < K for i in res["selected"]) and len(scores) == 3 * K
+                and np.isfinite(scores).all() and res["steady_s_per_img"]):
+            raise AssertionError(f"flagship eval: bad result {res}")
+        for i in range(3):
+            out = imread(os.path.join(full, "niqe", "dataset", f"{i}.png"))
+            if out.shape != (H, W, 3):
+                raise AssertionError(f"flagship eval: output {i} has shape {out.shape}")
+        net = load_flax_params(build_network(net_opt), load_params(ckpt)).to("cuda").eval()
+        hp, wp = padded_size(H, W)
+        xb = torch.rand((8, hp, wp, 6), generator=torch.Generator().manual_seed(45)).cuda()
+        times = []
+        with torch.inference_mode():
+            for i in range(1 + FLAGSHIP_TIMED):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y = net(xb)[-1]
+                torch.cuda.synchronize()
+                if i:
+                    times.append(time.perf_counter() - t0)
+        if not (y.shape == (8, hp, wp, 3) and torch.isfinite(y).all()):
+            raise AssertionError(f"flagship IE forward: bad output {tuple(y.shape)}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del net, xb, y
+    print(f"flagship eval CLI K={K} parallel_num 8 {H}x{W} -> {hp}x{wp} niqe fp32, TF32 "
+          f"defaults: steady-state {res['steady_s_per_img']:.4f} s/img (median of images "
+          f"2-3), selected {res['selected']}, mean NIQE {res['niqe']:.4f}; IE forward B=8 "
+          f"{hp}x{wp}: median {1e3 * statistics.median(times):.1f} ms over {FLAGSHIP_TIMED} "
+          f"({[round(1e3 * t, 1) for t in times]}), peak memory {peak:.2f} GiB ({card})",
+          flush=True)
+    torch.cuda.empty_cache()
+
+    # the test CLI on two validation images at 400x600
+    smoke.write_eval_images(os.path.join(root, "val"), 2, H, W, seed=44)
+    tested = test_pipeline(root, [
+        "--opt", _test_options(FLAGSHIP_OPTION, root), "--device", "cuda", "--force_yml",
+        f"datasets:val:dataroot_gt={os.path.join(root, 'val', 'target')}",
+        f"datasets:val:dataroot_lq={os.path.join(root, 'val', 'input')}",
+        "name=smoke_flagship_test", f"path:pretrain_network_g={ckpt}"]).metric_results
+    _check_validation("flagship test CLI", tested)
+    print(f"flagship test CLI on 2 images {H}x{W}: PSNR {tested['psnr']:.4f} SSIM "
+          f"{tested['ssim']:.4f} ({card})", flush=True)
+    counts = smoke.launch_counts()
+    print(f"launches over the flagship phase: {counts}")
+    if min(counts[k] for k in smoke.BEM_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the flagship path never launched: {counts}")
     return counts
 
 
@@ -1005,6 +1119,11 @@ def main() -> int:
             eval_counts = eval_phase(card)
     finally:
         shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    phase("flagship at full width")
+    try:
+        flagship_counts = flagship_phase(card)
+    finally:
+        shutil.rmtree(FLAGSHIP_DIR, ignore_errors=True)
     phase("classifier reference checks")
     cls_ref_counts = cls_reference_check()
     phase("classifier training")
@@ -1022,11 +1141,11 @@ def main() -> int:
     phase("microbenchmarks")
     mb_counts = microbench_phase()
     # each kernel's launches over the runs of its own paths: the BEM kernels
-    # over the training, train / test CLI, serving and eval runs, the fused core and its backward
+    # over the training, train / test CLI, serving, eval and flagship runs, the fused core and its backward
     # over VMamba-T's, the clamped form over the narrow reference runs,
     # selective_scan_fused over VMamba-T v052d's, the microbenchmarks over
     # their sweeps
-    paths = {name: (train_counts, cli_counts, serve_counts, eval_counts)
+    paths = {name: (train_counts, cli_counts, serve_counts, eval_counts, flagship_counts)
              for name in smoke.BEM_KERNELS}
     paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts),
                  ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts),

@@ -31,6 +31,7 @@ from bem_tpu_torch.models import build_model
 from bem_tpu_torch.utils import checkpoint as pck
 
 from test_trainers import make_batch, make_opt
+from test_torch_cpu_setup import quick_compile  # noqa: F401  (module fixtures)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -40,6 +40,7 @@ from bem_tpu_torch.convert import state_dict_to_flax
 from bem_tpu_torch.nn.layers import drop_path
 
 from test_torch_train import _flat
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
 
 LR = 1e-3
 REPO = Path(__file__).resolve().parents[1]

@@ -17,6 +17,8 @@ from bem_tpu_torch.enhancement.clip import (CLIPVisionTower, clip_iqa_score_fn, 
                                             load_clip_iqa_npz, load_flax_tree, preprocess)
 from bem_tpu_torch.enhancement.clip_iqa import ClipIQA
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 TINY = dict(width=48, layers=3, patch=16, image_size=64, proj_dim=24, mlp_dim=96)
 HEADS = 4
 PROMPTS = ("brightness", "noisiness", "quality")

@@ -26,6 +26,7 @@ from bem_tpu_torch.ops.ss2d_seq import (_pick_col_rows, col_pair_supported, ss2d
                                         ss2d_seq_pair)
 
 from test_torch_ops import SCAN_KEYS, scan_weights
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
 
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}

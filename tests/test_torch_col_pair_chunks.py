@@ -39,6 +39,8 @@ from bem_tpu_torch.ops import ss2d_seq as seq
 from bem_tpu_torch.ops.scan import linear_scan_plain
 from bem_tpu_torch.smoke import TOL
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 

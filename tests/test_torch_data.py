@@ -32,6 +32,8 @@ from bem_tpu_torch.data import DataLoader, EnlargedSampler, build_dataloader, bu
 from bem_tpu_torch.data import transforms as pt
 from bem_tpu_torch.utils.img_util import downsample, imfrombytes, padding, tensor2img
 
+from test_torch_cpu_setup import quick_compile  # noqa: F401  (module fixtures)
+
 # (name, H, W, extension): an image smaller than GT_SIZE is padded first
 IMAGES = [("a", 40, 56, ".png"), ("b", 20, 27, ".bmp"), ("c", 48, 48, ".png")]
 GT_SIZE = 32

@@ -28,6 +28,7 @@ from bem_tpu.enhancement.eval import main as jax_main
 from bem_tpu_torch.enhancement.eval import main
 
 from test_eval_cli import CG_YML, IE_YML
+from test_torch_cpu_setup import quick_compile  # noqa: F401  (module fixtures)
 
 
 @pytest.fixture(scope="module", autouse=True)

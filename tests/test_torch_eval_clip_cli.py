@@ -18,6 +18,7 @@ from bem_tpu_torch.enhancement.clip_iqa import ClipIQA
 from bem_tpu_torch.enhancement.eval import main
 
 from test_torch_eval_cli import _args, env, one_torch_thread  # noqa: F401  (fixtures)
+from test_torch_cpu_setup import quick_compile  # noqa: F401  (module fixtures)
 
 
 @pytest.fixture(scope="module")

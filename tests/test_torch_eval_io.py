@@ -32,6 +32,7 @@ from bem_tpu_torch.utils.img_util import imread, imwrite
 from bem_tpu_torch.utils.options import parse, yaml_load
 
 from test_eval_cli import CG_YML, IE_YML
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 OPTIONS = sorted(glob.glob(os.path.join(ROOT, "Options", "*.yml")))

@@ -26,6 +26,7 @@ from bem_tpu_torch.enhancement.eval import make_k_pipeline
 from bem_tpu_torch.metrics.psnr_ssim import calculate_psnr
 
 from test_torch_eval_cli import one_torch_thread  # noqa: F401  (an autouse fixture)
+from test_torch_cpu_setup import quick_compile  # noqa: F401  (module fixtures)
 
 K, P, NOISE = 4, 3, 0.1
 H, W = 64, 128

@@ -17,6 +17,8 @@ from bem_tpu_torch.enhancement.lpips import LPIPS
 from bem_tpu_torch.metrics.psnr_ssim import calculate_psnr, calculate_ssim
 from bem_tpu_torch.utils.histogram import histogram_condition
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 _ALEX = [(64, 3, 11), (192, 64, 5), (384, 192, 3), (256, 384, 3), (256, 256, 3)]
 
 

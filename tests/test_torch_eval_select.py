@@ -39,6 +39,7 @@ from bem_tpu_torch.nn.layers import sample_bayes
 
 from test_torch_eval_cli import _result_lines, env, one_torch_thread  # noqa: F401  (fixtures)
 from test_torch_eval_clip_cli import clip_npz  # noqa: F401  (a fixture)
+from test_torch_cpu_setup import quick_compile  # noqa: F401  (module fixtures)
 
 K, P, SEED, NIMG = 4, 2, 3, 2
 CFG = dict(type="Network", out_channels=3, n_feat=8, num_blocks=(1, 1), d_state=(1, 1),
@@ -84,21 +85,22 @@ def _args(root, out, inputs, extra):
     return args
 
 
-def _inject(monkeypatch):
-    """Seeded eps for NIMG * K samples, injected into both CLIs."""
+def _inject(monkeypatch, k_samples=K, nimg=NIMG, seed=SEED):
+    """Seeded eps for nimg * k_samples samples (main's ``--num_samples``
+    and ``--seed``), injected into both CLIs."""
     cg = build_network(CFG, torch.Generator().manual_seed(0))
     rng = np.random.default_rng(17)
     eps = [{k: torch.from_numpy(rng.standard_normal(tuple(p.shape)).astype(np.float32))
             for k, p in cg.named_parameters() if k.rpartition(".")[2].startswith("mu_")}
-           for _ in range(NIMG * K)]
+           for _ in range(nimg * k_samples)]
     eps_tree = jax.tree_util.tree_map(lambda *a: np.stack(a),
                                       *[state_dict_to_flax(cg, e) for e in eps])
     # the sample keys of bem_tpu's main: per image key, sub = split(key), then
     # split(sub, K + 1)[1:] (make_k_pipeline's cg_samples)
-    key, sample_keys = jax.random.PRNGKey(SEED), []
-    for _ in range(NIMG):
+    key, sample_keys = jax.random.PRNGKey(seed), []
+    for _ in range(nimg):
         key, sub = jax.random.split(key)
-        sample_keys.append(jax.random.key_data(jax.random.split(sub, K + 1)[1:]))
+        sample_keys.append(jax.random.key_data(jax.random.split(sub, k_samples + 1)[1:]))
     sample_keys = jnp.concatenate(sample_keys)
 
     def bayes_weight(self, name, init_fn, shape, sigma_init):

@@ -41,6 +41,8 @@ from bem_tpu_torch import smoke
 from bem_tpu_torch.ops import gdmlp_fused as gd
 from bem_tpu_torch.ops._common import layer_norm_c
 
+from test_torch_cpu_setup import quick_compile  # noqa: F401  (module fixtures)
+
 TOL = smoke.TOL[torch.float32]
 PRODUCTS = ("hh", "lh", "hl")  # hi.hi, lo(weight).hi(activation), hi(weight).lo(activation)
 KSTEP = 16  # the gdMlp's k-step and hidden chunk

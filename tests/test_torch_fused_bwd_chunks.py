@@ -37,6 +37,7 @@ from bem_tpu_torch.ops import ss2d_fused as pf
 from bem_tpu_torch.ops.scan import linear_scan_plain, scan_plain
 
 from test_torch_ss2d_fused import NAMES, _close, make
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
 
 CK = pf.CKPT
 

@@ -29,6 +29,8 @@ from bem_tpu_torch import smoke
 from bem_tpu_torch.ops import gdmlp_fused as gd
 from bem_tpu_torch.ops._common import layer_norm_c, round_bf16
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 
 def split_bf16(w: torch.Tensor):
     """The kernel's split of fp32 ``w``: hi = bf16(w), lo = bf16(w - hi)."""

@@ -18,6 +18,8 @@ from bem_tpu.ops.gdmlp_fused import stem_fused_cf as jax_stem
 from bem_tpu.ops.ss2d_tail import ss2d_tail_cf as jax_tail
 from bem_tpu_torch.ops import gdmlp_fused_cf, ss2d_tail_cf, stem_fused_cf
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 
 def _check(jax_fn, torch_fn, args, g):
     """args: list of numpy arrays or None (None stays None on both sides)."""

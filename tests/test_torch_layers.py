@@ -24,6 +24,8 @@ from bem_tpu_torch.archs.arch_util import DualUpSample, PatchMerging
 from bem_tpu_torch.convert import load_flax_params, state_dict_to_flax
 from bem_tpu_torch.nn import SS2D, Conv2d, Dense, VSSBlock, sample_bayes
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 
 def _nchw(x):
     return torch.from_numpy(np.ascontiguousarray(np.transpose(x, (0, 3, 1, 2))))

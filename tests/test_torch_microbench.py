@@ -22,6 +22,8 @@ from jax.experimental import pallas as pl
 
 from bem_tpu_torch.tools import microbench_vpu as port
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 TOOL = Path(__file__).resolve().parents[1] / "tools" / "microbench_vpu.py"
 SHAPE = (2, 40, 128)
 # the configuration before the tool is loaded
@@ -95,3 +97,27 @@ def test_data_is_the_tools_draw():
     total = 2 * 40 * 128
     flat = np.random.default_rng(0).random(total).astype(np.float32)
     np.testing.assert_array_equal(flat.reshape(SHAPE), _data())
+
+
+def _segment_form(x, npass):
+    """The kernel's per-segment form, mirrored in numpy: each 32-lane segment
+    updated in place with j descending for j >= sh, the masked lanes j < sh
+    left as they are (the plain step gives a * 0 + b = b and a * 1 = a there)."""
+    seg = x.reshape(-1, 32)
+    a, b = seg.copy(), seg * np.float32(0.5)
+    for i in range(npass):
+        sh = 1 << (i % 5)
+        for j in range(31, sh - 1, -1):
+            b[:, j] = a[:, j] * b[:, j - sh] + b[:, j]
+            a[:, j] = a[:, j] * a[:, j - sh]
+    return (a + b).reshape(x.shape)
+
+
+@pytest.mark.parametrize("npass", [3, 10, 12])
+def test_segment_form_matches_plain_bitwise(npass):
+    """Dropping the masked lanes' round changes no bit: the mirror of the
+    kernel's form equals the plain version exactly (both unfused here),
+    whole periods and the npass % 5 rounds left alike."""
+    x = _data()
+    want = port.vpu_scan_step_plain(torch.from_numpy(x), npass).numpy()
+    np.testing.assert_array_equal(_segment_form(x, npass), want)

@@ -21,6 +21,8 @@ from bem_tpu_torch.convert import (flax_to_state_dict, load_flax_params,
                                    state_dict_to_flax)
 from bem_tpu_torch.nn import sample_bayes
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 CFG = dict(type="Network", in_channels=3, out_channels=3, n_feat=8,
            num_blocks=(1, 1, 1), d_state=1, ssm_ratio=1, mlp_ratio=4,
            mlp_type="gdmlp", use_pixelshuffle=True, bayesian=True)

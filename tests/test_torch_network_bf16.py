@@ -38,6 +38,8 @@ from bem_tpu_torch.archs.unet_arch import BasicBlock
 from bem_tpu_torch.convert import state_dict_to_flax
 from bem_tpu_torch.nn import init
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 TOL = 2e-2
 CFG = dict(type="Network", in_channels=3, out_channels=3, n_feat=32, num_blocks=(1, 1, 1),
            d_state=1, ssm_ratio=1, mlp_ratio=4, mlp_type="gdmlp", use_pixelshuffle=True,

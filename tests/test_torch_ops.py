@@ -23,6 +23,8 @@ from bem_tpu.ops.ss2d_tail import ss2d_tail_cf as jax_tail
 from bem_tpu_torch.ops import (gdmlp_fused_cf, ss2d_seq_pair, ss2d_tail_cf,
                                stem_fused_cf)
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}

@@ -27,12 +27,16 @@ from bem_tpu_torch.metrics.niqe import niqe_batch_rgb
 from bem_tpu_torch.nn import sample_bayes
 from bem_tpu_torch.ops import resize_bilinear
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 H, W, K, NIMG = 112, 176, 2, 2
 
 
 def test_port_imports_no_jax():
     code = ("import sys, bem_tpu_torch.enhancement.pipeline, bem_tpu_torch.smoke, "
-            "bem_tpu_torch.models, bem_tpu_torch.train, bem_tpu_torch.ops.scan; "
+            "bem_tpu_torch.models, bem_tpu_torch.train, bem_tpu_torch.ops.scan, "
+            "bem_tpu_torch.archs.decomp_archs, bem_tpu_torch.qd, bem_tpu_torch.ops.wavelet, "
+            "bem_tpu_torch.ops.quaternion, bem_tpu_torch.test; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'bem_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -17,6 +17,8 @@ from bem_tpu.ops.scan import _linear_scan_pallas as jax_scan_pallas
 from bem_tpu.ops.scan import linear_scan as jax_scan
 from bem_tpu_torch.ops.scan import linear_scan, linear_scan_plain, scan_plain
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 SHAPES = [(2, 300, 40), (1, 3, 64, 136), (3, 1, 5)]
 
 

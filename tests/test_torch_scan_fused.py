@@ -26,6 +26,8 @@ from bem_tpu.ops.scan_fused import selective_scan_fused as jax_scan_fused
 from bem_tpu_torch.ops.scan_fused import selective_scan_fused, selective_scan_fused_plain
 from bem_tpu_torch.smoke import row_scaled
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 # (Bt, K, C, L, N)
 SHAPES = [(2, 4, 16, 64, 1), (2, 4, 40, 100, 1), (1, 4, 8, 32, 16), (1, 4, 8, 4160, 1)]
 TOL = {np.float32: 2e-4, jnp.bfloat16: 2e-2}

@@ -38,6 +38,7 @@ from bem_tpu_torch.ops.scan_fused import selective_scan_fused_plain
 from bem_tpu_torch.ops.ss2d_fused import _softplus
 
 from test_torch_scan_fused import _inputs, _jax, _torch
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
 
 CK = 32
 FP32, BF16 = torch.float32, torch.bfloat16

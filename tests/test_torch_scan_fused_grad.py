@@ -17,6 +17,7 @@ from bem_tpu.ops.scan_fused import selective_scan_fused as jax_scan_fused
 from bem_tpu_torch.ops.scan_fused import selective_scan_fused
 
 from test_torch_scan_fused import _inputs
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
 
 
 @pytest.mark.parametrize("shape", [(2, 4, 16, 64, 1), (1, 4, 8, 32, 16)],

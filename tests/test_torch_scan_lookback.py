@@ -26,6 +26,8 @@ from bem_tpu.ops.scan import _linear_scan_pallas as jax_scan_pallas
 from bem_tpu_torch.ops.scan import (SCAN_ANCHOR, SCAN_SEG, SCAN_THREADS, ScanPlan,
                                     linear_scan, linear_scan_plain, scan_plan)
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _drop_interpret_traces():

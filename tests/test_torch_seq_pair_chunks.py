@@ -37,6 +37,8 @@ from bem_tpu.ops.ss2d_seq import ss2d_seq_pair_g as jax_seq_pair
 from bem_tpu_torch.ops import ss2d_seq as seq
 from bem_tpu_torch.ops.scan import linear_scan_plain
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 

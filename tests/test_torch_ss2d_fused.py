@@ -24,6 +24,8 @@ from bem_tpu.ops.ss2d_fused_g import ss2d_dir_fused_g as jax_fused_g
 from bem_tpu_torch import smoke
 from bem_tpu_torch.ops import ss2d_fused as pf
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 NAMES = ("xs2", "Wx", "Wdt", "bias", "A", "D")
 
 

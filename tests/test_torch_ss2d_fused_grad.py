@@ -15,6 +15,7 @@ from bem_tpu.ops.ss2d_fused_g import ss2d_dir_fused_g as jax_fused_g
 from bem_tpu_torch.ops import ss2d_fused as pf
 
 from test_torch_ss2d_fused import NAMES, _close, _group, _ungroup, make
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
 
 
 def _port_grads(fn, a, g):

@@ -28,6 +28,8 @@ import torch
 from bem_tpu.ops.ss2d_tail import ss2d_tail_cf as jax_tail
 from bem_tpu_torch.ops.ss2d_tail import ss2d_tail_cf, ss2d_tail_cf_plain
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 
 

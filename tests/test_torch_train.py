@@ -42,6 +42,7 @@ from bem_tpu_torch.options import lolv1_options
 from bem_tpu_torch.train import synthetic_batch, train
 
 from test_trainers import make_batch, make_opt
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
 
 HW, DOWN = 32, 4
 

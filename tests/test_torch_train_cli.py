@@ -45,6 +45,7 @@ from bem_tpu_torch.utils.options import parse_options
 
 from test_train_pipeline import make_yaml
 from test_trainers import make_batch, make_opt
+from test_torch_cpu_setup import quick_compile  # noqa: F401  (module fixtures)
 
 EXP = ("experiments", "debug_tiny")
 

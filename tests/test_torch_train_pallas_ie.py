@@ -2,19 +2,9 @@
 mode), at 16x16 (condition 4x4), with XLA's optimizations off for the
 compile; the cases and tolerances are test_torch_train.py's."""
 
-import jax
-import pytest
-
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
 from test_torch_train import test_image_enhancer_step_matches_jax as _step
 
 
-@pytest.fixture
-def quick_compile():
-    prev = jax.config.read("jax_disable_most_optimizations")
-    jax.config.update("jax_disable_most_optimizations", True)
-    yield
-    jax.config.update("jax_disable_most_optimizations", prev)
-
-
-def test_image_enhancer_step_matches_pallas(quick_compile):
+def test_image_enhancer_step_matches_pallas():
     _step(backend="pallas", hw=16)

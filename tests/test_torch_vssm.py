@@ -28,6 +28,8 @@ from bem_tpu_torch.nn import init
 from bem_tpu_torch.nn.ss2d import SS2D
 from bem_tpu_torch.nn.vssm import VSSM
 
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
+
 
 def narrow(**kw):
     return dict(dict(depths=(1, 1), dims=16, num_classes=5, drop_path_rate=0.0,

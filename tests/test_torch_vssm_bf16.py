@@ -11,6 +11,7 @@ import torch
 from bem_tpu_torch.convert import state_dict_to_flax
 
 from test_torch_vssm import _close, images, jax_logits, narrow, port_model
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
 
 
 def test_logits_bf16_stream():

@@ -13,6 +13,7 @@ import torch
 from bem_tpu_torch.convert import state_dict_to_flax
 
 from test_torch_vssm import _close, images, jax_logits, narrow, port_model
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -33,6 +33,7 @@ from bem_tpu_torch.convert import load_flax_params, state_dict_to_flax
 from bem_tpu_torch.nn import SS2D
 
 from test_torch_vssm import _close, images, jax_logits, narrow, port_model
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
 
 SS2D_KW = dict(d_model=8, d_state=4, ssm_ratio=2.0, conv_bias=True)
 

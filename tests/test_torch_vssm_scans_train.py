@@ -11,6 +11,7 @@ import torch
 
 from test_torch_classify_train import check_loss_and_gradients, check_updates, run_train_step
 from test_torch_vssm_scans import check_v052d_logits
+from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
 
 
 def test_v052d_logits_bf16():
