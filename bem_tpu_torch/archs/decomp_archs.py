@@ -11,7 +11,9 @@ transposed conv up -> 1x1 skip fuse -> VSSBlocks] x L -> 3x3 proj. The
 VSSBlocks are the port's folded gdMlp / ``v05_noz`` form on the
 hand-written kernels (bem_tpu runs them channels-last; the function is
 the same). As in bem_tpu, ``use_pixelshuffle``, ``stage``,
-``drop_path``, ``use_illu`` and ``sam`` are accepted and ignored. The
+``drop_path``, ``use_illu`` and ``sam`` are accepted and ignored, and so
+is the forward's MIM ``mask`` (bem_tpu's Decomp archs declare no mask
+token: a flagship step with ``mim`` on trains on the unmasked input). The
 public forward takes NHWC (B, H, W, in_channels) and returns [x (the
 image alone for DecompDualBranch2), the enhanced NHWC image].
 """

@@ -121,10 +121,14 @@ class Network(nn.Module):
     def reset_parameters(self, gen):
         init.trunc_normal_(self.mask_token, std=0.02, gen=gen)
 
-    def forward(self, x):
-        """x (B, H, W, in_channels). ``mask_token`` (the training-time MIM
-        masking of the reference) is carried for checkpoint parity only."""
+    def forward(self, x, mask=None):
+        """x (B, H, W, in_channels). ``mask`` (B, H, W), the MIM mask of a
+        training step: where it is 1 the first conv's features are replaced
+        by ``mask_token`` (unet_arch.py:285-295)."""
         fea = self.first_conv(x.permute(0, 3, 1, 2).contiguous())
+        if mask is not None:
+            w = mask[:, None].to(fea.dtype)
+            fea = fea * (1.0 - w) + self.mask_token.to(fea.dtype) * w
         outs = [x]
         for i in range(self.stage):
             fea = getattr(self, f"subnets_{i}")(fea)

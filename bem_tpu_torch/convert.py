@@ -1,5 +1,5 @@
-"""flax params <-> the port's state_dict, for bem_tpu's ``Network``, ``VSSM``
-and the Decomp family.
+"""flax params <-> the port's state_dict, for bem_tpu's ``Network``, ``VSSM``,
+the Decomp family and the QD models (``Decomp``, ``CompactTwoBranchModel``).
 
 The port's modules carry the flax tree's names, so the map is mechanical:
 a path ``a/b/leaf`` becomes ``a.b.<leaf'>`` with the layout rules of

@@ -18,6 +18,7 @@ from ..utils.file_client import FileClient
 from ..utils.histogram import histogram_condition
 from ..utils.img_util import downsample, imfrombytes, img2tensor, padding
 from ..utils.labelnoise import add_label_noise
+from ..utils.mask import MaskGenerator
 from .data_util import paired_paths_from_folder, paired_paths_from_meta_info_file
 from .transforms import paired_random_crop, random_augmentation
 
@@ -90,18 +91,31 @@ class Dataset_PairedImage(_PairedBase):
 
 
 class Dataset_PairedImage_Mask(_PairedBase):
-    """Paired dataset with the mean or histogram condition and GT label noise
-    (paired_image_dataset.py:103). The MIM mask (``mim``) is not ported."""
+    """Paired dataset with the mean or histogram condition, GT label noise
+    and the MIM mask (paired_image_dataset.py:103). With ``mim`` each sample
+    carries an int32 ``mask`` at the network's input size (``gt_size`` for
+    the ImageEnhancer, ``gt_size / scale_down`` for the ConditionGenerator),
+    drawn from the dataset's generator after the crop, the flips and the
+    label noise, as bem_tpu draws it."""
 
     def __init__(self, opt):
         super().__init__(opt)
         cond = opt["condition"]
         if cond["type"] not in ("histogram", "mean"):
             raise ValueError(f"condition type {cond['type']} not supported")
-        if opt.get("mim"):
-            raise NotImplementedError("the MIM mask (mim) is not ported")
         self.model_type = opt.get("model_type", "ImageEnhancer")
         self.cond = cond
+        self.mask_generator = None
+        if opt.get("mim"):
+            if cond["type"] == "histogram":
+                raise NotImplementedError("mim not supported for histogram condition")
+            mim = opt["mim"]
+            input_size = (opt["gt_size"] if self.model_type == "ImageEnhancer"
+                          else int(opt["gt_size"] / cond.get("scale_down", 1)))
+            self.mask_generator = MaskGenerator(
+                input_size=input_size, mask_patch_size=mim["mask_patch_size"],
+                model_patch_size=mim["model_patch_size"], mask_ratio=mim["mask_ratio"],
+                rng=self.rng)
 
     def __getitem__(self, index):
         index = index % len(self.paths)
@@ -130,4 +144,6 @@ class Dataset_PairedImage_Mask(_PairedBase):
                 out["lq_down"] = self._normalize(img2tensor(downsample(img_lq, sd)))
         out["gt"] = self._normalize(img2tensor(img_gt))
         out["lq"] = self._normalize(img2tensor(img_lq))
+        if self.mask_generator is not None:
+            out["mask"] = self.mask_generator()
         return out

@@ -1,12 +1,15 @@
-"""PSNR / SSIM on the host, MATLAB-compatible (counterpart of the numpy
-``calculate_psnr`` / ``calculate_ssim`` of bem_tpu/metrics/psnr_ssim.py):
-[0, 255] HWC arrays, an 11x11 Gaussian window with sigma 1.5, valid-crop
-borders.
+"""PSNR / SSIM (counterpart of bem_tpu/metrics/psnr_ssim.py): on the host,
+MATLAB-compatible (``calculate_psnr`` / ``calculate_ssim``: [0, 255] HWC
+arrays, an 11x11 Gaussian window with sigma 1.5, valid-crop borders), and
+batched on the device (``calculate_psnr_torch`` / ``calculate_ssim_torch``:
+NHWC tensors in [0, 1], the QD trainer's validation).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 from numpy.lib.stride_tricks import sliding_window_view
 
 from .metric_util import reorder_image, to_y_channel
@@ -71,3 +74,49 @@ def calculate_ssim(img, img2, crop_border, input_order="HWC", test_y_channel=Fal
     img, img2 = _prepare(img, img2, crop_border, input_order, test_y_channel)
     return float(np.mean([_ssim_channel(img[..., i], img2[..., i])
                           for i in range(img.shape[2])]))
+
+
+# ---------------------------------------------------------------------------
+# Batched device versions (NHWC in [0, 1]), bem_tpu's calculate_psnr_jax /
+# calculate_ssim_jax (psnr_ssim.py:99-140)
+# ---------------------------------------------------------------------------
+
+
+def _crop(img, crop_border: int):
+    if crop_border != 0:
+        return img[:, crop_border:-crop_border, crop_border:-crop_border]
+    return img
+
+
+def calculate_psnr_torch(img, img2, crop_border=0):
+    """PSNR of each image of two (B, H, W, C) tensors in [0, 1]: 10 log10(1 /
+    (mse + 1e-8)), shape (B,)."""
+    img, img2 = _crop(img, crop_border).float(), _crop(img2, crop_border).float()
+    mse = (img - img2).square().mean(dim=(1, 2, 3))
+    return 10.0 * torch.log10(1.0 / (mse + 1e-8))
+
+
+def calculate_ssim_torch(img, img2, crop_border=0):
+    """SSIM of each image of two (B, H, W, C) tensors in [0, 1], scaled by 255
+    inside: a depthwise 11x11 Gaussian (sigma 1.5) over the VALID windows,
+    the map's mean over H, W and C, shape (B,)."""
+    img = _crop(img, crop_border).float().permute(0, 3, 1, 2) * 255.0
+    img2 = _crop(img2, crop_border).float().permute(0, 3, 1, 2) * 255.0
+    c1 = (0.01 * 255) ** 2
+    c2 = (0.03 * 255) ** 2
+    C = img.shape[1]
+    g = _gaussian_1d(11, 1.5)
+    win = torch.tensor(np.outer(g, g), dtype=torch.float32, device=img.device)
+    kernel = win.expand(C, 1, 11, 11)
+
+    def conv(t):
+        return F.conv2d(t, kernel, groups=C)
+
+    mu1, mu2 = conv(img), conv(img2)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 ** 2, mu2 ** 2, mu1 * mu2
+    sigma1_sq = conv(img * img) - mu1_sq
+    sigma2_sq = conv(img2 * img2) - mu2_sq
+    sigma12 = conv(img * img2) - mu1_mu2
+    cs = (2 * sigma12 + c2) / (sigma1_sq + sigma2_sq + c2)
+    ssim_map = ((2 * mu1_mu2 + c1) / (mu1_sq + mu2_sq + c1)) * cs
+    return ssim_map.mean(dim=(1, 2, 3))

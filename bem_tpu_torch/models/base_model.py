@@ -19,11 +19,18 @@ optimizer reproduces bem_tpu's optax chain (base_model.py:63-111):
   decay (bem_tpu's ``multi_transform`` with ``set_to_zero``). Their
   gradients are 0 (the frozen outputs carry none), so the clip's norm is
   the one over the trained parameters; Adam's moments of them stay 0.
+- a batch with a MIM ``mask`` passes it to the forward while the step is
+  within the scheduler's first period (bem_tpu's ``_use_mask``).
 
 Checkpoints are bem_tpu's files (base_model.py:219-321): ``net_g_<iter>.msgpack``
 and ``<iter>.state`` in flax's layout, through ``convert.py``'s per-leaf
 transforms, so either package reads the other's. In a state the port keeps
 its generator's state as uint8 in ``rng``; bem_tpu keeps a uint32 key there.
+A net with ``frozen_subtrees`` writes and reads its optimizer state in the
+layout of bem_tpu's ``multi_transform``: the chain under
+``inner_states/train/inner_state``, an empty ``inner_states/frozen``, and
+an empty dict (optax's ``MaskedNode``) at every frozen leaf of Adam's
+moments.
 """
 
 from __future__ import annotations
@@ -133,8 +140,7 @@ class BaseModel:
         sched_opt = train_opt.get("scheduler")
         schedule = build_schedule(base_lr, sched_opt) if sched_opt else (lambda step: base_lr)
         self.lr_schedule = with_warmup(schedule, train_opt.get("warmup_iter", -1), base_lr)
-        frozen = self.net.frozen_subtrees() if hasattr(self.net, "frozen_subtrees") else ()
-        prefixes = tuple(p + "." for p in frozen)
+        prefixes = tuple(p + "." for p in self._frozen_subtrees() or ())
         self.optimizer = AdamWChain(self.params, self.lr_schedule, betas[0], betas[1],
                                     weight_decay=wd, max_norm=train_opt.get("max_grad_norm", 0),
                                     frozen=[k for k in self.params if k.startswith(prefixes)])
@@ -143,9 +149,8 @@ class BaseModel:
             self.ema_params = {k: p.detach().clone() for k, p in self.params.items()}
 
     def _batch(self, batch) -> Dict[str, torch.Tensor]:
-        """The array entries of ``batch`` as fp32 tensors on the device."""
-        if "mask" in batch:
-            raise NotImplementedError("the MIM mask input is not ported")
+        """The array entries of ``batch`` as fp32 tensors on the device (the
+        MIM mask too: it weighs the mask token)."""
         out = {}
         for k, v in batch.items():
             if isinstance(v, np.ndarray) and v.dtype != object:
@@ -153,6 +158,14 @@ class BaseModel:
             if isinstance(v, torch.Tensor):
                 out[k] = v.to(self.device, torch.float32)
         return out
+
+    def _use_mask(self, batch) -> bool:
+        """The MIM mask is used until the step passes the scheduler's first
+        period (image_enhancer_model.py:169-170)."""
+        if "mask" not in batch:
+            return False
+        periods = self.opt["train"].get("scheduler", {}).get("periods")
+        return not (periods and self.step > periods[0])
 
     def _grads(self, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
         """d loss / d every parameter (zeros for one the loss does not reach)."""
@@ -191,17 +204,30 @@ class BaseModel:
             for k, t in target.items():
                 t.copy_(torch.from_numpy(np.array(sd[k], copy=True)))
 
+    def _frozen_subtrees(self):
+        """The net's frozen top-level names, or None for a net without any."""
+        return tuple(self.net.frozen_subtrees()) if hasattr(self.net, "frozen_subtrees") else None
+
     def train_state(self) -> dict:
         """bem_tpu's ``TrainState`` tree: step, params, opt_state (the optax
         chain [clip_by_global_norm], adamw: ({}, ((count, mu, nu), {},
-        (count,)))), rng, ema_params, bayes_prior."""
+        (count,))), inside ``multi_transform``'s layout for a net with
+        frozen subtrees), rng, ema_params, bayes_prior."""
         opt = self.optimizer
         count = np.asarray(opt.count, np.int32)
-        adamw = {"0": {"count": count, "mu": self._flax(opt.mu), "nu": self._flax(opt.nu)},
-                 "1": {}, "2": {"count": count}}
+        frozen = self._frozen_subtrees()
+        mu, nu = self._flax(opt.mu), self._flax(opt.nu)
+        for tree in (mu, nu):
+            for name in frozen or ():
+                tree[name] = _masked(tree[name])
+        adamw = {"0": {"count": count, "mu": mu, "nu": nu}, "1": {}, "2": {"count": count}}
         chain = ([{}] if opt.max_norm else []) + [adamw]
+        opt_state = {str(i): c for i, c in enumerate(chain)}
+        if frozen is not None:
+            opt_state = {"inner_states": {"train": {"inner_state": opt_state},
+                                          "frozen": {"inner_state": {}}}}
         return {"step": np.asarray(self.step, np.int32), "params": self._flax(),
-                "opt_state": {str(i): c for i, c in enumerate(chain)},
+                "opt_state": opt_state,
                 "rng": self.gen.get_state().numpy(),
                 "ema_params": None if self.ema_params is None else self._flax(self.ema_params),
                 "bayes_prior": (None if self.bayes_prior is None
@@ -210,12 +236,24 @@ class BaseModel:
     def load_train_state(self, tree: dict, source: str = "the state"):
         """Take up a ``train_state`` tree, the port's or bem_tpu's."""
         step = int(tree["step"])
-        self._load_flax(self.params, tree["params"], f"{source} params")
         chain = tree["opt_state"]
+        partitioned = "inner_states" in chain
+        if partitioned != (self._frozen_subtrees() is not None):
+            raise ValueError(f"{source}: its optimizer state {'is' if partitioned else 'is not'} "
+                             f"partitioned into trained and frozen parameters, and this net "
+                             f"{'has no' if partitioned else 'has'} frozen subtrees")
+        if partitioned:
+            chain = chain["inner_states"]["train"]["inner_state"]
+        self._load_flax(self.params, tree["params"], f"{source} params")
         adam = chain[str(len(chain) - 1)]["0"]
-        self.optimizer.count = int(adam["count"])
-        self._load_flax(self.optimizer.mu, adam["mu"], f"{source} Adam mu")
-        self._load_flax(self.optimizer.nu, adam["nu"], f"{source} Adam nu")
+        opt = self.optimizer
+        opt.count = int(adam["count"])
+        for what, moments in (("mu", opt.mu), ("nu", opt.nu)):
+            # frozen leaves are empty (MaskedNode) and their moments stay 0
+            self._load_flax({k: t for k, t in moments.items() if k not in opt.frozen},
+                            adam[what], f"{source} Adam {what}")
+            for k in opt.frozen:
+                moments[k].zero_()
         if tree.get("ema_params") is not None:
             if self.ema_params is None:
                 self.ema_params = {k: torch.empty_like(p) for k, p in self.params.items()}
@@ -357,6 +395,11 @@ def reflect_pad(x: torch.Tensor, window_size: int) -> torch.Tensor:
     ``window_size``."""
     pad = (0, (-x.shape[2]) % window_size, 0, (-x.shape[1]) % window_size)
     return F.pad(x.permute(0, 3, 1, 2), pad, mode="reflect").permute(0, 2, 3, 1)
+
+
+def _masked(tree: dict) -> dict:
+    """``tree`` with every leaf an empty dict (how flax writes optax's MaskedNode)."""
+    return {k: _masked(v) if isinstance(v, dict) else {} for k, v in tree.items()}
 
 
 def _paths(tree, prefix=()):

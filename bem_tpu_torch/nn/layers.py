@@ -105,6 +105,8 @@ class Conv2d(BayesLayer):
             self._init("weight", lambda t: init.kaiming_normal_(t, self.fan_out, 1.0, gen))
         elif self.weight_init == "kaiming_normal_fan_in":
             self._init("weight", lambda t: init.kaiming_normal_(t, self.fan_in, 1.0, gen))
+        elif self.weight_init == "kaiming_uniform_relu":
+            self._init("weight", lambda t: init.uniform_(t, math.sqrt(6.0 / self.fan_in), gen))
         elif self.weight_init == "laplacian":
             # the QD sharpening conv: the Laplacian on every channel pair / C
             lap = torch.tensor([[0., -1., 0.], [-1., 4., -1.], [0., -1., 0.]])
@@ -152,20 +154,30 @@ class ConvTranspose2d(nn.Module):
 
 class Dense(BayesLayer):
     """Linear over the channel axis (dim 1); weight (out, in). ``weight_init``
-    "trunc_normal" draws the weight from trunc_normal(0.02) and zeroes the
-    bias (the VSSM head, vssm.py:161-162)."""
+    "trunc_normal" (trunc_normal(0.02), the VSSM head, vssm.py:161-162),
+    "kaiming_uniform_relu" (U(+-sqrt(6 / in))) and "xavier_uniform"
+    (U(+-sqrt(6 / (in + out)))) zero the bias."""
+
+    _BOUNDS = {"kaiming_uniform_relu": lambda i, o: math.sqrt(6.0 / i),
+               "xavier_uniform": lambda i, o: math.sqrt(6.0 / (i + o))}
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  bayesian: bool = False, sigma_init: float = 0.05,
                  weight_init: str = "default"):
         super().__init__(bayesian, sigma_init)
-        self.in_features = in_features
+        self.in_features, self.out_features = in_features, out_features
         self.weight_init = weight_init
         self._declare("weight", (out_features, in_features))
         if bias:
             self._declare("bias", (out_features,))
 
     def reset_parameters(self, gen):
+        if self.weight_init in self._BOUNDS:
+            bound = self._BOUNDS[self.weight_init](self.in_features, self.out_features)
+            self._init("weight", lambda t: init.uniform_(t, bound, gen))
+            if self.value("bias") is not None:
+                self._init("bias", lambda t: t.zero_())
+            return
         if self.weight_init == "trunc_normal":
             self._init("weight", lambda t: init.trunc_normal_(t, 0.02, gen=gen))
             if self.value("bias") is not None:
@@ -184,10 +196,12 @@ class Dense(BayesLayer):
 
 
 class LayerNorm2d(nn.Module):
-    """LayerNorm over the channel axis of NCHW / (B, C, L) (eps 1e-5)."""
+    """LayerNorm over the channel axis of NCHW / (B, C, L); eps 1e-5, the VSS
+    blocks' (flax's ``nn.LayerNorm`` default, 1e-6, where a module keeps it)."""
 
-    def __init__(self, C: int):
+    def __init__(self, C: int, eps: float = 1e-5):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.empty(C))
         self.bias = nn.Parameter(torch.empty(C))
 
@@ -197,7 +211,7 @@ class LayerNorm2d(nn.Module):
         self.bias.zero_()
 
     def forward(self, x):
-        return layer_norm_c(x.float(), self.weight, self.bias).to(x.dtype)
+        return layer_norm_c(x.float(), self.weight, self.bias, self.eps).to(x.dtype)
 
 
 def drop_path(x, rate: float, gen=None, mask=None):

@@ -43,12 +43,12 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def layer_norm_c(x: torch.Tensor, scale, bias) -> torch.Tensor:
-    """LayerNorm over dim 1 of an fp32 tensor (centred variance, eps 1e-5)."""
+def layer_norm_c(x: torch.Tensor, scale, bias, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over dim 1 of an fp32 tensor (centred variance)."""
     m = x.mean(dim=1, keepdim=True)
     v = (x - m).square().mean(dim=1, keepdim=True)
     shape = (1, -1) + (1,) * (x.dim() - 2)
-    return (x - m) * torch.rsqrt(v + 1e-5) * scale.reshape(shape) + bias.reshape(shape)
+    return (x - m) * torch.rsqrt(v + eps) * scale.reshape(shape) + bias.reshape(shape)
 
 
 def round_bf16(t: torch.Tensor) -> torch.Tensor:

@@ -9,8 +9,8 @@ Counterpart of bem_tpu/qd/models.py; one module parameterized by
   projections kaiming-normal;
 - model3: a mini U-Net (stride-2 conv, mid conv, transposed-conv up with
   skip) before the branches. Its attention dropout (0.1) acts only under
-  a dropout rng, which only bem_tpu's QD training passes (not ported):
-  no arch's forward, training included, applies it;
+  a dropout rng, which no path of bem_tpu passes (its QD training
+  included): no forward applies it;
 - model4: model1 + a residual depthwise PostSmooth of Q1 / Q2 after the IWT.
 
 ``forward(img)`` -> (Q1, Q2), each (B, 4, H, W); ``wavelet_features(img)``

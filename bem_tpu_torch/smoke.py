@@ -21,6 +21,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from . import _build
 from .enhancement.clip import flatten_params
 from .ops import gdmlp_fused as _gd
 from .ops import scan as _scan
@@ -132,6 +133,11 @@ EVAL_SHAPES = [("eval IE-L0 448x640 C40 B=8", 8, 40, 448, 640),
 FLAGSHIP_SHAPES = [("flagship L0 224x320 C40 B=8", 8, 40, 224, 320),
                    ("flagship L1 112x160 C80 B=8", 8, 80, 112, 160),
                    ("flagship L2 56x80 C160 B=8", 8, 160, 56, 80)]
+# the flagship's training from its option file, fp32: each branch at batch 8
+# on the 64x64 wavelet half of the 128x128 crops, forward and backward
+FLAGSHIP_TRAIN_SHAPES = [("flagship train L0 64x64 C40 B=8", 8, 40, 64, 64),
+                         ("flagship train L1 32x32 C80 B=8", 8, 80, 32, 32),
+                         ("flagship train L2 16x16 C160 B=8", 8, 160, 16, 16)]
 # (label, B, d_inner, H, W, dt rank, d_state): the SS2D cores of the VMamba-T
 # classifier's four stages (dims 96 / 192 / 384 / 768, ssm_ratio 2) at
 # 224x224, two images each
@@ -472,6 +478,25 @@ def _carry_cases(device, seed=760):
         a, b = t(_scan_decays(rng, (M, L, D))), t(rng.standard_normal((M, L, D), dtype=np.float32))
         out += [Case("linear_scan", label + (" rev" if rev else ""), torch.float32, (a, b, rev),
                      report=True) for rev in (False, True)]
+    return out
+
+
+def _train_carry_cases(device, seed=770):
+    """linear_scan at the flagship training's carries, forward and reverse:
+    the row pair's over (B, L / its chunk, C*N) and the column pair's over
+    (B, W * H / its chunk, C*N), the chunks as the built kernels give them."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    out = []
+    for label, B, C, H, W in FLAGSHIP_TRAIN_SHAPES:
+        R, N = math.ceil(C / 16), 1
+        row = -(-H * W // _build.load().bem_ss2d_seq_chunk(C, R, N))
+        col = W * -(-H // _seq.col_chunk(C, R, N, torch.float32))
+        for L in sorted({row, col}):
+            a = t(_scan_decays(rng, (B, L, C * N)))
+            b = t(rng.standard_normal((B, L, C * N), dtype=np.float32))
+            out += [Case("linear_scan", f"{label} carry L={L}" + (" rev" if rev else ""),
+                         torch.float32, (a, b, rev), report=True) for rev in (False, True)]
     return out
 
 
@@ -923,8 +948,9 @@ def _microbench_cases(small, device):
 def kernel_cases(small: bool = False, device="cuda"):
     """Every kernel at every serving, training and classifier shape, fp32 and
     bf16, rows 1-6 at the serving batch (bf16; row 3 in its path form),
-    rows 1-7 at the eval CLI's and the flagship's shapes (fp32),
-    linear_scan at the serving, eval and flagship carries, and the
+    rows 1-7 at the eval CLI's and the flagship's eval and training
+    shapes (fp32), linear_scan at the serving, eval and flagship carries
+    and at the flagship training's backward recompute shape, and the
     microbenchmarks
     at the tool's shapes; or at tiny shapes (``small``)."""
     shapes = SMALL_SHAPES if small else PATH_SHAPES + TRAIN_SHAPES
@@ -941,9 +967,11 @@ def kernel_cases(small: bool = False, device="cuda"):
             out.append(_serve_stem_case(*shape, device, seed=720 + i))
         for i, shape in enumerate(SERVE_SHAPES + SERVE_STEM_SHAPES):
             out.append(_serve_tail_case(*shape, device, seed=740 + i))
-        for i, shape in enumerate(EVAL_SHAPES + FLAGSHIP_SHAPES):
+        for i, shape in enumerate(EVAL_SHAPES + FLAGSHIP_SHAPES + FLAGSHIP_TRAIN_SHAPES):
             out += _eval_cases(*shape, device, seed=780 + i)
-        out += _carry_cases(device)
+        for i, shape in enumerate(FLAGSHIP_TRAIN_SHAPES):
+            out += _scan_bwd_cases(*shape, device, seed=120 + i)
+        out += _carry_cases(device) + _train_carry_cases(device)
     for i, shape in enumerate(SMALL_CLS_SHAPES if small else CLS_SHAPES):
         out += _cls_cases(*shape, device, seed=300 + i)
         out += _scan_fused_cases(*shape, device, seed=500 + 4 * i)
@@ -1264,11 +1292,12 @@ def _scan_fused_grad_cases(device):
 
 def grad_cases(small: bool = False, device="cuda"):
     """The five autograd wrappers of the VSSBlock and linear_scan at the
-    training shapes (``small``: tiny shapes), fp32, clamp-hitting scan
-    biases; then the classifier's fused core at its stage shapes and
-    selective_scan_fused at tiny ones."""
+    LOLv1 and flagship training shapes (``small``: tiny shapes), fp32,
+    clamp-hitting scan biases; then the classifier's fused core at its
+    stage shapes and selective_scan_fused at tiny ones."""
     out = _cls_grad_cases(small, device) + _scan_fused_grad_cases(device)
-    for i, (label, B, C, H, W) in enumerate(SMALL_SHAPES if small else TRAIN_SHAPES):
+    shapes = SMALL_SHAPES if small else TRAIN_SHAPES + FLAGSHIP_TRAIN_SHAPES
+    for i, (label, B, C, H, W) in enumerate(shapes):
         rng = np.random.default_rng(200 + i)
         L = H * W
         t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731

@@ -29,7 +29,9 @@ result line):
      slices of 4 images, no column probe at the CG's 7 rows; the stem's
      and the gdMlp's lines name the form that ran) and
      linear_scan at its carries (IE-L0 B=8, CG-L0 B=1, flagship L0 B=8), each with its
-     bound; every linear_scan, stem and gdMlp case launched twice, its
+     bound; rows 1-7 the same at the flagship's training shapes (its
+     branch levels 64x64 / 32x32 / 16x16 at B=8, linear_scan at their row
+     and column carries and their backward recompute shape); every linear_scan, stem and gdMlp case launched twice, its
      outputs bit-identical; then the stem, the row pair, the gdMlp, the
      column pair, the fused core's backward, selective_scan_fused,
      linear_scan and the tail at the edges of their tiles (smoke.edge_cases:
@@ -101,6 +103,30 @@ result line):
      defaults (s/img) and the IE's forward at batch 8 on 448x640 (ms);
      the test CLI on two 400x600 validation images (PSNR / SSIM); every
      kernel of rows 1-7 must launch over the phase;
+  9c. the flagship's and the QD decomposition's training at full width
+     (random VGG19 features, BEM_ALLOW_RANDOM_VGG=1): one flagship
+     ImageEnhancer step (B=2, 32x32, fp32, TF32 off) with the perceptual
+     loss, a MaskGenerator mask and mixup at an injected lam, on the card vs
+     the CPU from the same weights and noise, the CPU on the card's VGG
+     ReLU and max-pool decisions (loss and perceptual term within 1e-4
+     relative, every gradient leaf within 1e-3 of its largest entry,
+     decomp unchanged on both, at most 1e-4 of the CPU's own VGG
+     decisions differing from the card's); the train CLI on the flagship's
+     option file as it is (perceptual_opt and mim on; --force_yml for the
+     dataroots, the name, total_iter 6, the frequencies, and no
+     tensorboard or wandb) on 48 + 2 seeded 400x600 PNG pairs (six
+     batches an epoch): finite l_pix / l_percep, the net_g and .state
+     files (the .state in multi_transform's layout), finite validation
+     PSNR / SSIM, then --auto_resume to 8 from net_g_6's exact params at
+     iter 7; ms/step and data_time (median of iters 2-6), peak memory;
+     train_qd (model4, patch 256, batch 8, 2 epochs, recon_only_epochs 1)
+     on the same pairs: finite losses and validation, ms/step of each
+     objective (median of its epoch's steps after the first),
+     model4_1.msgpack loaded by the port's Decomp;
+     qd.evaluate on the two validation pairs with the shipped model4 and
+     with that checkpoint (PSNR, SSIM, RCI), the shipped model4 also on the
+     CPU (RCI within 1e-4, PSNR within 0.01 dB); every kernel of rows 1-7
+     must launch over the CLI runs;
  10. the VMamba classifier (VSSM, forward_type v2) at narrow width (embed
      16, depths (1,1), d_state 16, 32x32), fp32: logits and one train step
      on the card vs the CPU at B=1 (the fused core) and B=2 (its clamped
@@ -169,6 +195,9 @@ from bem_tpu_torch.classification import synthetic_batch as cls_batch
 from bem_tpu_torch.classification import throughput
 from bem_tpu_torch.data import CPUPrefetcher, DevicePrefetcher, build_dataloader, build_dataset
 from bem_tpu_torch.nn.ss2d import SS2D
+from bem_tpu_torch.qd.evaluate import load_qd_net
+from bem_tpu_torch.qd.evaluate import main as qd_evaluate
+from bem_tpu_torch.qd.train import train_qd
 from bem_tpu_torch.enhancement.eval import main as eval_main
 from bem_tpu_torch.enhancement.pipeline import build_pipeline, padded_size
 from bem_tpu_torch.models import build_model
@@ -177,8 +206,9 @@ from bem_tpu_torch.tools import microbench_vpu
 from bem_tpu_torch.models.base_model import BaseModel
 from bem_tpu_torch.test import test_pipeline
 from bem_tpu_torch.train import synthetic_batch, train_pipeline
-from bem_tpu_torch.utils.checkpoint import load_params
+from bem_tpu_torch.utils.checkpoint import load_params, load_state
 from bem_tpu_torch.utils.img_util import imread
+from bem_tpu_torch.utils.mask import MaskGenerator
 from bem_tpu_torch.utils.options import parse
 
 K = 16
@@ -205,6 +235,9 @@ IMAGENET_TRAIN = 1281167  # images per epoch of the harness's schedule
 FLAGSHIP_OPTION = "DecompDualBranch2DDWavelet_4.yml"
 FLAGSHIP_DIR = os.path.join(REPO, "results", "chip_smoke_flagship")  # gitignored, removed at the end
 FLAGSHIP_TIMED = 3  # IE forwards timed at batch 8, after one warm-up
+FLAGSHIP_TRAIN_DIR = os.path.join(REPO, "results", "chip_smoke_flagship_train")  # removed at the end
+# six batches of 8 an epoch: five timed in-epoch steps after the first
+FLAGSHIP_TRAIN_IMAGES = 48
 
 
 def phase(name):
@@ -341,15 +374,25 @@ def _train_opt(model_type):
     return dict(lolv1_options(model_type), is_train=True)
 
 
+def _grad_capture(model):
+    """Record the gradients of the model's next update into the returned dict."""
+    grads = {}
+    apply = model._apply_updates
+    model._apply_updates = lambda g, aux: (grads.update(g), apply(g, aux))[1]
+    return grads
+
+
 def train_reference_check(devices=("cuda", "cpu")):
     """One IE and one CG step at flagship widths (B=2, 32x32, fp32) on the
-    card vs the CPU from the same weights, noise and weight sample. Loss
+    card vs the CPU from the same weights, noise and weight sample, and one
+    IE step with a MaskGenerator mask (the Network's mask token). Loss
     within 1e-4 relative; every gradient leaf within 1e-3 of its largest
     entry; the updated params within 1e-6 where |g| > 1e-2 max|g| of the
     leaf (Adam's first step is lr * sign(g) there), within 2 lr elsewhere."""
     rng = np.random.default_rng(3)
     img = lambda *s: torch.from_numpy(rng.random(s, np.float32))  # noqa: E731
-    for mt in ("ImageEnhancer", "ConditionGenerator"):
+    for mt, masked in (("ImageEnhancer", False), ("ConditionGenerator", False),
+                       ("ImageEnhancer", True)):
         opt = _train_opt(mt)
         net_opt = dict(opt["network_g"])
         if mt == "ConditionGenerator":
@@ -358,14 +401,14 @@ def train_reference_check(devices=("cuda", "cpu")):
         else:
             batch = {"lq": img(2, 32, 32, 3), "gt": img(2, 32, 32, 3),
                      "gt_down": img(2, 8, 8, 3)}
+        if masked:
+            masks = MaskGenerator(32, 1, 1, 0.75, rng)
+            batch["mask"] = torch.from_numpy(np.stack([masks(), masks()]))
         net = build_network(net_opt, torch.Generator().manual_seed(5))
         res = {}
         for dev in devices:
             m = build_model(opt, device=dev, net=copy.deepcopy(net))
-            grads = {}
-            apply = m._apply_updates
-            m._apply_updates = lambda g, aux, apply=apply, grads=grads: (
-                grads.update(g), apply(g, aux))[1]
+            grads = _grad_capture(m)
             if mt == "ConditionGenerator":
                 erng = np.random.default_rng(9)
                 eps = {k: torch.from_numpy(erng.standard_normal(tuple(p.shape))
@@ -393,13 +436,18 @@ def train_reference_check(devices=("cuda", "cpu")):
                 param_err = max(param_err, (moved[clear] / (1 + pc[k][clear].abs())).max().item())
             param_far = max(param_far, (moved - 2 * lr * (1 + 1e-4 * p0[k].detach().abs())
                                         ).max().item())
-        print(f"train reference {mt} B=2 32x32 fp32: loss card {lg:.7f} cpu {lc:.7f} "
+        print(f"train reference {mt}{' with a mask' if masked else ''} B=2 32x32 fp32: loss "
+              f"card {lg:.7f} cpu {lc:.7f} "
               f"(rel {loss_rel:.2e}, tol 1e-4); grads max err / leaf max {grad_err:.2e} "
               f"(tol 1e-3) over {len(gc)} leaves; params max rel err {param_err:.2e} "
               f"(tol 1e-6), beyond one step {max(param_far, 0.0):.2e} (tol 1e-6)", flush=True)
+        token = gc["mask_token"].abs().max().item()  # 0 unless the mask reached the net
+        if masked:
+            print(f"train reference with a mask: the mask token's largest gradient {token:.3e}")
         if not (loss_rel <= 1e-4 and grad_err <= 1e-3 and param_err <= 1e-6
-                and param_far <= 1e-6):
-            raise AssertionError(f"{mt} train step on the card disagrees with the CPU")
+                and param_far <= 1e-6 and (token > 0) == masked):
+            raise AssertionError(f"{mt} train step (mask {masked}) on the card disagrees with "
+                                 f"the CPU")
 
 
 def train_phase(card: str):
@@ -868,6 +916,226 @@ def flagship_phase(card: str):
     return counts
 
 
+class _VGGBranch:
+    """Stands in for ``torch.nn.functional`` inside the perceptual loss: on
+    the card's run it records each ReLU's mask and each max-pool's indices;
+    on the CPU's run it applies the recorded ones (ReLU as x * mask, the pool
+    as a gather), so that both runs differentiate the same linear piece of
+    the VGG. Without it a max-pool tie or a ReLU input near 0 that the two
+    devices break differently moves a whole window's gradient, which no
+    tolerance on the gradients can allow for. ``flips`` counts the CPU's
+    own decisions that differ from the card's."""
+
+    conv2d = staticmethod(torch.nn.functional.conv2d)
+
+    def __init__(self):
+        self.decisions, self.replay, self.at, self.flips = [], False, 0, 0
+
+    def _next(self, own):
+        if not self.replay:
+            self.decisions.append(own.cpu())
+            return own
+        kept = self.decisions[self.at].to(own.device)
+        self.at += 1
+        self.flips += int((kept != own).sum())
+        return kept
+
+    def relu(self, x):
+        return x * self._next(x > 0)
+
+    def max_pool2d(self, x, kernel, stride):
+        _, own = torch.nn.functional.max_pool2d(x, kernel, stride, return_indices=True)
+        idx = self._next(own)
+        return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+
+def flagship_step_check(opt_path):
+    """One flagship ImageEnhancer step (B=2, 32x32, fp32, TF32 off) with the
+    perceptual loss, the MIM mask and mixup, on the card vs the CPU."""
+    from bem_tpu_torch.losses import perceptual
+
+    opt = parse(opt_path, is_train=True)
+    net = build_network(opt["network_g"], torch.Generator().manual_seed(6))
+    rng = np.random.default_rng(4)
+    img = lambda *s: rng.random(s, np.float32)  # noqa: E731
+    masks = MaskGenerator(32, 1, 1, 0.75, rng)
+    batch = {"lq": img(2, 32, 32, 3), "gt": img(2, 32, 32, 3), "gt_down": img(2, 2, 2, 3),
+             "mask": np.stack([masks(), masks()])}
+    noise = torch.from_numpy(rng.standard_normal((2, 2, 2, 3)).astype(np.float32))
+    branch, res = _VGGBranch(), {}
+    functional = perceptual.F
+    perceptual.F = branch
+    try:
+        for dev in ("cuda", "cpu"):
+            branch.replay = dev == "cpu"
+            m = build_model(opt, device=dev, net=copy.deepcopy(net))
+            decomp = {k: p.detach().cpu().clone() for k, p in m.params.items()
+                      if k in m.optimizer.frozen}
+            grads = _grad_capture(m)
+            logs = m.train_step(batch, noise=noise, lam=0.7)
+            kept = all(torch.equal(m.params[k].detach().cpu(), v) for k, v in decomp.items())
+            res[dev] = (float(logs["l_total"]), float(logs["l_percep"]),
+                        {k: g.cpu() for k, g in grads.items()}, kept and bool(decomp))
+            del m
+    finally:
+        perceptual.F = functional
+    (lg, pg, gg, kg), (lc, pc, gc, kc) = res["cuda"], res["cpu"]
+    loss_rel, percep_rel = abs(lg - lc) / abs(lc), abs(pg - pc) / abs(pc)
+    grad_err = max((gg[k] - gc[k]).abs().max().item() / max(gc[k].abs().max().item(), 1e-30)
+                   for k in gc)
+    n = sum(d.numel() for d in branch.decisions)
+    print(f"flagship train step B=2 32x32 fp32 (perceptual, mask, mixup lam 0.7), card vs CPU: "
+          f"loss {lg:.7f} / {lc:.7f} (rel {loss_rel:.2e}, tol 1e-4), l_percep {pg:.7f} / "
+          f"{pc:.7f} (rel {percep_rel:.2e}, tol 1e-4); grads max err / leaf max {grad_err:.2e} "
+          f"(tol 1e-3) over {len(gc)} leaves; the CPU on the card's {n} VGG ReLU / max-pool "
+          f"decisions ({branch.flips} of its own differ, tol {1e-4 * n:.0f}); decomp unchanged "
+          f"card {kg} cpu {kc}",
+          flush=True)
+    if not (loss_rel <= 1e-4 and percep_rel <= 1e-4 and grad_err <= 1e-3 and kg and kc
+            and branch.at == len(branch.decisions) and branch.flips <= 1e-4 * n):
+        raise AssertionError("the flagship train step on the card disagrees with the CPU")
+
+
+def flagship_train_phase(card: str):
+    """The flagship's and the QD decomposition's training at full width (phase 9c)."""
+    root = FLAGSHIP_TRAIN_DIR
+    opt_path = os.path.join(REPO, "Options", FLAGSHIP_OPTION)
+    prev = os.environ.get("BEM_ALLOW_RANDOM_VGG")
+    os.environ["BEM_ALLOW_RANDOM_VGG"] = "1"
+    try:
+        flagship_step_check(opt_path)
+        torch.cuda.empty_cache()
+        for sub, n, seed in (("train", FLAGSHIP_TRAIN_IMAGES, 51), ("val", 2, 52)):
+            smoke.write_eval_images(os.path.join(root, sub), n, H, W, seed)
+        dirs = {f"{sub}_{kind}": os.path.join(root, sub, folder) for sub in ("train", "val")
+                for kind, folder in (("low", "input"), ("high", "target"))}
+        smoke.reset_launch_counts()
+        counts = _flagship_cli(card, root, dirs)
+        _qd_train_and_evaluate(card, root, dirs)
+    finally:
+        if prev is None:
+            os.environ.pop("BEM_ALLOW_RANDOM_VGG", None)
+        else:
+            os.environ["BEM_ALLOW_RANDOM_VGG"] = prev
+    print(f"launches over the flagship train CLI: {counts}")
+    if min(counts[k] for k in smoke.BEM_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the flagship's training never launched: {counts}")
+    return counts
+
+
+def _flagship_cli(card, root, dirs):
+    exp = os.path.join(root, "experiments", "smoke_flagship_train")
+    common = ["--device", "cuda", "--force_yml",
+              f"datasets:train:dataroot_gt={dirs['train_high']}",
+              f"datasets:train:dataroot_lq={dirs['train_low']}",
+              f"datasets:val:dataroot_gt={dirs['val_high']}",
+              f"datasets:val:dataroot_lq={dirs['val_low']}",
+              "name=smoke_flagship_train", "logger:print_freq=1",
+              "logger:save_checkpoint_freq=2", "val:val_freq=2",
+              "logger:use_tb_logger=false", "logger:wandb:project=~"]
+    lines = _Lines()
+    logging.getLogger("bem_tpu_torch").addHandler(lines)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model, log, _ = _cli_run(FLAGSHIP_OPTION, common + ["train:total_iter=6"], root, lines)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        found = {k: [float(m) for line in log for m in re.findall(rf"{k}: (\S+)", line)]
+                 for k in ("l_pix", "l_percep")}
+        files = {sub: sorted(os.listdir(os.path.join(exp, sub)))
+                 for sub in ("models", "training_states")}
+        want = {"models": [f"net_g_{i}.msgpack" for i in (2, 4, 6, 7)],
+                "training_states": [f"{i}.state" for i in (2, 4, 6, 7)]}
+        if not all(len(v) == 6 and np.isfinite(v).all() for v in found.values()):
+            raise AssertionError(f"flagship train CLI: losses {found}")
+        if files != want or model.step != 6:
+            raise AssertionError(f"flagship train CLI: files {files}, step {model.step}")
+        state = load_state(os.path.join(exp, "training_states", "6.state"))
+        if set(state["opt_state"]) != {"inner_states"}:
+            raise AssertionError("flagship .state: not in multi_transform's layout")
+        _check_validation("flagship train CLI", model.metric_results)
+        mask = model.opt["datasets"]["train"].get("mim")
+        in_epoch = model.timings[1:]  # iter 1 builds and warms up
+        print(f"flagship train CLI ({FLAGSHIP_OPTION}, mim {mask}, perceptual_opt conv5_4 x "
+              f"{model.opt['train']['perceptual_opt']['perceptual_weight']}) 6 iters B=8 128x128 "
+              f"fp32: l_pix {[f'{x:.5f}' for x in found['l_pix']]}, l_percep "
+              f"{[f'{x:.5f}' for x in found['l_percep']]}; validation {H}x{W} PSNR "
+              f"{model.metric_results['psnr']:.4f} SSIM {model.metric_results['ssim']:.4f}; wall "
+              f"ms/step (data_time ms) by iter "
+              + ", ".join(f"{i}: {1e3 * wall:.1f} ({1e3 * data:.1f})"
+                          for i, _, data, wall in model.timings)
+              + f"; median of iters 2-6: wall {1e3 * statistics.median(t[3] for t in in_epoch):.1f} "
+              f"ms/step, data_time {1e3 * statistics.median(t[2] for t in in_epoch):.1f} ms; "
+              f"peak memory {peak:.2f} GiB; files {files['models']} {files['training_states']} "
+              f"({card})", flush=True)
+        del model
+        torch.cuda.empty_cache()
+        resumed, log, first = _cli_run(FLAGSHIP_OPTION,
+                                       common + ["train:total_iter=8", "--auto_resume"], root, lines)
+        net6 = _leaves(load_params(os.path.join(exp, "models", "net_g_6.msgpack")))
+        start = _leaves(state_dict_to_flax(resumed.net, first["params"]))
+        same = set(start) == set(net6) and all(np.array_equal(start[k], v) for k, v in net6.items())
+        lr_want = resumed.lr_schedule(6)
+        print(f"flagship auto-resume: first step iter {first['step'] + 1}, params bit-equal to "
+              f"net_g_6 {same}, lr {first['lr']:.9e} (iter 7 of an unbroken run {lr_want:.9e}); "
+              f"ends at iter {resumed.step}, PSNR {resumed.metric_results['psnr']:.4f}", flush=True)
+        if not (first["step"] == 6 and same and first["lr"] == lr_want and resumed.step == 8
+                and resumed.optimizer.count == 8):
+            raise AssertionError("flagship: the resumed run did not take up net_g_6 at iter 7")
+        _check_validation("flagship resumed CLI", resumed.metric_results)
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        logging.getLogger("bem_tpu_torch").removeHandler(lines)
+    return smoke.launch_counts()
+
+
+def _qd_train_and_evaluate(card, root, dirs):
+    out = os.path.join(root, "qd")
+    torch.cuda.reset_peak_memory_stats()
+    trainer, history = train_qd("model4", dirs["train_low"], dirs["train_high"], dirs["val_low"],
+                                dirs["val_high"], epochs=2, recon_only_epochs=1, out_dir=out,
+                                device="cuda")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    vals = [v for rec in history for v in rec.values()]
+    ckpt = os.path.join(out, "model4_1.msgpack")
+    per_epoch = FLAGSHIP_TRAIN_IMAGES // 8
+    if not (len(history) == 2 and np.isfinite(vals).all() and trainer.step == 2 * per_epoch
+            and os.path.exists(ckpt)):
+        raise AssertionError(f"qd.train: history {history}, step {trainer.step}")
+    with torch.no_grad():
+        q1, q2 = load_qd_net("model4", ckpt, "cuda")(torch.rand(1, 3, 64, 64, device="cuda"))
+    if not (torch.isfinite(q1).all() and torch.isfinite(q2).all()):
+        raise AssertionError("qd.train: its checkpoint gives non-finite output")
+    steps = trainer.timings
+    recon, retinex = steps[1:per_epoch], steps[per_epoch + 1:]  # each objective's first warms up
+    print(f"qd.train model4 patch 256 B=8, 2 epochs of {per_epoch} steps (recon-only, then "
+          f"Retinex): history {history}; ms/step {[round(1e3 * t, 1) for t in steps]}; median "
+          f"of steps 2-{per_epoch} (recon-only) {1e3 * statistics.median(recon):.1f} ms, of steps "
+          f"{per_epoch + 2}-{2 * per_epoch} (Retinex) {1e3 * statistics.median(retinex):.1f} ms; "
+          f"peak memory {peak:.2f} GiB ({card})", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    args = ["--model_type", "model4", "--low_dir", dirs["val_low"], "--high_dir", dirs["val_high"]]
+    res, secs = {}, {}
+    for tag, dev, extra in (("shipped cuda", "cuda", []), ("shipped cpu", "cpu", []),
+                            ("trained cuda", "cuda", ["--weights", ckpt])):
+        t0 = time.perf_counter()
+        res[tag] = qd_evaluate(args + ["--out_dir", os.path.join(root, "qd_eval", tag.replace(" ", "_")),
+                                       "--device", dev] + extra)
+        secs[tag] = (time.perf_counter() - t0) / 2
+        print(f"qd.evaluate {tag} on 2 pairs {H}x{W}: PSNR {res[tag]['psnr']:.6f} SSIM "
+              f"{res[tag]['ssim']:.6f} RCI {res[tag]['rci']:.6f}, {secs[tag]:.3f} s/img ({card})",
+              flush=True)
+        if not all(np.isfinite(v) for v in res[tag].values()):
+            raise AssertionError(f"qd.evaluate {tag}: {res[tag]}")
+    g, c = res["shipped cuda"], res["shipped cpu"]
+    drci, dpsnr = abs(g["rci"] - c["rci"]), abs(g["psnr"] - c["psnr"])
+    print(f"qd.evaluate shipped model4, card vs CPU: RCI diff {drci:.2e} (tol 1e-4), PSNR diff "
+          f"{dpsnr:.2e} dB (tol 0.01)", flush=True)
+    if not (drci <= 1e-4 and dpsnr <= 0.01):
+        raise AssertionError("qd.evaluate on the card disagrees with the CPU")
+
+
 def _narrow_cls_config(forward_type="v2"):
     c = get_config()
     v = c.MODEL.VSSM
@@ -1124,6 +1392,11 @@ def main() -> int:
         flagship_counts = flagship_phase(card)
     finally:
         shutil.rmtree(FLAGSHIP_DIR, ignore_errors=True)
+    phase("flagship and QD training at full width")
+    try:
+        flagship_train_counts = flagship_train_phase(card)
+    finally:
+        shutil.rmtree(FLAGSHIP_TRAIN_DIR, ignore_errors=True)
     phase("classifier reference checks")
     cls_ref_counts = cls_reference_check()
     phase("classifier training")
@@ -1141,11 +1414,12 @@ def main() -> int:
     phase("microbenchmarks")
     mb_counts = microbench_phase()
     # each kernel's launches over the runs of its own paths: the BEM kernels
-    # over the training, train / test CLI, serving, eval and flagship runs, the fused core and its backward
-    # over VMamba-T's, the clamped form over the narrow reference runs,
-    # selective_scan_fused over VMamba-T v052d's, the microbenchmarks over
-    # their sweeps
-    paths = {name: (train_counts, cli_counts, serve_counts, eval_counts, flagship_counts)
+    # over the training, train / test CLI, serving, eval, flagship and flagship
+    # training runs, the fused core and its backward over VMamba-T's, the
+    # clamped form over the narrow reference runs, selective_scan_fused over
+    # VMamba-T v052d's, the microbenchmarks over their sweeps
+    paths = {name: (train_counts, cli_counts, serve_counts, eval_counts, flagship_counts,
+                    flagship_train_counts)
              for name in smoke.BEM_KERNELS}
     paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts),
                  ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts),

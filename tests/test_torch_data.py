@@ -104,8 +104,8 @@ def test_paired_dataset_matches_bem_tpu(folder):
 
 
 def test_unported_options_raise(folder):
-    with pytest.raises(NotImplementedError, match="MIM"):
-        build_dataset(_opt(folder, "train", mim={"mask_ratio": 0.5}))
+    with pytest.raises(NotImplementedError, match="mim not supported for histogram"):
+        build_dataset(_opt(folder, "train", cond="histogram", mim={"mask_ratio": 0.5}))
     with pytest.raises(NotImplementedError, match="lmdb"):
         build_dataset(dict(_opt(folder, "train"), io_backend={"type": "lmdb"}))
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -36,7 +36,8 @@ def test_port_imports_no_jax():
     code = ("import sys, bem_tpu_torch.enhancement.pipeline, bem_tpu_torch.smoke, "
             "bem_tpu_torch.models, bem_tpu_torch.train, bem_tpu_torch.ops.scan, "
             "bem_tpu_torch.archs.decomp_archs, bem_tpu_torch.qd, bem_tpu_torch.ops.wavelet, "
-            "bem_tpu_torch.ops.quaternion, bem_tpu_torch.test; "
+            "bem_tpu_torch.ops.quaternion, bem_tpu_torch.test, bem_tpu_torch.qd.train, "
+            "bem_tpu_torch.qd.evaluate, bem_tpu_torch.losses.perceptual; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'bem_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
