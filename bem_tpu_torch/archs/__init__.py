@@ -9,8 +9,9 @@ import torch
 from ..nn.init import initialize
 from .decomp_archs import DECOMP_ARCHS
 from .unet_arch import BasicBlock, Network, SubNetwork
+from .vmunet_archs import VMUNET_ARCHS
 
-_ARCHS = {"Network": Network, **DECOMP_ARCHS}
+_ARCHS = {"Network": Network, **DECOMP_ARCHS, **VMUNET_ARCHS}
 
 
 def build_network(opt: dict, gen: torch.Generator = None):

@@ -3,25 +3,25 @@ bem_tpu/enhancement/eval.py; reference: Enhancement/eval.py).
 
     python -m bem_tpu_torch.enhancement.eval --opt CG.yml --weights cg.msgpack \\
         --cond_opt IE.yml --cond_weights ie.msgpack --input_dir ... --target_dir ... \\
-        [--num_samples 200] [--no_ref niqe|clip] [--GT_mean] [--Monte_Carlo] [--device cuda]
+        [--num_samples 200] [--no_ref niqe|clip|uiqm_uciqe [--uiqm_weight 1.0]] [--GT_mean]
+        [--Monte_Carlo] [--device cuda]
 
 The protocol of bem_tpu's CLI, flag for flag: reflect-pad to a multiple
 of 4 * scale, the /16 bilinear (or KDE-histogram) condition input, K
 Stage-I forwards each with its own Bayesian weight sample (or on mu under
 ``--deterministic``), clamp, the optional GT-mean rescale and condition
 noise, the x16 bilinear upsample and Stage II on cat(input, condition)
-in ``parallel_num`` chunks, candidate scoring (NIQE, CLIP-IQA or
-weighted PSNR + SSIM), argmax selection, the optional Monte-Carlo mean,
-ranked candidate dumps and result.txt. Checkpoints are bem_tpu's
-``.msgpack`` files; inputs are PNG or 24-bit BMP. One difference: the
-GT-mean rescales divide by a mean floored at float32's smallest normal,
-so a channel that is black everywhere stays black; bem_tpu's 0 / 0
-turns it, and everything after it, into NaN.
+in ``parallel_num`` chunks, candidate scoring (NIQE, CLIP-IQA, weighted
+UIQM + UCIQE or weighted PSNR + SSIM), argmax selection, the optional
+Monte-Carlo mean, ranked candidate dumps and result.txt. Checkpoints are
+bem_tpu's ``.msgpack`` files; inputs are PNG, 24-bit BMP or baseline
+JPEG. One difference: the GT-mean rescales divide by a mean floored at
+float32's smallest normal, so a channel that is black everywhere stays
+black; bem_tpu's 0 / 0 turns it, and everything after it, into NaN.
 
 It runs on the card (``--device cuda``, the default) through the port's
 kernels, or on the CPU through their plain versions when asked. Not
-ported: ``--no_ref uiqm_uciqe`` and ``--shard_samples on`` raise
-NotImplementedError (ROADMAP §1).
+ported: ``--shard_samples on`` raises NotImplementedError (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from ..archs import build_network
 from ..convert import load_flax_params
 from ..metrics.niqe import BLOCK, niqe_batch_rgb
 from ..metrics.psnr_ssim import calculate_psnr, calculate_ssim
+from ..metrics.uciqe_uiqm import uiqm_uciqe_batch
 from ..nn.layers import sample_bayes
 from ..ops.resize import resize_bilinear
 from ..utils.checkpoint import load_params
@@ -48,7 +49,7 @@ from ..utils.histogram import histogram_condition
 from ..utils.img_util import downsample, imread, imwrite
 from ..utils.options import parse
 
-IMAGE_EXTS = ("png", "jpg", "bmp", "tif")  # bem_tpu's glob; jpg / tif raise on reading
+IMAGE_EXTS = ("png", "jpg", "bmp", "tif")  # bem_tpu's glob; tif raises on reading
 RGB2GRAY = np.array([0.299, 0.587, 0.114], np.float32)  # cv2.COLOR_RGB2GRAY
 # floor of the means the GT-mean rescales divide by: an all-black channel
 # (mean 0) stays black where bem_tpu's 0 / 0 makes it NaN
@@ -180,9 +181,6 @@ def _ssim_u8(target, img):
 
 def main(args_list=None):
     args = build_parser().parse_args(args_list)
-    if args.no_ref == "uiqm_uciqe":
-        raise NotImplementedError("--no_ref uiqm_uciqe is not ported (it needs cv2's uint8 "
-                                  "Lab and PIL's bicubic resize; ROADMAP §1)")
     if args.shard_samples == "on":
         raise NotImplementedError("--shard_samples on (the K samples over several GPUs) is "
                                   "not ported (ROADMAP §1, multi-GPU)")
@@ -223,7 +221,7 @@ def main(args_list=None):
     k_candidates = make_k_pipeline(net, cond_net, K=K, P=P, cond_type=cond_type,
                                    noise_level=noise_level)
 
-    psnr_l, ssim_l, lpips_l, niqe_l = [], [], [], []
+    psnr_l, ssim_l, lpips_l, niqe_l, uiqm_l, uciqe_l = [], [], [], [], [], []
     mc_psnr, mc_ssim = [], []
     selected, all_scores = [], []  # per image: the chosen candidate and the K scores
     niqe_dev = {}  # NIQE scorer per candidate size
@@ -257,7 +255,8 @@ def main(args_list=None):
             cands = (cands * (tmean / mp)).clamp(0.0, 1.0)
 
         # ---- scoring + selection on all K candidates -------------------------
-        # NIQE and CLIP score on the device; all K candidates come to the host
+        # NIQE, CLIP and UIQM + UCIQE score on the device (UCIQE's 256 counts
+        # of L an image come to the host); all K candidates come to the host
         # only for PSNR / SSIM, the Monte-Carlo mean or --save_candidates
         scores, _idx = None, 0
         if args.no_ref == "niqe":
@@ -273,6 +272,14 @@ def main(args_list=None):
         elif args.no_ref == "clip":
             scores = clip_scorer.score(cands).tolist()
             _idx = int(np.argmax(scores))
+        elif args.no_ref == "uiqm_uciqe":
+            uiqms, uciqes = (v.tolist() for v in uiqm_uciqe_batch(cands))
+            combined = (args.uiqm_weight * np.array(uiqms) / max(uiqms)
+                        + (1 - args.uiqm_weight) * np.array(uciqes) / max(uciqes))
+            _idx = int(np.argmax(combined))
+            uiqm_l.append(uiqms[_idx])
+            uciqe_l.append(uciqes[_idx])
+            scores = combined.tolist()
         need_all = args.save_candidates or (target is not None
                                             and (not args.no_ref or args.Monte_Carlo))
         preds = cands.cpu().numpy() if need_all else None
@@ -327,12 +334,16 @@ def main(args_list=None):
         emit("Best_SSIM", ssim_l)
         emit("Best_lpips", lpips_l)
         emit("Best_NIQE", niqe_l)
+        emit("Best_UIQM", uiqm_l)
+        emit("Best_UCIQE", uciqe_l)
         emit("MC_PSNR", mc_psnr, "{:.4f} dB")
         emit("MC_SSIM", mc_ssim)
     return {
         "psnr": float(np.mean(psnr_l)) if psnr_l else None,
         "ssim": float(np.mean(ssim_l)) if ssim_l else None,
         "niqe": float(np.mean(niqe_l)) if niqe_l else None,
+        "uiqm": float(np.mean(uiqm_l)) if uiqm_l else None,
+        "uciqe": float(np.mean(uciqe_l)) if uciqe_l else None,
         "steady_s_per_img": float(np.median(per_img_s[1:])) if len(per_img_s) > 1 else None,
         "per_image_s": per_img_s,
         "selected": selected,

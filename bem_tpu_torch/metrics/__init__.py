@@ -4,8 +4,10 @@ dispatches a ``val.metrics`` entry by its ``type``."""
 from copy import deepcopy
 
 from .psnr_ssim import calculate_psnr, calculate_ssim
+from .uciqe_uiqm import calculate_uciqe, calculate_uiqm, getUCIQE, getUIQM
 
-METRICS = {"calculate_psnr": calculate_psnr, "calculate_ssim": calculate_ssim}
+METRICS = {"calculate_psnr": calculate_psnr, "calculate_ssim": calculate_ssim,
+           "calculate_uciqe": calculate_uciqe, "calculate_uiqm": calculate_uiqm}
 
 
 def calculate_metric(data, opt):

@@ -1435,3 +1435,78 @@ def write_flagship_checkpoint(path: str, opt_path: str) -> str:
     net.load_frozen()
     save_params(path, state_dict_to_flax(net))
     return path
+
+
+# flax module path -> the reference PyTorch module path (the inverse of
+# archs/convert_network.py's mapping), applied in order
+_REFERENCE_RENAMES = [
+    (r"^subnets_(\d+)/enc_(\d+)/blocks_(\d+)", r"subnets.\1.encoder_layers.\2.0.blocks.\3"),
+    (r"^subnets_(\d+)/down_(\d+)/conv$", r"subnets.\1.encoder_layers.\2.1"),
+    (r"^subnets_(\d+)/down_(\d+)", r"subnets.\1.encoder_layers.\2.1"),
+    (r"^subnets_(\d+)/bottleneck/blocks_(\d+)", r"subnets.\1.bottleneck.blocks.\2"),
+    (r"^subnets_(\d+)/up_(\d+)/deconv$", r"subnets.\1.decoder_layers.\2.0"),
+    (r"^subnets_(\d+)/up_(\d+)", r"subnets.\1.decoder_layers.\2.0"),
+    (r"^subnets_(\d+)/fusion_(\d+)", r"subnets.\1.decoder_layers.\2.1"),
+    (r"^subnets_(\d+)/dec_(\d+)/blocks_(\d+)", r"subnets.\1.decoder_layers.\2.2.blocks.\3"),
+    (r"up_(p|b)_conv1$", r"up_\1.0"), (r"up_(p|b)_prelu$", r"up_\1.1"),
+    (r"up_(p|b)_conv2$", r"up_\1.3"),
+    (r"^branches/enc_(Q\d)_(\d+)/block_(\d+)", r"encoders_\1.\2.\3"),
+    (r"^branches/down_(Q\d)_(\d+)", r"down_layers_\1.\2"),
+    (r"^branches/bottleneck/block_(\d+)", r"bottleneck_block.\1"),
+    (r"^branches/up_(Q\d)_(\d+)", r"decoders_\1.\2.up"),
+    (r"^branches/fuse_(Q\d)_(\d+)", r"decoders_\1.\2.fuse"),
+    (r"^branches/dec_(Q\d)_(\d+)/block_(\d+)", r"decoders_\1.\2.block.\3"),
+    (r"^branches/", ""),
+]
+
+
+def reference_state(tree) -> dict:
+    """A flax-layout ``Network`` tree (or a ``{"branches": ...}`` dual-branch
+    subtree) -> the reference PyTorch checkpoint's state dict (numpy): module
+    paths renamed to the reference's, conv kernels HWIO -> OIHW, transposed
+    conv kernels unflipped to (I, O, kh, kw), dense kernels (in, out) ->
+    (out, in), ``scale`` / ``slope`` -> ``weight``, the mask token NCHW."""
+    import re
+
+    flat = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if hasattr(v, "items"):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat[prefix + k] = np.asarray(v)
+
+    walk(tree, "")
+    sd = {}
+    for path, a in flat.items():
+        mod, _, leaf = path.rpartition("/")
+        transposed = mod.endswith("/deconv") or re.search(r"^branches/up_Q\d_\d+$", mod)
+        for pat, rep in _REFERENCE_RENAMES:
+            mod = re.sub(pat, rep, mod)
+        mod = mod.replace("/", ".")
+        if leaf in ("kernel", "mu_kernel", "rho_kernel"):
+            leaf = leaf.replace("kernel", "weight")
+            if transposed:
+                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
+            elif a.ndim == 4:
+                a = a.transpose(3, 2, 0, 1)
+            else:
+                a = a.T
+        elif leaf in ("scale", "slope"):
+            leaf = "weight"
+        elif leaf == "mask_token":
+            a = a.transpose(0, 3, 1, 2)
+        sd[f"{mod}.{leaf}" if mod else leaf] = np.ascontiguousarray(a)
+    return sd
+
+
+def write_reference_checkpoint(path: str, net) -> str:
+    """The port's ``Network`` as a reference-layout ``ckpt.pth`` (its state
+    dict under ``params``, as the released checkpoints hold it). Returns
+    ``path``."""
+    from .convert import state_dict_to_flax
+
+    sd = reference_state(state_dict_to_flax(net))
+    torch.save({"params": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
+    return path

@@ -14,9 +14,9 @@ import os
 
 import numpy as np
 
-from .image_codec import PNG_SIGNATURE, decode_bmp, decode_png, encode_png
+from .image_codec import PNG_SIGNATURE, decode_bmp, decode_jpeg, decode_png, encode_png
 
-_UNSUPPORTED = ((b"\xff\xd8\xff", "JPEG"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
+_UNSUPPORTED = ((b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"))
 
 
 def imdecode(data: bytes, name: str = "<bytes>") -> np.ndarray:
@@ -25,11 +25,14 @@ def imdecode(data: bytes, name: str = "<bytes>") -> np.ndarray:
         return decode_png(data, name)
     if data[:2] == b"BM":
         return decode_bmp(data, name)
+    if data[:3] == b"\xff\xd8\xff":
+        return decode_jpeg(data, name)
     for magic, kind in _UNSUPPORTED:
         if data.startswith(magic):
-            raise ValueError(f"{name}: {kind} decoding is not supported (PNG and 24-bit BMP "
-                             f"are); convert the image to PNG")
-    raise ValueError(f"{name}: unknown image format (PNG and 24-bit BMP are supported)")
+            raise ValueError(f"{name}: {kind} decoding is not supported (PNG, 24-bit BMP and "
+                             f"baseline JPEG are); convert the image to PNG")
+    raise ValueError(f"{name}: unknown image format (PNG, 24-bit BMP and baseline JPEG are "
+                     f"supported)")
 
 
 def imfrombytes(content: bytes, float32: bool = False, name: str = "<bytes>") -> np.ndarray:

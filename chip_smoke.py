@@ -127,6 +127,30 @@ result line):
      with that checkpoint (PSNR, SSIM, RCI), the shipped model4 also on the
      CPU (RCI within 1e-4, PSNR within 0.01 dB); every kernel of rows 1-7
      must launch over the CLI runs;
+  9d. the VMUNet family, the UIQM + UCIQE eval and reference checkpoints at
+     full width (random VGG19 features): the JPEG decoder on the committed
+     fixtures (bem_tpu_torch/testdata) against the PNGs of cv2's decodes
+     beside them, with its host ms at 400x600; one ImageEnhancer step of
+     TwoBranch_1 (TunedModel) and TwoBranch_3 (FusedTunedModel) from their
+     option files (B=2, 32x32, fp32, TF32 off, perceptual loss and mask)
+     on the card vs the CPU, the CPU on the card's VGG decisions (as 9c);
+     the train CLI on both option files as they are (B=8, 128x128, mim,
+     perceptual) on 48 + 2 seeded 400x600 PNG pairs, 6 iters and the one
+     validation at the end (ms/step and data_time, median of iters 2-6;
+     peak memory), then the test CLI on net_g_6 (the validation's PSNR);
+     the eval CLI with the LOLv1 CG and each TwoBranch IE at 400x600, K=16,
+     parallel_num 8, on two committed JPEG fixtures, --no_ref uiqm_uciqe
+     (--uiqm_weight 0.5) and --no_ref niqe, TF32 defaults (s/img), the
+     CPU's scorer on the card's K=16 candidates of one image (within 1e-5
+     relative for UIQM and 1e-8 for UCIQE), the scorer alone at K=16 (ms),
+     the CLI again on the card and the CPU on a 112x176 crop of a fixture
+     (K=4, noise 0, the same injected weight noise: the same pick, the
+     written PNGs within 1 LSB, the scorer as above); eval_uciqe_uiqm
+     (card vs CPU) and cal_metrics_with_imgs on an output folder; every
+     kernel of rows 1-7 must launch over the CLI runs; then
+     reference-layout ckpt.pth files of the LOLv1 CG (Bayesian mu / rho)
+     and IE, seeded, through convert_network_checkpoint: the forward
+     equals the source net's on the CPU and agrees card vs CPU (2e-4);
  10. the VMamba classifier (VSSM, forward_type v2) at narrow width (embed
      16, depths (1,1), d_state 16, 32x32), fp32: logits and one train step
      on the card vs the CPU at B=1 (the fused core) and B=2 (its clamped
@@ -198,7 +222,12 @@ from bem_tpu_torch.nn.ss2d import SS2D
 from bem_tpu_torch.qd.evaluate import load_qd_net
 from bem_tpu_torch.qd.evaluate import main as qd_evaluate
 from bem_tpu_torch.qd.train import train_qd
+import bem_tpu_torch.enhancement.eval as eval_module
+from bem_tpu_torch.archs.convert_network import convert_network_checkpoint
+from bem_tpu_torch.enhancement.cal_metrics_with_imgs import main as cal_metrics
 from bem_tpu_torch.enhancement.eval import main as eval_main
+from bem_tpu_torch.enhancement.eval_uciqe_uiqm import main as folder_uciqe_uiqm
+from bem_tpu_torch.metrics.uciqe_uiqm import uiqm_uciqe_batch
 from bem_tpu_torch.enhancement.pipeline import build_pipeline, padded_size
 from bem_tpu_torch.models import build_model
 from bem_tpu_torch.options import lolv1_options
@@ -207,7 +236,7 @@ from bem_tpu_torch.models.base_model import BaseModel
 from bem_tpu_torch.test import test_pipeline
 from bem_tpu_torch.train import synthetic_batch, train_pipeline
 from bem_tpu_torch.utils.checkpoint import load_params, load_state
-from bem_tpu_torch.utils.img_util import imread
+from bem_tpu_torch.utils.img_util import imdecode, imread, imwrite
 from bem_tpu_torch.utils.mask import MaskGenerator
 from bem_tpu_torch.utils.options import parse
 
@@ -238,6 +267,15 @@ FLAGSHIP_TIMED = 3  # IE forwards timed at batch 8, after one warm-up
 FLAGSHIP_TRAIN_DIR = os.path.join(REPO, "results", "chip_smoke_flagship_train")  # removed at the end
 # six batches of 8 an epoch: five timed in-epoch steps after the first
 FLAGSHIP_TRAIN_IMAGES = 48
+VMUNET_DIR = os.path.join(REPO, "results", "chip_smoke_vmunet")  # gitignored, removed at the end
+VMUNET_OPTIONS = ("TwoBranch_1.yml", "TwoBranch_3.yml")  # TunedModel, FusedTunedModel
+VMUNET_TRAIN_IMAGES = 48
+JPEG_FIXTURES = os.path.join(REPO, "bem_tpu_torch", "testdata")
+VMUNET_EVAL_IMAGES = ("a_420_q95.jpg", "b_444_dri.jpg")
+# the card-vs-CPU eval run: K and the crop of a fixture it takes (the CPU
+# forwards a full-width IE: at 400x600 that takes minutes on the card's host)
+VMUNET_CPU_K = 4
+CPU_CROP = (112, 176)
 
 
 def phase(name):
@@ -723,15 +761,24 @@ def _eval_files(root, n, h, w, seed, noise_level=None, options=EVAL_OPTIONS):
     smoke.write_eval_images(root, n, h, w, seed)
     if noise_level is None:
         return [os.path.join(REPO, "Options", name) for name in options]
+    return _copy_options(root, options, **{"noise_level: 0.1": f"noise_level: {noise_level}"})
+
+
+def _copy_options(root, names, **replace):
+    """The option files ``names`` copied under ``root`` with each key of
+    ``replace`` replaced by its value. Returns the copies' paths."""
+    os.makedirs(root, exist_ok=True)
     paths = []
-    for name in options:
+    for name in names:
         with open(os.path.join(REPO, "Options", name)) as f:
             text = f.read()
-        if "noise_level: 0.1" not in text:
-            raise AssertionError(f"{name}: no noise_level line to change")
+        for old, new in replace.items():
+            if old not in text:
+                raise AssertionError(f"{name}: no '{old}' to change")
+            text = text.replace(old, new)
         paths.append(os.path.join(root, name))
         with open(paths[-1], "w") as f:
-            f.write(text.replace("noise_level: 0.1", f"noise_level: {noise_level}"))
+            f.write(text)
     return paths
 
 
@@ -949,12 +996,15 @@ class _VGGBranch:
         return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
 
 
-def flagship_step_check(opt_path):
-    """One flagship ImageEnhancer step (B=2, 32x32, fp32, TF32 off) with the
-    perceptual loss, the MIM mask and mixup, on the card vs the CPU."""
+def train_step_check(opt_path, label="flagship"):
+    """One ImageEnhancer step of the option file's net (B=2, 32x32, fp32, TF32
+    off) with its perceptual loss, the MIM mask and (where the file turns it
+    on) mixup, on the card vs the CPU; a net with a frozen decomposition
+    must leave it unchanged on both."""
     from bem_tpu_torch.losses import perceptual
 
     opt = parse(opt_path, is_train=True)
+    mixup = opt["train"].get("mixing_augs", {}).get("mixup", False)
     net = build_network(opt["network_g"], torch.Generator().manual_seed(6))
     rng = np.random.default_rng(4)
     img = lambda *s: rng.random(s, np.float32)  # noqa: E731
@@ -974,8 +1024,9 @@ def flagship_step_check(opt_path):
             grads = _grad_capture(m)
             logs = m.train_step(batch, noise=noise, lam=0.7)
             kept = all(torch.equal(m.params[k].detach().cpu(), v) for k, v in decomp.items())
+            frozen = hasattr(m.net, "frozen_subtrees")
             res[dev] = (float(logs["l_total"]), float(logs["l_percep"]),
-                        {k: g.cpu() for k, g in grads.items()}, kept and bool(decomp))
+                        {k: g.cpu() for k, g in grads.items()}, kept and bool(decomp) == frozen)
             del m
     finally:
         perceptual.F = functional
@@ -984,16 +1035,17 @@ def flagship_step_check(opt_path):
     grad_err = max((gg[k] - gc[k]).abs().max().item() / max(gc[k].abs().max().item(), 1e-30)
                    for k in gc)
     n = sum(d.numel() for d in branch.decisions)
-    print(f"flagship train step B=2 32x32 fp32 (perceptual, mask, mixup lam 0.7), card vs CPU: "
+    print(f"{label} train step B=2 32x32 fp32 (perceptual, mask"
+          f"{', mixup lam 0.7' if mixup else ', mixup off'}), card vs CPU: "
           f"loss {lg:.7f} / {lc:.7f} (rel {loss_rel:.2e}, tol 1e-4), l_percep {pg:.7f} / "
           f"{pc:.7f} (rel {percep_rel:.2e}, tol 1e-4); grads max err / leaf max {grad_err:.2e} "
           f"(tol 1e-3) over {len(gc)} leaves; the CPU on the card's {n} VGG ReLU / max-pool "
-          f"decisions ({branch.flips} of its own differ, tol {1e-4 * n:.0f}); decomp unchanged "
-          f"card {kg} cpu {kc}",
+          f"decisions ({branch.flips} of its own differ, tol {1e-4 * n:.0f}); frozen parts "
+          f"unchanged card {kg} cpu {kc}",
           flush=True)
     if not (loss_rel <= 1e-4 and percep_rel <= 1e-4 and grad_err <= 1e-3 and kg and kc
             and branch.at == len(branch.decisions) and branch.flips <= 1e-4 * n):
-        raise AssertionError("the flagship train step on the card disagrees with the CPU")
+        raise AssertionError(f"the {label} train step on the card disagrees with the CPU")
 
 
 def flagship_train_phase(card: str):
@@ -1003,7 +1055,7 @@ def flagship_train_phase(card: str):
     prev = os.environ.get("BEM_ALLOW_RANDOM_VGG")
     os.environ["BEM_ALLOW_RANDOM_VGG"] = "1"
     try:
-        flagship_step_check(opt_path)
+        train_step_check(opt_path)
         torch.cuda.empty_cache()
         for sub, n, seed in (("train", FLAGSHIP_TRAIN_IMAGES, 51), ("val", 2, 52)):
             smoke.write_eval_images(os.path.join(root, sub), n, H, W, seed)
@@ -1134,6 +1186,302 @@ def _qd_train_and_evaluate(card, root, dirs):
           f"{dpsnr:.2e} dB (tol 0.01)", flush=True)
     if not (drci <= 1e-4 and dpsnr <= 0.01):
         raise AssertionError("qd.evaluate on the card disagrees with the CPU")
+
+
+def jpeg_fixture_check(card):
+    """The JPEG decoder on the committed fixtures against the PNGs of cv2's
+    decodes committed beside them (the card's machine has no cv2), and its
+    host time at 400x600."""
+    for name in sorted(f for f in os.listdir(JPEG_FIXTURES) if f.endswith(".jpg")):
+        path = os.path.join(JPEG_FIXTURES, name)
+        with open(path, "rb") as f:
+            data = f.read()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = imdecode(data, path)
+            times.append(time.perf_counter() - t0)
+        want = imread(path[:-4] + ".png", float32=False)
+        same = got.shape == want.shape == (H, W, 3) and np.array_equal(got, want)
+        print(f"JPEG {name} ({len(data)} bytes): decode {1e3 * statistics.median(times):.1f} ms "
+              f"(median of 3, host), equal to cv2's decode {same} ({card})", flush=True)
+        if not same:
+            raise AssertionError(f"{name}: the JPEG decoder disagrees with cv2's decode")
+
+
+def _vmunet_cli(card, root, name, dirs):
+    """The train CLI on a TwoBranch option file as it is (6 iters; its
+    val_freq of 1000 leaves the one validation at the end), then the test
+    CLI on its net_g."""
+    tag = name[:-4]
+    exp = os.path.join(root, "experiments", f"smoke_{tag}")
+    common = ["--device", "cuda", "--force_yml",
+              f"datasets:train:dataroot_gt={dirs['train_high']}",
+              f"datasets:train:dataroot_lq={dirs['train_low']}",
+              f"datasets:val:dataroot_gt={dirs['val_high']}",
+              f"datasets:val:dataroot_lq={dirs['val_low']}",
+              f"name=smoke_{tag}", "logger:print_freq=1", "logger:save_checkpoint_freq=6",
+              "logger:use_tb_logger=false", "logger:wandb:project=~", "train:total_iter=6"]
+    lines = _Lines()
+    logging.getLogger("bem_tpu_torch").addHandler(lines)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model, log, _ = _cli_run(name, common, root, lines)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        logging.getLogger("bem_tpu_torch").removeHandler(lines)
+    found = {k: [float(m) for line in log for m in re.findall(rf"{k}: (\S+)", line)]
+             for k in ("l_pix", "l_percep")}
+    models = sorted(os.listdir(os.path.join(exp, "models")))
+    if not all(len(v) == 6 and np.isfinite(v).all() for v in found.values()):
+        raise AssertionError(f"{tag} train CLI: losses {found}")
+    if models != ["net_g_6.msgpack", "net_g_7.msgpack"] or model.step != 6:
+        raise AssertionError(f"{tag} train CLI: models {models}, step {model.step}")
+    _check_validation(f"{tag} train CLI", model.metric_results)
+    in_epoch = model.timings[1:]  # iter 1 builds and warms up
+    print(f"{tag} train CLI ({model.opt['network_g']['type']}, n_feat "
+          f"{model.opt['network_g']['n_feat']}, mim {model.opt['datasets']['train'].get('mim')}, "
+          f"perceptual conv5_4 x {model.opt['train']['perceptual_opt']['perceptual_weight']}) "
+          f"6 iters B=8 128x128 fp32: l_pix {[f'{x:.5f}' for x in found['l_pix']]}, l_percep "
+          f"{[f'{x:.5f}' for x in found['l_percep']]}; validation {H}x{W} PSNR "
+          f"{model.metric_results['psnr']:.4f} SSIM {model.metric_results['ssim']:.4f}; wall "
+          f"ms/step (data_time ms) by iter "
+          + ", ".join(f"{i}: {1e3 * wall:.1f} ({1e3 * data:.1f})"
+                      for i, _, data, wall in model.timings)
+          + f"; median of iters 2-6: wall {1e3 * statistics.median(t[3] for t in in_epoch):.1f} "
+          f"ms/step, data_time {1e3 * statistics.median(t[2] for t in in_epoch):.1f} ms; "
+          f"peak memory {peak:.2f} GiB ({card})", flush=True)
+    last_psnr = model.metric_results["psnr"]
+    del model
+    torch.cuda.empty_cache()
+    tested = test_pipeline(root, [
+        "--opt", _test_options(name, root), "--device", "cuda", "--force_yml",
+        f"datasets:val:dataroot_gt={dirs['val_high']}",
+        f"datasets:val:dataroot_lq={dirs['val_low']}", f"name=smoke_{tag}_test",
+        f"path:pretrain_network_g={os.path.join(exp, 'models', 'net_g_6.msgpack')}"]).metric_results
+    _check_validation(f"{tag} test CLI", tested)
+    dpsnr = abs(tested["psnr"] - last_psnr)
+    print(f"{tag} test CLI on net_g_6, 2 images {H}x{W}: PSNR {tested['psnr']:.6f} SSIM "
+          f"{tested['ssim']:.6f}; the train CLI's validation {last_psnr:.6f} (diff {dpsnr:.2e}, "
+          f"tol 5e-5)", flush=True)
+    if not dpsnr <= 5e-5:
+        raise AssertionError(f"{tag}: the test CLI does not give the last validation's PSNR")
+
+
+def _inject_cg_eps(opt_path, n, seed):
+    """n seeded weight-noise draws of the CG of ``opt_path``, handed out in
+    call order to the eval CLI's ``sample_bayes``; returns the restore."""
+    from bem_tpu_torch.nn.layers import sample_bayes
+
+    opt = parse(opt_path, is_train=False)
+    cg = build_network(dict(opt["network_g"], bayesian=True, sigma_init=0.05))
+    rng = np.random.default_rng(seed)
+    draws = iter([{k: torch.from_numpy(rng.standard_normal(tuple(p.shape)).astype(np.float32))
+                   for k, p in cg.named_parameters() if k.rpartition(".")[2].startswith("mu_")}
+                  for _ in range(n)])
+    eval_module.sample_bayes = lambda net, gen=None, e=None: sample_bayes(net, gen, next(draws))
+    return lambda: setattr(eval_module, "sample_bayes", sample_bayes)
+
+
+def _recording_scorer(seen):
+    """The eval CLI's UIQM + UCIQE scorer, recording each call's candidates
+    (on the host) and scores in ``seen``."""
+    scorer = eval_module.uiqm_uciqe_batch
+
+    def record(cands):
+        seen.append((cands.detach().cpu(), scorer(cands)))
+        return seen[-1][1]
+
+    return record
+
+
+def _scorer_card_vs_cpu(cands, scores):
+    """The CPU's scorer on the card's candidates: (UIQM max relative diff,
+    UCIQE max abs diff)."""
+    uiqm_g, uciqe_g = scores
+    uiqm_c, uciqe_c = uiqm_uciqe_batch(cands)
+    return (float(np.max(np.abs(uiqm_g - uiqm_c) / np.abs(uiqm_c))),
+            float(np.max(np.abs(uciqe_g - uciqe_c))))
+
+
+def _vmunet_eval(card, root):
+    """The eval CLI with the seeded LOLv1 Network CG and each TwoBranch IE at
+    400x600, K=16, on two committed JPEG fixtures, --no_ref uiqm_uciqe
+    (--uiqm_weight 0.5) and niqe; the CPU's scorer on the card's K=16
+    candidates; the scorer's own time at K=16; the CLI again card vs CPU on
+    one image (a 112x176 crop: the CPU forwards a full-width IE); both
+    folder CLIs on an output folder."""
+    inp = os.path.join(root, "eval_input")
+    os.makedirs(inp, exist_ok=True)
+    for name in VMUNET_EVAL_IMAGES:
+        shutil.copy(os.path.join(JPEG_FIXTURES, name), inp)
+    cg = os.path.join(REPO, "Options", EVAL_OPTIONS[0])
+    modes = {"uiqm_uciqe": ["--no_ref", "uiqm_uciqe", "--uiqm_weight", "0.5"],
+             "niqe": ["--no_ref", "niqe"]}
+    outs, seen = {}, []
+    scorer = eval_module.uiqm_uciqe_batch
+    for ie in VMUNET_OPTIONS:
+        for mode, extra in modes.items():
+            out = os.path.join(root, f"eval_{ie[:-4]}_{mode}")
+            eval_module.uiqm_uciqe_batch = _recording_scorer(seen) if not seen else scorer
+            try:
+                res = eval_main(["--opt", cg, "--cond_opt", os.path.join(REPO, "Options", ie),
+                                 "--input_dir", inp, "--result_dir", out, "--num_samples",
+                                 str(K), "--parallel_num", "8", "--seed", "5", "--device",
+                                 "cuda", *extra])
+            finally:
+                eval_module.uiqm_uciqe_batch = scorer
+            scores = [v for s in res["scores"] for v in s]
+            if not (all(0 <= i < K for i in res["selected"]) and len(scores) == NIMG * K
+                    and np.isfinite(scores).all() and res["steady_s_per_img"]):
+                raise AssertionError(f"eval {ie} {mode}: bad result {res}")
+            for name in VMUNET_EVAL_IMAGES:
+                got = imread(os.path.join(out, "dataset", name[:-4] + ".png"))
+                if got.shape != (H, W, 3):
+                    raise AssertionError(f"eval {ie} {mode}: output {name} is {got.shape}")
+            got = (f"UIQM {res['uiqm']:.4f} UCIQE {res['uciqe']:.4f}" if mode == "uiqm_uciqe"
+                   else f"NIQE {res['niqe']:.4f}")
+            print(f"eval CG {EVAL_OPTIONS[0]} + IE {ie} --no_ref {mode} K={K} parallel_num 8 "
+                  f"{H}x{W} JPEG inputs, fp32, TF32 defaults: {res['steady_s_per_img']:.4f} s/img "
+                  f"(image 2; image 1 {res['per_image_s'][0]:.2f} s), selected {res['selected']}, "
+                  f"{got} ({card})", flush=True)
+            outs[(ie, mode)] = os.path.join(out, "dataset")
+            torch.cuda.empty_cache()
+    uiqm_rel, uciqe_err = _scorer_card_vs_cpu(*seen[0])
+    print(f"UIQM + UCIQE scorer on the card's {K} candidates {H}x{W} (the first image of IE "
+          f"{VMUNET_OPTIONS[0]}), card vs CPU: UIQM max rel diff {uiqm_rel:.2e} (tol 1e-5), "
+          f"UCIQE max diff {uciqe_err:.2e} (tol 1e-8)", flush=True)
+    if not (uiqm_rel <= 1e-5 and uciqe_err <= 1e-8):
+        raise AssertionError("the UIQM + UCIQE scorer on the card disagrees with the CPU")
+
+    # the scorer alone on K candidates of the runs' size
+    cands = torch.rand(K, H, W, 3, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(3))
+    times = []
+    for i in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        uiqm_uciqe_batch(cands)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"uiqm_uciqe_batch K={K} {H}x{W} on the card: {1e3 * statistics.median(times[1:]):.2f} "
+          f"ms (median of 5 after a warm-up, host clock, the 256-count histograms to the host "
+          f"included) ({card})", flush=True)
+    del cands
+
+    # the CLI again, card vs CPU, on a crop of one fixture: noise 0, the same
+    # injected weight noise
+    opts = _copy_options(os.path.join(root, "noise0"), (EVAL_OPTIONS[0], VMUNET_OPTIONS[0]),
+                         **{"noise_level: 0.1": "noise_level: 0"})
+    one = os.path.join(root, "one")
+    y0, x0 = (H - CPU_CROP[0]) // 2, (W - CPU_CROP[1]) // 2
+    crop = imread(os.path.join(JPEG_FIXTURES, VMUNET_EVAL_IMAGES[0]), float32=False)
+    imwrite(crop[y0:y0 + CPU_CROP[0], x0:x0 + CPU_CROP[1]], os.path.join(one, "0.png"))
+    runs, res = {}, {}
+    for dev in ("cuda", "cpu"):
+        restore = _inject_cg_eps(opts[0], VMUNET_CPU_K, seed=61)
+        runs[dev] = []
+        eval_module.uiqm_uciqe_batch = _recording_scorer(runs[dev])
+        try:
+            res[dev] = eval_main(["--opt", opts[0], "--cond_opt", opts[1], "--input_dir", one,
+                                  "--result_dir", os.path.join(root, f"one_{dev}"),
+                                  "--num_samples", str(VMUNET_CPU_K), "--parallel_num", "4",
+                                  "--seed", "5", "--device", dev, *modes["uiqm_uciqe"]])
+        finally:
+            eval_module.uiqm_uciqe_batch = scorer
+            restore()
+    uiqm_rel, uciqe_err = _scorer_card_vs_cpu(*runs["cuda"][0])
+    g, c = res["cuda"], res["cpu"]
+    lsb = int(np.abs(imread(os.path.join(root, "one_cuda", "dataset", "0.png"),
+                            float32=False).astype(int)
+                     - imread(os.path.join(root, "one_cpu", "dataset", "0.png"),
+                              float32=False).astype(int)).max())
+    print(f"eval uiqm_uciqe card vs CPU, IE {VMUNET_OPTIONS[0]}, one {CPU_CROP[0]}x{CPU_CROP[1]} "
+          f"crop of {VMUNET_EVAL_IMAGES[0]}, K={VMUNET_CPU_K}, noise 0, the same weight noise: "
+          f"selected card {g['selected']} cpu {c['selected']}, written image max diff {lsb} LSB "
+          f"(tol 1); the CPU's scorer on the card's candidates: UIQM max rel diff "
+          f"{uiqm_rel:.2e} (tol 1e-5), UCIQE max diff {uciqe_err:.2e} (tol 1e-8); the picks' "
+          f"UIQM {g['uiqm']:.6f} / {c['uiqm']:.6f}, UCIQE {g['uciqe']:.8f} / {c['uciqe']:.8f}",
+          flush=True)
+    if not (g["selected"] == c["selected"] and lsb <= 1 and uiqm_rel <= 1e-5
+            and uciqe_err <= 1e-8):
+        raise AssertionError("eval uiqm_uciqe on the card disagrees with the CPU")
+
+    # the folder CLIs on an output folder of the uiqm_uciqe run
+    folder = outs[(VMUNET_OPTIONS[0], "uiqm_uciqe")]
+    folder_res = {dev: folder_uciqe_uiqm([folder, "--device", dev]) for dev in ("cuda", "cpu")}
+    (ug, qg), (uc, qc) = folder_res["cuda"], folder_res["cpu"]
+    cal = cal_metrics(["--pred_dir", folder, "--gt_dir", inp, "--device", "cuda"])
+    print(f"eval_uciqe_uiqm on {NIMG} outputs {H}x{W} (full size): UCIQE {ug:.6f} / CPU {uc:.6f}, "
+          f"UIQM {qg:.6f} / CPU {qc:.6f}; cal_metrics_with_imgs outputs vs inputs: PSNR "
+          f"{cal['psnr']:.4f} SSIM {cal['ssim']:.4f}", flush=True)
+    if not (abs(ug - uc) <= 1e-8 and abs(qg - qc) <= 1e-5 * abs(qc)
+            and np.isfinite(cal["psnr"]) and -1 <= cal["ssim"] <= 1):
+        raise AssertionError("the folder CLIs: bad or disagreeing results")
+
+
+def _reference_checkpoint_check(card, root):
+    """Reference-layout ckpt.pth files of the LOLv1 CG (Bayesian mu / rho) and
+    IE at full width, drawn from a seed, through the port's converter: the
+    forward equals the source net's on the CPU and agrees card vs CPU."""
+    for name, bayes, shape in ((EVAL_OPTIONS[0], True, (1, 28, 40, 3)),
+                               (EVAL_OPTIONS[1], False, (2, 128, 192, 6))):
+        opt = parse(os.path.join(REPO, "Options", name), is_train=False)
+        net_opt = dict(opt["network_g"], **({"bayesian": True, "sigma_init": 0.05}
+                                             if bayes else {}))
+        src = build_network(net_opt, torch.Generator().manual_seed(71)).eval()
+        path = smoke.write_reference_checkpoint(os.path.join(root, f"ckpt_{name[:-4]}.pth"), src)
+        tree = convert_network_checkpoint(
+            path, num_blocks=tuple(net_opt["num_blocks"]), stage=net_opt.get("stage", 1),
+            use_pixelshuffle=net_opt.get("use_pixelshuffle", True))
+        net = load_flax_params(build_network(net_opt, torch.Generator().manual_seed(72)),
+                               tree).eval()
+        x = torch.from_numpy(np.random.default_rng(73).random(shape, np.float32))
+        with torch.no_grad():
+            want = src(x)[-1]
+            cpu = net(x)[-1]
+            gpu = copy.deepcopy(net).cuda()(x.cuda())[-1].cpu()
+        err = float((gpu - cpu).abs().max()) / max(1.0, float(cpu.abs().max()))
+        print(f"reference ckpt.pth {name[:-4]} ({'Bayesian mu / rho, ' if bayes else ''}n_feat "
+              f"{net_opt['n_feat']}, blocks {tuple(net_opt['num_blocks'])}, "
+              f"{os.path.getsize(path) / 2 ** 20:.2f} MiB): converted forward on {tuple(shape)} "
+              f"equals the source net's on the CPU {torch.equal(cpu, want)}; card vs CPU "
+              f"{err:.2e} (tol 2e-4 of max(1, |cpu|))", flush=True)
+        if not (torch.equal(cpu, want) and err <= 2e-4):
+            raise AssertionError(f"{name}: the converted reference checkpoint disagrees")
+
+
+def vmunet_phase(card: str):
+    """The VMUNet family, the UIQM + UCIQE eval and reference checkpoints at
+    full width (phase 9d)."""
+    root = VMUNET_DIR
+    prev = os.environ.get("BEM_ALLOW_RANDOM_VGG")
+    os.environ["BEM_ALLOW_RANDOM_VGG"] = "1"
+    try:
+        jpeg_fixture_check(card)
+        for name in VMUNET_OPTIONS:
+            train_step_check(os.path.join(REPO, "Options", name), name[:-4])
+            torch.cuda.empty_cache()
+        for sub, n, seed in (("train", VMUNET_TRAIN_IMAGES, 81), ("val", 2, 82)):
+            smoke.write_eval_images(os.path.join(root, sub), n, H, W, seed)
+        dirs = {f"{sub}_{kind}": os.path.join(root, sub, folder) for sub in ("train", "val")
+                for kind, folder in (("low", "input"), ("high", "target"))}
+        smoke.reset_launch_counts()
+        for name in VMUNET_OPTIONS:
+            _vmunet_cli(card, root, name, dirs)
+        with torch_tf32_defaults():
+            _vmunet_eval(card, root)
+        counts = smoke.launch_counts()
+    finally:
+        if prev is None:
+            os.environ.pop("BEM_ALLOW_RANDOM_VGG", None)
+        else:
+            os.environ["BEM_ALLOW_RANDOM_VGG"] = prev
+    print(f"launches over the VMUNet family's CLI runs: {counts}")
+    if min(counts[k] for k in smoke.BEM_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the VMUNet family's paths never launched: {counts}")
+    _reference_checkpoint_check(card, root)
+    return counts
 
 
 def _narrow_cls_config(forward_type="v2"):
@@ -1397,6 +1745,11 @@ def main() -> int:
         flagship_train_counts = flagship_train_phase(card)
     finally:
         shutil.rmtree(FLAGSHIP_TRAIN_DIR, ignore_errors=True)
+    phase("VMUNet family, UIQM+UCIQE eval and reference checkpoints at full width")
+    try:
+        vmunet_counts = vmunet_phase(card)
+    finally:
+        shutil.rmtree(VMUNET_DIR, ignore_errors=True)
     phase("classifier reference checks")
     cls_ref_counts = cls_reference_check()
     phase("classifier training")
@@ -1414,12 +1767,12 @@ def main() -> int:
     phase("microbenchmarks")
     mb_counts = microbench_phase()
     # each kernel's launches over the runs of its own paths: the BEM kernels
-    # over the training, train / test CLI, serving, eval, flagship and flagship
-    # training runs, the fused core and its backward over VMamba-T's, the
+    # over the training, train / test CLI, serving, eval, flagship, flagship
+    # training and VMUNet family runs, the fused core and its backward over VMamba-T's, the
     # clamped form over the narrow reference runs, selective_scan_fused over
     # VMamba-T v052d's, the microbenchmarks over their sweeps
     paths = {name: (train_counts, cli_counts, serve_counts, eval_counts, flagship_counts,
-                    flagship_train_counts)
+                    flagship_train_counts, vmunet_counts)
              for name in smoke.BEM_KERNELS}
     paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts),
                  ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts),

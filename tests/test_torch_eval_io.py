@@ -147,11 +147,15 @@ def test_bmp_matches_cv2(tmp_path, shape):
 
 def test_unsupported_images_raise_naming_the_file(tmp_path):
     img = _rand(np.random.default_rng(3), 8, 8, 3)
-    for ext in ("jpg", "tif"):
-        path = tmp_path / f"x.{ext}"
-        _write_cv2(path, img)
-        with pytest.raises(ValueError, match=f"{path}.*(JPEG|TIFF) decoding is not supported"):
-            imread(str(path))
+    path = tmp_path / "x.tif"
+    _write_cv2(path, img)
+    with pytest.raises(ValueError, match=f"{path}.*TIFF decoding is not supported"):
+        imread(str(path))
+    # baseline JPEG is decoded (test_torch_jpeg.py); a progressive one raises
+    path = tmp_path / "x.jpg"
+    Image.fromarray(img).save(str(path), "JPEG", progressive=True)
+    with pytest.raises(ValueError, match=f"{path}: a progressive JPEG"):
+        imread(str(path))
     path = tmp_path / "laced.png"
     rows = b"".join(b"\x00" + r.tobytes() for r in img.reshape(8, 24))
     path.write_bytes(_png(8, 8, 8, 2, rows, interlace=1))
