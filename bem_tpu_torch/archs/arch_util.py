@@ -1,6 +1,6 @@
 """U-Net building blocks, NCHW: counterpart of bem_tpu/archs/arch_util.py
-(PatchMerging, DualUpSample; the Decomp family's CrossFusionBlock, SEBlock,
-SpatialAttention)."""
+(PatchMerging, DualUpSample, ConvDown, DeconvUp, SAM with its DB and CSAF;
+the Decomp family's CrossFusionBlock, SEBlock, SpatialAttention)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..nn.layers import Conv2d, LayerNorm2d, PReLU, pixel_shuffle_cf
+from ..nn import init
+from ..nn.layers import Conv2d, ConvTranspose2d, LayerNorm2d, PReLU, pixel_shuffle_cf
 
 
 def fold_dual_upsample(dtype) -> bool:
@@ -39,6 +40,109 @@ class PatchMerging(nn.Module):
         x = x.reshape(B, C, H // 2, 2, W // 2, 2).permute(0, 5, 3, 1, 2, 4)
         x = x.reshape(B, 4 * C, H // 2, W // 2)
         return self.reduction(self.norm(x))
+
+
+class ConvDown(nn.Module):
+    """4x4 stride-2 conv doubling the channels, no bias (the U-Net's
+    ``use_pixelshuffle: false`` down-sampling, arch_util.py:30)."""
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        self.conv = Conv2d(in_channels, 2 * in_channels, 4, padding=1, stride=2, bias=False)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class DeconvUp(nn.Module):
+    """2x2 stride-2 transposed conv halving the channels (arch_util.py:87)."""
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        self.deconv = ConvTranspose2d(in_channels, in_channels // 2, 2)
+
+    def forward(self, x):
+        return self.deconv(x)
+
+
+def resize_bilinear_cf(x, size):
+    """(B, C, H, W) -> (B, C, *size), bem_tpu's ``resize_bilinear``
+    (jax.image.resize "linear": half-pixel centres, antialiased where it
+    shrinks), computed in fp32 and rounded once to x's dtype."""
+    return F.interpolate(x.float(), size=tuple(size), mode="bilinear", align_corners=False,
+                         antialias=True).to(x.dtype)
+
+
+class DB(nn.Module):
+    """Dilated dense block (arch_util.py:225): five 3x3 convs with
+    dilations ``d_list``, each ReLU'd and concatenated in front of its
+    input, then a 1x1 back to ``in_channel``. The convs are raw parameters
+    ``conv<i>_weight`` (OIHW) / ``conv<i>_bias``, as bem_tpu declares them."""
+
+    def __init__(self, in_channel: int, d_list=(1, 2, 3, 2, 1), inter_num: int = 24):
+        super().__init__()
+        self.d_list = tuple(d_list)
+        c = in_channel
+        for i in range(len(self.d_list)):
+            self.register_parameter(f"conv{i}_weight", nn.Parameter(torch.empty(inter_num, c, 3, 3)))
+            self.register_parameter(f"conv{i}_bias", nn.Parameter(torch.empty(inter_num)))
+            c += inter_num
+        self.conv_post = Conv2d(c, in_channel, 1)
+
+    @torch.no_grad()
+    def reset_parameters(self, gen):
+        for i in range(len(self.d_list)):
+            w = getattr(self, f"conv{i}_weight")
+            fan_in = w.shape[1] * 9
+            init.torch_default_(w, fan_in, gen)
+            init.torch_default_(getattr(self, f"conv{i}_bias"), fan_in, gen)
+
+    def forward(self, x):
+        t = x
+        for i, d in enumerate(self.d_list):
+            w, b = getattr(self, f"conv{i}_weight"), getattr(self, f"conv{i}_bias")
+            _t = F.relu(F.conv2d(t, w.to(t.dtype), b.to(t.dtype), padding=d, dilation=d))
+            t = torch.cat([_t, t], dim=1)
+        return self.conv_post(t)
+
+
+class CSAF(nn.Module):
+    """Cross-scale channel attention fusion of three maps (arch_util.py:257)."""
+
+    def __init__(self, in_chnls: int, ratio: int = 4):
+        super().__init__()
+        self.compress1 = Conv2d(in_chnls, in_chnls // ratio, 1)
+        self.compress2 = Conv2d(in_chnls // ratio, in_chnls // ratio, 1)
+        self.excitation = Conv2d(in_chnls // ratio, in_chnls, 1)
+
+    def forward(self, x0, x2, x4):
+        out = torch.cat([t.mean(dim=(2, 3), keepdim=True) for t in (x0, x2, x4)], dim=1)
+        out = F.relu(self.compress2(F.relu(self.compress1(out))))
+        w0, w2, w4 = torch.sigmoid(self.excitation(out)).chunk(3, dim=1)
+        return x0 * w0 + x2 * w2 + x4 * w4
+
+
+class SAM(nn.Module):
+    """Multi-scale dilated dense attention (arch_util.py:405): a DB at
+    full, half and quarter resolution, fused by CSAF, plus x."""
+
+    def __init__(self, in_channel: int, d_list=(1, 2, 3, 2, 1), inter_num: int = 24):
+        super().__init__()
+        self.basic_block = DB(in_channel, d_list, inter_num)
+        self.basic_block_2 = DB(in_channel, d_list, inter_num)
+        self.basic_block_4 = DB(in_channel, d_list, inter_num)
+        self.fusion = CSAF(3 * in_channel)
+
+    def forward(self, x):
+        H, W = x.shape[2], x.shape[3]
+        if H < 4 or W < 4:  # bem_tpu's resize divides by zero there
+            raise ValueError(f"SAM on a {H}x{W} map: its quarter scale needs H, W >= 4")
+        x2 = resize_bilinear_cf(x, (int(H * 0.5), int(W * 0.5)))
+        x4 = resize_bilinear_cf(x, (int(H * 0.25), int(W * 0.25)))
+        y0 = self.basic_block(x)
+        y2 = resize_bilinear_cf(self.basic_block_2(x2), (H, W))
+        y4 = resize_bilinear_cf(self.basic_block_4(x4), (H, W))
+        return x + self.fusion(y0, y2, y4)
 
 
 def _upsample2(t):

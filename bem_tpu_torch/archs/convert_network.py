@@ -4,8 +4,12 @@ bem_tpu/archs/convert_network.py); ``convert.load_flax_params`` then puts
 the tree into the port's module.
 
 Handles deterministic layers and the Bayesian ``mu_*`` / ``rho_*`` pairs,
-PatchMerging / DualUpSample or conv / transposed-conv resampling, and the
-m0 SS2D's ``conv2d.1``. A key the mapping needs and does not find raises
+PatchMerging / DualUpSample or conv / transposed-conv resampling, the four
+MLP types (gdMlp, Mlp / gMlp ``fc1`` / ``fc2``, FFNv02 ``net.0`` / ``.2`` /
+``.4``), a BasicBlock's ``sam_blocks.<i>`` and the m0 SS2D's ``conv2d.1``.
+bem_tpu's converter maps neither FFNv02 nor SAM; their reference key
+names here are the module paths of the reference's ``nn.Sequential`` /
+``ModuleList`` layout, not yet checked against a released checkpoint. A key the mapping needs and does not find raises
 a KeyError; ``convert_network_checkpoint`` warns of the keys the
 checkpoint has and the mapping left unused.
 """
@@ -97,9 +101,28 @@ def _convert_vss_block(m: _Mapper, dst: str, src: str):
         if m.has(f"{src}.mlp.project_in", "weight", "mu_weight"):  # gdMlp
             for part in ("project_in", "dwconv", "project_out"):
                 m.conv(f"{dst}/mlp/{part}", f"{src}.mlp.{part}")
-        else:
+        elif m.has(f"{src}.mlp.net.0", "weight", "mu_weight"):  # FFNv02's Sequential
+            for i in (0, 2, 4):
+                m.conv(f"{dst}/mlp/net_{i}", f"{src}.mlp.net.{i}")
+        else:  # Mlp / gMlp
             m.linear(f"{dst}/mlp/fc1", f"{src}.mlp.fc1")
             m.linear(f"{dst}/mlp/fc2", f"{src}.mlp.fc2")
+
+
+def _convert_sam(m: _Mapper, dst: str, src: str):
+    """SAM: three dilated dense blocks (``conv_layers.<j>.conv.0``, the
+    Conv2d of each conv + ReLU Sequential, and ``conv_post.conv.0``) and the
+    CSAF fusion's three 1x1 convs."""
+    for blk in ("basic_block", "basic_block_2", "basic_block_4"):
+        j = 0
+        while f"{src}.{blk}.conv_layers.{j}.conv.0.weight" in m.sd:
+            conv = f"{src}.{blk}.conv_layers.{j}.conv.0"
+            m.out[f"{dst}/{blk}/conv{j}_kernel"] = conv_kernel(m._get(f"{conv}.weight"))
+            m.out[f"{dst}/{blk}/conv{j}_bias"] = m._get(f"{conv}.bias")
+            j += 1
+        m.conv(f"{dst}/{blk}/conv_post", f"{src}.{blk}.conv_post.conv.0")
+    for part in ("compress1", "compress2", "excitation"):
+        m.conv(f"{dst}/fusion/{part}", f"{src}.fusion.{part}")
 
 
 def _convert_dual_upsample(m: _Mapper, dst: str, src: str):
@@ -120,6 +143,8 @@ def _network_mapper(sd, num_blocks=(2, 2, 2), stage=1, use_pixelshuffle=True) ->
     def blocks(dst, src, nb):
         for b in range(nb):
             _convert_vss_block(m, f"{dst}/blocks_{b}", f"{src}.blocks.{b}")
+            if m.has(f"{src}.sam_blocks.{b}.fusion.compress1", "weight"):
+                _convert_sam(m, f"{dst}/sam_blocks_{b}", f"{src}.sam_blocks.{b}")
 
     for s in range(stage):
         base, dstb = f"subnets.{s}", f"subnets_{s}"

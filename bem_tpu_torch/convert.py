@@ -7,8 +7,9 @@ bem_tpu/archs/convert_network.py applied in reverse:
 
 - conv ``kernel`` HWIO -> ``weight`` OIHW (depthwise (3,3,1,C) -> (C,1,3,3));
   a transposed conv's (kh, kw, in, out) kernel by the same rule (the
-  port's ``ConvTranspose2d`` mirrors the taps at use); the QD model2
-  branch's raw ``conv1_kernel`` -> ``conv1_weight``;
+  port's ``ConvTranspose2d`` mirrors the taps at use); raw conv kernels
+  ``conv<i>_kernel`` -> ``conv<i>_weight`` (the QD model2 branch's
+  ``conv1``, SAM's dilated dense blocks' ``conv0`` .. ``conv4``);
 - dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - ``mu_kernel`` / ``rho_kernel`` pairs -> ``mu_weight`` / ``rho_weight``, same rules;
 - LayerNorm ``scale`` and PReLU ``slope`` -> ``weight``;
@@ -21,15 +22,18 @@ Reference PyTorch checkpoints reach the port by composing with
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 from torch import nn
 
 from .nn.layers import LayerNorm2d, PReLU
 
-_KERNELS = {"kernel": "weight", "mu_kernel": "mu_weight", "rho_kernel": "rho_weight",
-            "conv1_kernel": "conv1_weight"}
+_KERNELS = {"kernel": "weight", "mu_kernel": "mu_weight", "rho_kernel": "rho_weight"}
 _WEIGHTS = {v: k for k, v in _KERNELS.items()}
+_RAW_KERNEL = re.compile(r"conv\d+_kernel")
+_RAW_WEIGHT = re.compile(r"conv\d+_weight")
 
 
 def _to_torch_layout(a: np.ndarray) -> np.ndarray:
@@ -67,6 +71,8 @@ def flax_to_state_dict(params) -> dict:
         a = np.asarray(a, np.float32)
         if leaf in _KERNELS:
             leaf, a = _KERNELS[leaf], _to_torch_layout(a)
+        elif _RAW_KERNEL.fullmatch(leaf):
+            leaf, a = leaf[:-len("kernel")] + "weight", _to_torch_layout(a)
         elif leaf in ("scale", "slope"):
             leaf = "weight"
         elif leaf == "mask_token":
@@ -93,6 +99,8 @@ def state_dict_to_flax(module: nn.Module, state=None, subset: bool = False) -> d
             leaf = "slope"
         elif leaf in _WEIGHTS:
             leaf, a = _WEIGHTS[leaf], _to_flax_layout(a)
+        elif _RAW_WEIGHT.fullmatch(leaf):
+            leaf, a = leaf[:-len("weight")] + "kernel", _to_flax_layout(a)
         elif leaf == "mask_token":
             a = a.transpose(0, 2, 3, 1)
         node = tree

@@ -9,6 +9,11 @@ optimizer reproduces bem_tpu's optax chain (base_model.py:63-111):
     clip_by_global_norm(max_grad_norm) -> adamw(schedule, b1, b2, eps=1e-8,
                                                 weight_decay)
 
+or, with ``optim_g: Adam``, ``adam(schedule, b1, b2, eps=1e-8)`` (eps outside
+the square root, ``eps_root`` 0). optax's adam has no weight decay, so
+bem_tpu ignores ``weight_decay`` there, and so does the port (the
+reference's torch Adam would apply it as L2). In both:
+
 - the clip scales by max_norm / ||g|| only when ||g|| >= max_norm (no
   epsilon, unlike ``torch.nn.utils.clip_grad_norm_``);
 - AdamW decays every parameter, biases and LayerNorm weights included;
@@ -58,11 +63,18 @@ def global_norm(tensors) -> torch.Tensor:
 
 
 class AdamWChain:
-    """The optax chain of bem_tpu's trainers, over a {name: parameter} dict."""
+    """The optax chain of bem_tpu's trainers, over a {name: parameter} dict:
+    ``kind`` "AdamW" (optax.adamw) or "Adam" (optax.adam, no weight decay;
+    the same update as adamw at weight_decay 0, a different state tree)."""
 
     def __init__(self, params: Dict[str, torch.Tensor], schedule, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, weight_decay: float = 0.0,
-                 max_norm: float = 0.0, frozen=()):
+                 max_norm: float = 0.0, frozen=(), kind: str = "AdamW"):
+        if kind not in ("AdamW", "Adam"):
+            raise NotImplementedError(f"optimizer {kind} is not supported yet.")
+        if kind == "Adam":
+            weight_decay = 0.0
+        self.kind = kind
         self.schedule = schedule
         self.frozen = frozenset(frozen)  # names of parameters left as they are
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -135,15 +147,14 @@ class BaseModel:
         base_lr = optim_opt.pop("lr")
         betas = optim_opt.pop("betas", (0.9, 0.999))
         wd = optim_opt.pop("weight_decay", 0.0)
-        if optim_type != "AdamW":
-            raise NotImplementedError(f"optimizer {optim_type} is not supported yet.")
         sched_opt = train_opt.get("scheduler")
         schedule = build_schedule(base_lr, sched_opt) if sched_opt else (lambda step: base_lr)
         self.lr_schedule = with_warmup(schedule, train_opt.get("warmup_iter", -1), base_lr)
         prefixes = tuple(p + "." for p in self._frozen_subtrees() or ())
         self.optimizer = AdamWChain(self.params, self.lr_schedule, betas[0], betas[1],
                                     weight_decay=wd, max_norm=train_opt.get("max_grad_norm", 0),
-                                    frozen=[k for k in self.params if k.startswith(prefixes)])
+                                    frozen=[k for k in self.params if k.startswith(prefixes)],
+                                    kind=optim_type)
         self.ema_decay = train_opt.get("ema_decay", 0)
         if self.ema_decay > 0:
             self.ema_params = {k: p.detach().clone() for k, p in self.params.items()}
@@ -211,8 +222,9 @@ class BaseModel:
     def train_state(self) -> dict:
         """bem_tpu's ``TrainState`` tree: step, params, opt_state (the optax
         chain [clip_by_global_norm], adamw: ({}, ((count, mu, nu), {},
-        (count,))), inside ``multi_transform``'s layout for a net with
-        frozen subtrees), rng, ema_params, bayes_prior."""
+        (count,))) or adam: ({}, ((count, mu, nu), (count,))), inside
+        ``multi_transform``'s layout for a net with frozen subtrees), rng,
+        ema_params, bayes_prior."""
         opt = self.optimizer
         count = np.asarray(opt.count, np.int32)
         frozen = self._frozen_subtrees()
@@ -220,8 +232,10 @@ class BaseModel:
         for tree in (mu, nu):
             for name in frozen or ():
                 tree[name] = _masked(tree[name])
-        adamw = {"0": {"count": count, "mu": mu, "nu": nu}, "1": {}, "2": {"count": count}}
-        chain = ([{}] if opt.max_norm else []) + [adamw]
+        core = {"0": {"count": count, "mu": mu, "nu": nu}}
+        core.update({"1": {}, "2": {"count": count}} if opt.kind == "AdamW"
+                    else {"1": {"count": count}})
+        chain = ([{}] if opt.max_norm else []) + [core]
         opt_state = {str(i): c for i, c in enumerate(chain)}
         if frozen is not None:
             opt_state = {"inner_states": {"train": {"inner_state": opt_state},

@@ -33,7 +33,8 @@ class ConditionGenerator(BaseModel):
         self.cond_type = opt.get("condition", {}).get("type", "mean")
         if self.is_train:
             train_opt = opt["train"]
-            self.cri_pix = build_loss(train_opt["pixel_opt"]) if train_opt.get("pixel_opt") else None
+            self.cri_pix = (build_loss(train_opt["pixel_opt"], self.device)
+                            if train_opt.get("pixel_opt") else None)
             if self.cri_pix is None:
                 raise ValueError("pixel loss required for ConditionGenerator")
             self.kl_batch = opt["datasets"]["train"].get("mini_batch_sizes", [8])[0]

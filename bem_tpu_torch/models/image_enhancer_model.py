@@ -34,7 +34,8 @@ class ImageEnhancer(BaseModel):
         self.noise_level = cond.get("noise_level", 0)
         if self.is_train:
             train_opt = opt["train"]
-            self.cri_pix = build_loss(train_opt["pixel_opt"]) if train_opt.get("pixel_opt") else None
+            self.cri_pix = (build_loss(train_opt["pixel_opt"], self.device)
+                            if train_opt.get("pixel_opt") else None)
             self.cri_perceptual = (build_perceptual(train_opt["perceptual_opt"], self.device)
                                    if train_opt.get("perceptual_opt") else None)
             if self.cri_pix is None and self.cri_perceptual is None:

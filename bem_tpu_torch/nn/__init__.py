@@ -3,5 +3,5 @@
 from .layers import (BayesLayer, Conv2d, Dense, DropPath, LayerNorm2d, PReLU,
                      drop_path, pixel_shuffle_cf, sample_bayes)
 from .ss2d import SS2D
-from .vss import GDMlp, GMlp, Mlp, VSSBlock
+from .vss import FFNv02, GDMlp, GMlp, Mlp, VSSBlock
 from .vssm import VSSM, PatchMerging2D

@@ -1,14 +1,15 @@
-"""VSSBlock and its MLPs (gdMlp, Mlp, gMlp), channel-first.
+"""VSSBlock and its MLPs (gdMlp, Mlp, gMlp, FFNv02), channel-first.
 
 Counterpart of bem_tpu/nn/vss.py. The BEM nets' block (gdMlp, the
 ``v05_noz`` fused core, no drop-path) runs ``x = x + SS2D(LN(x))`` and
 ``x = x + gdMlp(LN2(x))`` with both LNs and both residual adds folded into
 the kernels (vss.py:256-299): the stem and tail kernels for the SS2D
-branch, the gdMlp kernel for the MLP branch. Every other block (the VSSM
-classifier's, with Mlp or gMlp) runs the unfolded pre-norm form
+branch, the gdMlp kernel for the MLP branch. Every other block (a drop
+path, another core or another MLP) runs the unfolded pre-norm form
 ``x + drop_path(op(norm(x)))``, ``x + drop_path(mlp(norm2(x)))``
-(vss.py:265-299) on (B, C, H, W); bem_tpu runs it channels-last, the
-math is the same.
+(vss.py:265-299) on (B, C, H, W); bem_tpu runs it channels-last, the math
+is the same. Each MLP carries bem_tpu's ``bayesian`` / ``sigma_init``: its
+convs and linears then hold (mu, rho) pairs.
 """
 
 from __future__ import annotations
@@ -22,28 +23,48 @@ from .ss2d import SS2D
 
 
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 over the channel axis (vss.py:105-116)."""
+    """fc1 -> exact GELU -> fc2 over the channel axis (vss.py:105)."""
 
-    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 bayesian: bool = False, sigma_init: float = 0.05):
         super().__init__()
-        self.fc1 = Dense(in_features, hidden_features)
-        self.fc2 = Dense(hidden_features, out_features)
+        bayes = dict(bayesian=bayesian, sigma_init=sigma_init)
+        self.fc1 = Dense(in_features, hidden_features, **bayes)
+        self.fc2 = Dense(hidden_features, out_features, **bayes)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
 class GMlp(nn.Module):
-    """fc1 to 2*hidden -> x * GELU(z) -> fc2 (vss.py:119-130)."""
+    """fc1 to 2*hidden -> x * GELU(z) -> fc2 (vss.py:119)."""
 
-    def __init__(self, in_features: int, hidden_features: int, out_features: int):
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 bayesian: bool = False, sigma_init: float = 0.05):
         super().__init__()
-        self.fc1 = Dense(in_features, 2 * hidden_features)
-        self.fc2 = Dense(hidden_features, out_features)
+        bayes = dict(bayesian=bayesian, sigma_init=sigma_init)
+        self.fc1 = Dense(in_features, 2 * hidden_features, **bayes)
+        self.fc2 = Dense(hidden_features, out_features, **bayes)
 
     def forward(self, x):
         x, z = self.fc1(x).chunk(2, dim=1)
         return self.fc2(x * F.gelu(z))
+
+
+class FFNv02(nn.Module):
+    """1x1 -> GELU -> depthwise 3x3 -> GELU -> 1x1, no biases (vss.py:133)."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 bayesian: bool = False, sigma_init: float = 0.05):
+        super().__init__()
+        h = hidden_features
+        bayes = dict(bias=False, bayesian=bayesian, sigma_init=sigma_init)
+        self.net_0 = Conv2d(in_features, h, 1, **bayes)
+        self.net_2 = Conv2d(h, h, 3, padding=1, groups=h, **bayes)
+        self.net_4 = Conv2d(h, out_features, 1, **bayes)
+
+    def forward(self, x):
+        return self.net_4(F.gelu(self.net_2(F.gelu(self.net_0(x)))))
 
 
 class GDMlp(nn.Module):
@@ -58,8 +79,14 @@ class GDMlp(nn.Module):
         self.dwconv = Conv2d(2 * h, 2 * h, 3, padding=1, groups=2 * h, **bayes)
         self.project_out = Conv2d(h, out_features, 1, **bayes)
 
-    def forward(self, x, hw, ln=None, residual: bool = False):
-        """x (B, C, H*W) flat channel-first -> (B, out_features, H*W)."""
+    def forward(self, x, hw=None, ln=None, residual: bool = False):
+        """x (B, C, H*W) flat channel-first with hw=(H, W) -> (B, out_features,
+        H*W); or a (B, C, H, W) map -> (B, out_features, H, W), the unfolded
+        block's form (no LN, no residual)."""
+        if x.dim() == 4:
+            B, C, H, W = x.shape
+            out = self(x.reshape(B, C, H * W).contiguous(), (H, W))
+            return out.reshape(B, -1, H, W)
         k_in, b_in = self.project_in.weights()
         k_dw, b_dw = self.dwconv.weights()
         k_out, b_out = self.project_out.weights()
@@ -70,10 +97,14 @@ class GDMlp(nn.Module):
             residual)
 
 
+_MLPS = {"gdmlp": GDMlp, "mlp": Mlp, "gmlp": GMlp, "ffnv02": FFNv02}
+
+
 class VSSBlock(nn.Module):
     """The reference VSSBlock, pre-norm and non-windowed. ``mlp_type``
-    "gdmlp" is the BEM form (folded into the kernels; needs the v05_noz
-    core and no drop-path); "mlp" / "gmlp" the classifier's."""
+    "gdmlp" is the BEM form, folded into the kernels where the block has the
+    v05_noz core with its 3x3 stem and no drop-path; "mlp" / "gmlp" /
+    "ffnv02" and every other gdMlp block run unfolded."""
 
     def __init__(self, hidden_dim: int, ssm_d_state: int = 1,
                  ssm_ratio: float = 1.0, mlp_ratio: float = 4.0,
@@ -83,21 +114,16 @@ class VSSBlock(nn.Module):
                  mlp_type: str = "gdmlp"):
         super().__init__()
         bayes = dict(bayesian=bayesian, sigma_init=sigma_init)
-        if bayesian and mlp_type != "gdmlp":
-            raise NotImplementedError("VSSBlock port: Bayesian layers only in the gdMlp form")
         self.norm = LayerNorm2d(hidden_dim)
         self.op = SS2D(hidden_dim, d_state=ssm_d_state, ssm_ratio=ssm_ratio,
                        forward_type=forward_type, dt_rank=ssm_dt_rank, d_conv=ssm_conv,
                        conv_bias=ssm_conv_bias, **bayes)
-        h = int(hidden_dim * mlp_ratio)
-        self.fold = mlp_type == "gdmlp"
-        if self.fold and (drop_path or not self.op.fused_core or ssm_conv != 3):
-            raise NotImplementedError("VSSBlock port: gdMlp only in the folded BEM form")
+        self.fold = (mlp_type == "gdmlp" and not drop_path and self.op.fused_core
+                     and ssm_conv == 3)
         if mlp_ratio > 0:
             self.norm2 = LayerNorm2d(hidden_dim)
-            mlp = {"gdmlp": GDMlp, "mlp": Mlp, "gmlp": GMlp}[mlp_type]
-            self.mlp = (GDMlp(hidden_dim, h, hidden_dim, **bayes) if self.fold
-                        else mlp(hidden_dim, h, hidden_dim))
+            self.mlp = _MLPS[mlp_type](hidden_dim, int(hidden_dim * mlp_ratio), hidden_dim,
+                                       **bayes)
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x, gen=None):
@@ -112,5 +138,6 @@ class VSSBlock(nn.Module):
         # the BEM form: the interior runs on (B, C, H*W)
         x = x.reshape(B, C, H * W).contiguous()
         x = self.op(x, (H, W), (self.norm.weight, self.norm.bias), residual=True)
-        x = self.mlp(x, (H, W), (self.norm2.weight, self.norm2.bias), residual=True)
+        if hasattr(self, "mlp"):
+            x = self.mlp(x, (H, W), (self.norm2.weight, self.norm2.bias), residual=True)
         return x.reshape(B, C, H, W)

@@ -9,10 +9,11 @@ import torch
 import torch.nn.functional as F
 
 
-def resize_bilinear(x: torch.Tensor, size):
-    """(B, H, W, C) -> (B, *size, C) with half-pixel centres (align_corners=False)."""
+def resize_bilinear(x: torch.Tensor, size, antialias: bool = False):
+    """(B, H, W, C) -> (B, *size, C) with half-pixel centres (align_corners=False);
+    ``antialias`` widens the filter where it shrinks, as jax.image.resize does."""
     y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode="bilinear",
-                      align_corners=False)
+                      align_corners=False, antialias=antialias)
     return y.permute(0, 2, 3, 1).contiguous()
 
 

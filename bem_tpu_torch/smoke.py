@@ -138,6 +138,14 @@ FLAGSHIP_SHAPES = [("flagship L0 224x320 C40 B=8", 8, 40, 224, 320),
 FLAGSHIP_TRAIN_SHAPES = [("flagship train L0 64x64 C40 B=8", 8, 40, 64, 64),
                          ("flagship train L1 32x32 C80 B=8", 8, 80, 32, 32),
                          ("flagship train L2 16x16 C160 B=8", 8, 160, 16, 16)]
+# the speed test (enhancement/speed_test.py) at its 2048x2048 input, B=1:
+# the IE's levels and the CG's at the /16 reduction, bf16 and fp32
+SPEED_SHAPES = [("speed IE-L0 2048x2048 C40 B=1", 1, 40, 2048, 2048),
+                ("speed IE-L1 1024x1024 C80 B=1", 1, 80, 1024, 1024),
+                ("speed IE-L2 512x512 C160 B=1", 1, 160, 512, 512),
+                ("speed CG-L0 128x128 C40 B=1", 1, 40, 128, 128),
+                ("speed CG-L1 64x64 C80 B=1", 1, 80, 64, 64),
+                ("speed CG-L2 32x32 C160 B=1", 1, 160, 32, 32)]
 # (label, B, d_inner, H, W, dt rank, d_state): the SS2D cores of the VMamba-T
 # classifier's four stages (dims 96 / 192 / 384 / 768, ssm_ratio 2) at
 # 224x224, two images each
@@ -291,7 +299,9 @@ def _dir(w, d, with_d=True):
     return out + ((w[4][d].contiguous() if with_d else None),)
 
 
-def _cases_for(label, B, C, H, W, dtype, device, seed, col_probe=True):
+def _cases_for(label, B, C, H, W, dtype, device, seed, col_probe=True, clamp=True):
+    """Rows 1-7 at one shape and dtype; ``clamp`` adds the row pair's
+    clamp-hitting case, ``col_probe`` the column pair's clamp probes."""
     rng = np.random.default_rng(seed)
     L = H * W
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
@@ -304,7 +314,8 @@ def _cases_for(label, B, C, H, W, dtype, device, seed, col_probe=True):
     scan_w = _scan_weights(rng, C, t)
     clamp_w = _scan_weights(rng, C, t, clamp=True)
     cases.append(Case("ss2d_seq_pair", label, dtype, (s(xs), *scan_w, "row")))
-    cases.append(Case("ss2d_seq_pair", label + " clamp", dtype, (s(xs), *clamp_w, "col")))
+    if clamp:
+        cases.append(Case("ss2d_seq_pair", label + " clamp", dtype, (s(xs), *clamp_w, "col")))
     cases += _col_cases(label, dtype, rng, t, xs, H, W, scan_w, False, device)
     if col_probe:
         cases += _col_cases(label, dtype, rng, t, xs, H, W, clamp_w, True, device)
@@ -444,6 +455,16 @@ def _eval_cases(label, B, C, H, W, device, seed):
     return cases
 
 
+def _speed_cases(label, B, C, H, W, dtype, device, seed):
+    """Rows 1-7 as _cases_for builds them at a speed-test shape, each a path
+    shape (its bound beside its time); the clamp cases in fp32 only."""
+    f32 = dtype == torch.float32
+    cases = _cases_for(label, B, C, H, W, dtype, device, seed, col_probe=f32, clamp=f32)
+    for c in cases:
+        c.report = True
+    return cases
+
+
 def _serve_tail_case(label, B, C, H, W, device, seed):
     """The tail in its path form at the serving batch, bf16: merged (the
     column pair has added y_row, y_colT None), with the block's residual,
@@ -481,14 +502,15 @@ def _carry_cases(device, seed=760):
     return out
 
 
-def _train_carry_cases(device, seed=770):
-    """linear_scan at the flagship training's carries, forward and reverse:
-    the row pair's over (B, L / its chunk, C*N) and the column pair's over
+def _train_carry_cases(device, seed=770, shapes=FLAGSHIP_TRAIN_SHAPES):
+    """linear_scan at the row and column pairs' carries at ``shapes`` (the
+    flagship training's, the speed test's), forward and reverse: the row
+    pair's over (B, L / its chunk, C*N) and the column pair's over
     (B, W * H / its chunk, C*N), the chunks as the built kernels give them."""
     rng = np.random.default_rng(seed)
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
     out = []
-    for label, B, C, H, W in FLAGSHIP_TRAIN_SHAPES:
+    for label, B, C, H, W in shapes:
         R, N = math.ceil(C / 16), 1
         row = -(-H * W // _build.load().bem_ss2d_seq_chunk(C, R, N))
         col = W * -(-H // _seq.col_chunk(C, R, N, torch.float32))
@@ -949,40 +971,46 @@ def kernel_cases(small: bool = False, device="cuda"):
     """Every kernel at every serving, training and classifier shape, fp32 and
     bf16, rows 1-6 at the serving batch (bf16; row 3 in its path form),
     rows 1-7 at the eval CLI's and the flagship's eval and training
-    shapes (fp32), linear_scan at the serving, eval and flagship carries
-    and at the flagship training's backward recompute shape, and the
+    shapes (fp32) and at the speed test's 2048x2048 levels (fp32 and bf16),
+    linear_scan at the serving, eval, flagship and speed-test carries and at
+    the flagship training's backward recompute shape, and the
     microbenchmarks
-    at the tool's shapes; or at tiny shapes (``small``)."""
+    at the tool's shapes; or at tiny shapes (``small``). Yields them a shape
+    at a time, so the card holds one shape's inputs at once."""
     shapes = SMALL_SHAPES if small else PATH_SHAPES + TRAIN_SHAPES
-    out = []
     for i, (label, B, C, H, W) in enumerate(shapes):
         for dtype in (torch.float32, torch.bfloat16):
-            out += _cases_for(label, B, C, H, W, dtype, device, seed=i)
+            yield from _cases_for(label, B, C, H, W, dtype, device, seed=i)
         if label.startswith("train IE") or small:
-            out += _scan_bwd_cases(label, B, C, H, W, device, seed=100 + i)
+            yield from _scan_bwd_cases(label, B, C, H, W, device, seed=100 + i)
     if not small:
         for i, shape in enumerate(SERVE_SHAPES):
-            out += _serve_batch_cases(*shape, device, seed=700 + i)
+            yield from _serve_batch_cases(*shape, device, seed=700 + i)
         for i, shape in enumerate(SERVE_STEM_SHAPES):
-            out.append(_serve_stem_case(*shape, device, seed=720 + i))
+            yield _serve_stem_case(*shape, device, seed=720 + i)
         for i, shape in enumerate(SERVE_SHAPES + SERVE_STEM_SHAPES):
-            out.append(_serve_tail_case(*shape, device, seed=740 + i))
+            yield _serve_tail_case(*shape, device, seed=740 + i)
         for i, shape in enumerate(EVAL_SHAPES + FLAGSHIP_SHAPES + FLAGSHIP_TRAIN_SHAPES):
-            out += _eval_cases(*shape, device, seed=780 + i)
+            yield from _eval_cases(*shape, device, seed=780 + i)
         for i, shape in enumerate(FLAGSHIP_TRAIN_SHAPES):
-            out += _scan_bwd_cases(*shape, device, seed=120 + i)
-        out += _carry_cases(device) + _train_carry_cases(device)
+            yield from _scan_bwd_cases(*shape, device, seed=120 + i)
+        for i, shape in enumerate(SPEED_SHAPES):
+            for dtype in (torch.float32, torch.bfloat16):
+                yield from _speed_cases(*shape, dtype, device, seed=880 + i)
+        yield from _carry_cases(device)
+        yield from _train_carry_cases(device)
+        yield from _train_carry_cases(device, 790, SPEED_SHAPES[:1])
     for i, shape in enumerate(SMALL_CLS_SHAPES if small else CLS_SHAPES):
-        out += _cls_cases(*shape, device, seed=300 + i)
-        out += _scan_fused_cases(*shape, device, seed=500 + 4 * i)
+        yield from _cls_cases(*shape, device, seed=300 + i)
+        yield from _scan_fused_cases(*shape, device, seed=500 + 4 * i)
         if i == 0 and not small:  # row 9 at the training batch
             label, _, C, H, W, R, N = shape
-            out.append(_fused_bwd_case(f"{label} B={CLS_TRAIN_BATCH}", CLS_TRAIN_BATCH, C,
-                                       H * W, R, N, device, 350, PLAIN_SLICE))
+            yield _fused_bwd_case(f"{label} B={CLS_TRAIN_BATCH}", CLS_TRAIN_BATCH, C,
+                                  H * W, R, N, device, 350, PLAIN_SLICE)
         if i in CLS_BATCH_STAGES and not small:
-            out += _cls_batch_cases(*shape, device, seed=360 + i)
-            out.append(_scan_fused_batch_case(*shape, device, seed=560 + i))
-    return out + _microbench_cases(small, device)
+            yield from _cls_batch_cases(*shape, device, seed=360 + i)
+            yield _scan_fused_batch_case(*shape, device, seed=560 + i)
+    yield from _microbench_cases(small, device)
 
 
 def _outputs(o):
@@ -1448,6 +1476,12 @@ _REFERENCE_RENAMES = [
     (r"^subnets_(\d+)/up_(\d+)", r"subnets.\1.decoder_layers.\2.0"),
     (r"^subnets_(\d+)/fusion_(\d+)", r"subnets.\1.decoder_layers.\2.1"),
     (r"^subnets_(\d+)/dec_(\d+)/blocks_(\d+)", r"subnets.\1.decoder_layers.\2.2.blocks.\3"),
+    (r"^subnets_(\d+)/enc_(\d+)/sam_blocks_(\d+)",
+     r"subnets.\1.encoder_layers.\2.0.sam_blocks.\3"),
+    (r"^subnets_(\d+)/bottleneck/sam_blocks_(\d+)", r"subnets.\1.bottleneck.sam_blocks.\2"),
+    (r"^subnets_(\d+)/dec_(\d+)/sam_blocks_(\d+)",
+     r"subnets.\1.decoder_layers.\2.2.sam_blocks.\3"),
+    (r"/conv_post$", "/conv_post.conv.0"), (r"/mlp/net_(\d)$", r"/mlp/net.\1"),
     (r"up_(p|b)_conv1$", r"up_\1.0"), (r"up_(p|b)_prelu$", r"up_\1.1"),
     (r"up_(p|b)_conv2$", r"up_\1.3"),
     (r"^branches/enc_(Q\d)_(\d+)/block_(\d+)", r"encoders_\1.\2.\3"),
@@ -1463,7 +1497,8 @@ _REFERENCE_RENAMES = [
 def reference_state(tree) -> dict:
     """A flax-layout ``Network`` tree (or a ``{"branches": ...}`` dual-branch
     subtree) -> the reference PyTorch checkpoint's state dict (numpy): module
-    paths renamed to the reference's, conv kernels HWIO -> OIHW, transposed
+    paths renamed to the reference's (a SAM's and an FFNv02's as the port's
+    converter reads them), conv kernels HWIO -> OIHW, transposed
     conv kernels unflipped to (I, O, kh, kw), dense kernels (in, out) ->
     (out, in), ``scale`` / ``slope`` -> ``weight``, the mask token NCHW."""
     import re
@@ -1481,6 +1516,9 @@ def reference_state(tree) -> dict:
     sd = {}
     for path, a in flat.items():
         mod, _, leaf = path.rpartition("/")
+        raw = re.fullmatch(r"conv(\d+)_(kernel|bias)", leaf)
+        if raw and re.search(r"/basic_block(_2|_4)?$", mod):  # SAM's dilated dense block
+            mod, leaf = f"{mod}/conv_layers/{raw[1]}/conv/0", raw[2]
         transposed = mod.endswith("/deconv") or re.search(r"^branches/up_Q\d_\d+$", mod)
         for pat, rep in _REFERENCE_RENAMES:
             mod = re.sub(pat, rep, mod)

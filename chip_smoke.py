@@ -31,7 +31,10 @@ result line):
      linear_scan at its carries (IE-L0 B=8, CG-L0 B=1, flagship L0 B=8), each with its
      bound; rows 1-7 the same at the flagship's training shapes (its
      branch levels 64x64 / 32x32 / 16x16 at B=8, linear_scan at their row
-     and column carries and their backward recompute shape); every linear_scan, stem and gdMlp case launched twice, its
+     and column carries and their backward recompute shape) and at the
+     speed test's (smoke.SPEED_SHAPES: the IE's 2048x2048 / 1024x1024 /
+     512x512 and the CG's 128x128 / 64x64 / 32x32 levels at B=1, fp32 and
+     bf16, linear_scan at the IE-L0 row and column carries); every linear_scan, stem and gdMlp case launched twice, its
      outputs bit-identical; then the stem, the row pair, the gdMlp, the
      column pair, the fused core's backward, selective_scan_fused,
      linear_scan and the tail at the edges of their tiles (smoke.edge_cases:
@@ -151,23 +154,41 @@ result line):
      reference-layout ckpt.pth files of the LOLv1 CG (Bayesian mu / rho)
      and IE, seeded, through convert_network_checkpoint: the forward
      equals the source net's on the CPU and agrees card vs CPU (2e-4);
- 10. the VMamba classifier (VSSM, forward_type v2) at narrow width (embed
+ 10. the speed-test CLI (bem_tpu_torch.enhancement.speed_test) from the
+     LOLv1 option files (n_feat 40, blocks (2,2,2), seeded): both bodies on
+     the card vs the CPU at 256x256, fp32, four injected CG weight samples
+     (the same pick, the scores and IE outputs within 2e-4 of max(1,
+     |cpu|)); then ``main`` at 2048x2048, --repeat 3 in sequence and
+     --speedup --repeat 16, bf16 and fp32: each mode's running time and peak
+     memory; rows 1-7 must launch over the runs (the kernels' phase holds
+     them at the speed test's shapes, smoke.SPEED_SHAPES);
+ 10b. the Network and training options at full width: two option files
+     written from the LOLv1 ones, (a) the IE with ConvDown / DeconvUp,
+     drop_path 0.1, relu last, Adam, MultiStepRestartLR after a 2-step
+     warm-up and CombinedLoss (random VGG19 features), (b) the Bayesian CG
+     with FFNv02, SAM, TrueCosineAnnealingLR, PSNRLoss and 256 crops (its
+     blocks unfolded: no stem or gdMlp kernel); for each, one train step
+     card vs CPU (train_step_check, every gradient leaf within 1e-5 of its
+     largest entry) and the train CLI for 6 iters on 48 + 2 seeded 400x600
+     PNG pairs (losses, validation, ms/step and data_time, median of iters
+     2-6, peak memory); rows 1-7 (rows 2, 3, 5, 6, 7 for (b)) must launch;
+ 11. the VMamba classifier (VSSM, forward_type v2) at narrow width (embed
      16, depths (1,1), d_state 16, 32x32), fp32: logits and one train step
      on the card vs the CPU at B=1 (the fused core) and B=2 (its clamped
      form, as pick_group(2, d_inner) > 1 selects it), clamp-hitting biases;
- 11. VMamba-T training (the harness defaults: depths (2,2,9,2), embed 96,
+ 12. VMamba-T training (the harness defaults: depths (2,2,9,2), embed 96,
      d_state 16, batch 128, 224x224, fp32), 1 warm-up + 5 timed steps;
- 12. VMamba-T throughput (bf16 images, fp32 params, batch 128), through the
+ 13. VMamba-T throughput (bf16 images, fp32 params, batch 128), through the
      harness's throughput() (1 warm-up + 5 timed batches), and one
      forward's logits checked; the fused core and its backward must launch;
- 13. the scan-pattern forward types: a narrow VSSM with forward_type v052d
+ 14. the scan-pattern forward types: a narrow VSSM with forward_type v052d
      (logits and two train steps at B=2) and v051d (logits) on the card vs
      the CPU; VMamba-T v052d training at batch 8 (1 warm-up + 3 timed
      steps: the backward recomputes through the unfolded composition,
      whose (4 B, d_inner, L, d_state) fp32 tensors take 19.7 GB each at
      batch 128) and its bf16 throughput at batch 128; selective_scan_fused
      must launch 15 times per forward;
- 14. the microbenchmarks (bem_tpu_torch.tools.microbench_vpu): the lanes /
+ 15. the microbenchmarks (bem_tpu_torch.tools.microbench_vpu): the lanes /
      npass sweep and the four modes, each line as the tool prints it.
 The kernels' phase also holds the three classifier kernels (the fused core,
 its clamped form, its backward) and selective_scan_fused (scans 1 and 2
@@ -198,6 +219,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import logging
 import os
@@ -223,6 +245,7 @@ from bem_tpu_torch.qd.evaluate import load_qd_net
 from bem_tpu_torch.qd.evaluate import main as qd_evaluate
 from bem_tpu_torch.qd.train import train_qd
 import bem_tpu_torch.enhancement.eval as eval_module
+from bem_tpu_torch.enhancement import speed_test
 from bem_tpu_torch.archs.convert_network import convert_network_checkpoint
 from bem_tpu_torch.enhancement.cal_metrics_with_imgs import main as cal_metrics
 from bem_tpu_torch.enhancement.eval import main as eval_main
@@ -270,6 +293,11 @@ FLAGSHIP_TRAIN_IMAGES = 48
 VMUNET_DIR = os.path.join(REPO, "results", "chip_smoke_vmunet")  # gitignored, removed at the end
 VMUNET_OPTIONS = ("TwoBranch_1.yml", "TwoBranch_3.yml")  # TunedModel, FusedTunedModel
 VMUNET_TRAIN_IMAGES = 48
+SPEED_SIZE = 2048  # the speed test's input (speed_test.py's default)
+SPEED_REPEAT, SPEED_SPEEDUP_REPEAT = 3, 16
+SPEED_CHECK_SIZE, SPEED_CHECK_K = 256, 4  # its card-vs-CPU check
+OPTIONS_DIR = os.path.join(REPO, "results", "chip_smoke_options")  # gitignored, removed at the end
+OPTIONS_TRAIN_IMAGES = 48
 JPEG_FIXTURES = os.path.join(REPO, "bem_tpu_torch", "testdata")
 VMUNET_EVAL_IMAGES = ("a_420_q95.jpg", "b_444_dri.jpg")
 # the card-vs-CPU eval run: K and the crop of a fixture it takes (the CPU
@@ -996,25 +1024,41 @@ class _VGGBranch:
         return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
 
 
-def train_step_check(opt_path, label="flagship"):
-    """One ImageEnhancer step of the option file's net (B=2, 32x32, fp32, TF32
-    off) with its perceptual loss, the MIM mask and (where the file turns it
-    on) mixup, on the card vs the CPU; a net with a frozen decomposition
-    must leave it unchanged on both."""
-    from bem_tpu_torch.losses import perceptual
+def train_step_check(opt_path, label="flagship", grad_tol=1e-3):
+    """One train step of the option file's trainer (B=2, fp32, TF32 off) on
+    the card vs the CPU: an ImageEnhancer at 32x32 with its pixel and
+    perceptual losses, the MIM mask and (where the file turns it on) mixup;
+    a ConditionGenerator at 16x16 with its weight noise injected. The VGG19
+    features of a perceptual or combined loss take the card's ReLU and
+    max-pool decisions on the CPU. A net with a frozen decomposition must
+    leave it unchanged on both. Every gradient leaf within ``grad_tol`` of its
+    largest entry."""
+    from bem_tpu_torch.losses import my_loss, perceptual
 
     opt = parse(opt_path, is_train=True)
+    cg = opt["model_type"] == "ConditionGenerator"
     mixup = opt["train"].get("mixing_augs", {}).get("mixup", False)
-    net = build_network(opt["network_g"], torch.Generator().manual_seed(6))
+    net_opt = dict(opt["network_g"])
+    if cg:
+        net_opt.update(bayesian=True, sigma_init=opt["sigma_init"])
+    net = build_network(net_opt, torch.Generator().manual_seed(6))
     rng = np.random.default_rng(4)
     img = lambda *s: rng.random(s, np.float32)  # noqa: E731
-    masks = MaskGenerator(32, 1, 1, 0.75, rng)
-    batch = {"lq": img(2, 32, 32, 3), "gt": img(2, 32, 32, 3), "gt_down": img(2, 2, 2, 3),
-             "mask": np.stack([masks(), masks()])}
-    noise = torch.from_numpy(rng.standard_normal((2, 2, 2, 3)).astype(np.float32))
+    if cg:
+        batch = {"lq_down": img(2, 16, 16, 3), "gt_down": img(2, 16, 16, 3)}
+        erng = np.random.default_rng(9)
+        step = dict(eps={k: torch.from_numpy(erng.standard_normal(tuple(p.shape))
+                                             .astype(np.float32))
+                         for k, p in net.named_parameters()
+                         if k.rpartition(".")[2].startswith("mu_")})
+    else:
+        masks = MaskGenerator(32, 1, 1, 0.75, rng)
+        batch = {"lq": img(2, 32, 32, 3), "gt": img(2, 32, 32, 3), "gt_down": img(2, 2, 2, 3),
+                 "mask": np.stack([masks(), masks()])}
+        step = dict(noise=torch.from_numpy(rng.standard_normal((2, 2, 2, 3)).astype(np.float32)))
     branch, res = _VGGBranch(), {}
     functional = perceptual.F
-    perceptual.F = branch
+    perceptual.F = my_loss.F = branch
     try:
         for dev in ("cuda", "cpu"):
             branch.replay = dev == "cpu"
@@ -1022,28 +1066,32 @@ def train_step_check(opt_path, label="flagship"):
             decomp = {k: p.detach().cpu().clone() for k, p in m.params.items()
                       if k in m.optimizer.frozen}
             grads = _grad_capture(m)
-            logs = m.train_step(batch, noise=noise, lam=0.7)
+            logs = m.train_step(batch, lam=0.7, **step)
             kept = all(torch.equal(m.params[k].detach().cpu(), v) for k, v in decomp.items())
             frozen = hasattr(m.net, "frozen_subtrees")
-            res[dev] = (float(logs["l_total"]), float(logs["l_percep"]),
+            res[dev] = (float(logs["l_total"]), float(logs.get("l_percep", logs["l_pix"])),
                         {k: g.cpu() for k, g in grads.items()}, kept and bool(decomp) == frozen)
             del m
     finally:
-        perceptual.F = functional
+        perceptual.F = my_loss.F = functional
     (lg, pg, gg, kg), (lc, pc, gc, kc) = res["cuda"], res["cpu"]
-    loss_rel, percep_rel = abs(lg - lc) / abs(lc), abs(pg - pc) / abs(pc)
+    term = "l_percep" if "perceptual_opt" in opt["train"] else "l_pix"
+    loss_rel, term_rel = abs(lg - lc) / abs(lc), abs(pg - pc) / abs(pc)
     grad_err = max((gg[k] - gc[k]).abs().max().item() / max(gc[k].abs().max().item(), 1e-30)
                    for k in gc)
     n = sum(d.numel() for d in branch.decisions)
-    print(f"{label} train step B=2 32x32 fp32 (perceptual, mask"
-          f"{', mixup lam 0.7' if mixup else ', mixup off'}), card vs CPU: "
-          f"loss {lg:.7f} / {lc:.7f} (rel {loss_rel:.2e}, tol 1e-4), l_percep {pg:.7f} / "
-          f"{pc:.7f} (rel {percep_rel:.2e}, tol 1e-4); grads max err / leaf max {grad_err:.2e} "
-          f"(tol 1e-3) over {len(gc)} leaves; the CPU on the card's {n} VGG ReLU / max-pool "
+    what = ("weight noise injected" if cg else
+            f"mask{', mixup lam 0.7' if mixup else ', mixup off'}")
+    print(f"{label} {opt['model_type']} train step B=2 {'16x16' if cg else '32x32'} fp32 "
+          f"({opt['train']['pixel_opt']['type']}, {what}), card vs CPU: "
+          f"loss {lg:.7f} / {lc:.7f} (rel {loss_rel:.2e}, tol 1e-4), {term} {pg:.7f} / "
+          f"{pc:.7f} (rel {term_rel:.2e}, tol 1e-4); grads max err / leaf max {grad_err:.2e} "
+          f"(tol {grad_tol:g}) over {len(gc)} leaves; the CPU on the card's {n} VGG ReLU / "
+          f"max-pool "
           f"decisions ({branch.flips} of its own differ, tol {1e-4 * n:.0f}); frozen parts "
           f"unchanged card {kg} cpu {kc}",
           flush=True)
-    if not (loss_rel <= 1e-4 and percep_rel <= 1e-4 and grad_err <= 1e-3 and kg and kc
+    if not (loss_rel <= 1e-4 and term_rel <= 1e-4 and grad_err <= grad_tol and kg and kc
             and branch.at == len(branch.decisions) and branch.flips <= 1e-4 * n):
         raise AssertionError(f"the {label} train step on the card disagrees with the CPU")
 
@@ -1484,6 +1532,176 @@ def vmunet_phase(card: str):
     return counts
 
 
+def _speed_check(card):
+    """Both speed-test bodies on the card and the CPU from the same nets
+    (the LOLv1 option files, seeded) on the 256x256 input, fp32, TF32 off,
+    with injected CG weight samples: the same pick, the scores and the IE
+    outputs within 2e-4 of max(1, |cpu|)."""
+    args = speed_test.build_parser().parse_args(
+        ["--opt", os.path.join(REPO, "Options", EVAL_OPTIONS[0]),
+         "--cond_opt", os.path.join(REPO, "Options", EVAL_OPTIONS[1])])
+    res = {}
+    for dev in ("cuda", "cpu"):
+        net, cond_net, scale = speed_test.build_nets(args, dev)
+        if dev == "cuda":
+            erng = np.random.default_rng(12)
+            eps = [{k: torch.from_numpy(erng.standard_normal(tuple(p.shape)).astype(np.float32))
+                    for k, p in net.named_parameters()
+                    if k.rpartition(".")[2].startswith("mu_")} for _ in range(SPEED_CHECK_K)]
+        x, x_down = speed_test.inputs(SPEED_CHECK_SIZE, scale, torch.float32, dev)
+        sums, pred = speed_test.sequential(net, cond_net, x, x_down, scale, 2, eps=eps)
+        best, scores, best_pred = speed_test.speedup(net, cond_net, x, x_down, scale,
+                                                     SPEED_CHECK_K, eps=eps)
+        res[dev] = (sums, pred.cpu(), best, scores.cpu(), best_pred.cpu())
+        del net, cond_net
+    (sg, pg, bg, scg, bpg), (sc, pc, bc, scc, bpc) = res["cuda"], res["cpu"]
+    errs = [(a - b).abs().max().item() / max(1.0, b.abs().max().item())
+            for a, b in ((pg, pc), (scg, scc), (bpg, bpc))]
+    sum_rel = max(abs(a - b) / abs(b) for a, b in zip(sg, sc))
+    print(f"speed test {SPEED_CHECK_SIZE}x{SPEED_CHECK_SIZE} fp32 card vs CPU ({card}): "
+          f"sequential IE output err {errs[0]:.2e}, sums rel {sum_rel:.2e}; speedup K="
+          f"{SPEED_CHECK_K} pick card {bg} cpu {bc}, scores err {errs[1]:.2e}, IE output err "
+          f"{errs[2]:.2e} (tol 2e-4 of max(1, |cpu|))", flush=True)
+    if not (bg == bc and max(errs) <= 2e-4 and sum_rel <= 2e-4):
+        raise AssertionError("the speed test on the card disagrees with the CPU")
+
+
+def speed_phase(card: str):
+    """The speed-test CLI (phase 10): card vs CPU at 256x256, then its
+    timed runs at 2048x2048 in both modes and both dtypes."""
+    _speed_check(card)
+    torch.cuda.empty_cache()
+    common = ["--opt", os.path.join(REPO, "Options", EVAL_OPTIONS[0]),
+              "--cond_opt", os.path.join(REPO, "Options", EVAL_OPTIONS[1]),
+              "--input_size", str(SPEED_SIZE), "--device", "cuda"]
+    smoke.reset_launch_counts()
+    for dtype in ("bfloat16", "float32"):
+        for mode in (["--repeat", str(SPEED_REPEAT)],
+                     ["--speedup", "--repeat", str(SPEED_SPEEDUP_REPEAT)]):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                speed_test.main(common + ["--dtype", dtype] + mode)
+            lines = out.getvalue().strip().splitlines()
+            if not re.fullmatch(r"running time: \d+\.\d{4} sec", lines[0]):
+                raise AssertionError(f"speed test {dtype} {mode}: {lines}")
+            print(f"speed test {SPEED_SIZE}x{SPEED_SIZE} {dtype} {' '.join(mode)}: "
+                  f"{'; '.join(lines)} ({card})", flush=True)
+            torch.cuda.empty_cache()
+    counts = smoke.launch_counts()
+    print(f"launches over the speed test's runs: {counts}")
+    if min(counts[k] for k in smoke.BEM_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the speed test's path never launched: {counts}")
+    return counts
+
+
+# the two option sets of phase 10b, each from a shipped option file: the
+# options the port used to refuse, replaced in the file's text
+_L1 = "    type: L1Loss\n    loss_weight: 1\n    reduction: mean\n"
+_CYCLIC = ("    type: CosineAnnealingRestartCyclicLR\n    periods: [150000, 46000, 104000]\n"
+           "    restart_weights: [1, 1, 1]\n    eta_mins: [0.0002, 0.0002, 0.000001]\n")
+OPTION_SETS = {
+    # IE: conv down / up sampling, drop-path, relu last, Adam, MultiStepRestartLR
+    # after a warm-up, CombinedLoss; gdMlp kept and no SAM (the folded blocks)
+    "a": ("IE_UNet_LOLv1.yml", {
+        "  use_pixelshuffle: true\n  drop_path: 0.\n":
+            "  use_pixelshuffle: false\n  drop_path: 0.1\n  last_act: relu\n",
+        "  warmup_iter: -1\n": "  warmup_iter: 2\n",
+        _CYCLIC: ("    type: MultiStepRestartLR\n    milestones: [3, 5]\n    gamma: 0.5\n"
+                  "    restarts: [0, 4]\n    restart_weights: [1, 0.5]\n"),
+        "    type: AdamW\n": "    type: Adam\n",
+        _L1: "    type: CombinedLoss\n    loss_weight: 1\n"}),
+    # the Bayesian CG: FFNv02 and SAM (the unfolded blocks), TrueCosineAnnealingLR,
+    # PSNRLoss; 256 crops, so the CG's /16 input (16x16) leaves SAM its 4x4
+    # bottleneck
+    "b": ("CG_UNet_LOLv1.yml", {
+        "  mlp_type: gdmlp\n": "  mlp_type: ffnv02\n", "  sam: false\n": "  sam: true\n",
+        _CYCLIC: "    type: TrueCosineAnnealingLR\n    T_max: 6\n    eta_min: 0.000001\n",
+        "    type: L1Loss\n": "    type: PSNRLoss\n",
+        "    gt_size: 128\n    gt_sizes: [128]\n": "    gt_size: 256\n    gt_sizes: [256]\n"}),
+}
+# the kernels each option set's path must launch: (b) runs its blocks
+# unfolded, the SS2D's stem and the FFNv02 as plain ops
+OPTION_KERNELS = {"a": smoke.BEM_KERNELS,
+                  "b": tuple(k for k in smoke.BEM_KERNELS
+                             if k not in ("stem_fused_cf", "gdmlp_fused_cf"))}
+
+
+def _options_cli(card, root, tag, dirs):
+    """The train CLI on option set ``tag`` at full width, 6 iters."""
+    name, replace = OPTION_SETS[tag]
+    path = _copy_options(root, [name], **replace)[0]
+    train_step_check(path, f"option set ({tag})", grad_tol=1e-5)
+    torch.cuda.empty_cache()
+    common = ["--device", "cuda", "--force_yml",
+              f"datasets:train:dataroot_gt={dirs['train_high']}",
+              f"datasets:train:dataroot_lq={dirs['train_low']}",
+              f"datasets:val:dataroot_gt={dirs['val_high']}",
+              f"datasets:val:dataroot_lq={dirs['val_low']}",
+              f"name=smoke_set_{tag}", "logger:print_freq=1", "logger:save_checkpoint_freq=6",
+              "logger:use_tb_logger=false", "logger:wandb:project=~", "train:total_iter=6",
+              "datasets:train:num_worker_per_gpu=2", *SSIM]
+    lines = _Lines()
+    logging.getLogger("bem_tpu_torch").addHandler(lines)
+    before = smoke.launch_counts()
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        model, log, first = _cli_run(path, common, root, lines)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finally:
+        logging.getLogger("bem_tpu_torch").removeHandler(lines)
+    counts = {k: v - before[k] for k, v in smoke.launch_counts().items()}
+    losses = [float(m) for line in log for m in re.findall(r"l_pix: (\S+)", line)]
+    if not (len(losses) == 6 and np.isfinite(losses).all() and model.step == 6):
+        raise AssertionError(f"option set ({tag}) train CLI: l_pix {losses}, step {model.step}")
+    _check_validation(f"option set ({tag}) train CLI", model.metric_results)
+    net, train = model.opt["network_g"], model.opt["train"]
+    in_epoch = model.timings[1:]  # iter 1 builds and warms up
+    print(f"option set ({tag}) train CLI ({name}: "
+          + ", ".join(f"{k} {net[k]}" for k in ("use_pixelshuffle", "drop_path", "last_act",
+                                                 "mlp_type", "sam") if k in net)
+          + f"; {train['optim_g']['type']}, {train['scheduler']['type']}, warm-up "
+          f"{train['warmup_iter']}, {train['pixel_opt']['type']}) 6 iters B=8 "
+          f"{model.opt['datasets']['train']['gt_size']} crops fp32: l_pix "
+          f"{[f'{x:.5f}' for x in losses]}; first lr {first['lr']:.4e}; validation {H}x{W} "
+          f"PSNR {model.metric_results['psnr']:.4f} SSIM {model.metric_results['ssim']:.4f}; wall "
+          f"ms/step (data_time ms) by iter "
+          + ", ".join(f"{i}: {1e3 * wall:.1f} ({1e3 * data:.1f})"
+                      for i, _, data, wall in model.timings)
+          + f"; median of iters 2-6: wall {1e3 * statistics.median(t[3] for t in in_epoch):.1f} "
+          f"ms/step, data_time {1e3 * statistics.median(t[2] for t in in_epoch):.1f} ms; "
+          f"peak memory {peak:.2f} GiB ({card})", flush=True)
+    print(f"option set ({tag}) launches over its train CLI: {counts}")
+    if min(counts[k] for k in OPTION_KERNELS[tag]) <= 0:
+        raise AssertionError(f"a kernel of option set ({tag})'s path never launched: {counts}")
+    if tag == "b" and counts["stem_fused_cf"] + counts["gdmlp_fused_cf"]:
+        raise AssertionError(f"option set (b) ran a folded block: {counts}")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def options_phase(card: str):
+    """The Network and training options at full width (phase 10b)."""
+    root = OPTIONS_DIR
+    prev = os.environ.get("BEM_ALLOW_RANDOM_VGG")
+    os.environ["BEM_ALLOW_RANDOM_VGG"] = "1"
+    try:
+        for sub, n, seed in (("train", OPTIONS_TRAIN_IMAGES, 91), ("val", 2, 92)):
+            smoke.write_eval_images(os.path.join(root, sub), n, H, W, seed)
+        dirs = {f"{sub}_{kind}": os.path.join(root, sub, folder) for sub in ("train", "val")
+                for kind, folder in (("low", "input"), ("high", "target"))}
+        smoke.reset_launch_counts()
+        for tag in OPTION_SETS:
+            _options_cli(card, root, tag, dirs)
+        counts = smoke.launch_counts()
+    finally:
+        if prev is None:
+            os.environ.pop("BEM_ALLOW_RANDOM_VGG", None)
+        else:
+            os.environ["BEM_ALLOW_RANDOM_VGG"] = prev
+    return counts
+
+
 def _narrow_cls_config(forward_type="v2"):
     c = get_config()
     v = c.MODEL.VSSM
@@ -1750,6 +1968,13 @@ def main() -> int:
         vmunet_counts = vmunet_phase(card)
     finally:
         shutil.rmtree(VMUNET_DIR, ignore_errors=True)
+    phase("speed test at 2048x2048")
+    speed_counts = speed_phase(card)
+    phase("Network and training options at full width")
+    try:
+        options_counts = options_phase(card)
+    finally:
+        shutil.rmtree(OPTIONS_DIR, ignore_errors=True)
     phase("classifier reference checks")
     cls_ref_counts = cls_reference_check()
     phase("classifier training")
@@ -1768,11 +1993,11 @@ def main() -> int:
     mb_counts = microbench_phase()
     # each kernel's launches over the runs of its own paths: the BEM kernels
     # over the training, train / test CLI, serving, eval, flagship, flagship
-    # training and VMUNet family runs, the fused core and its backward over VMamba-T's, the
+    # training, VMUNet family, speed test and option-set runs, the fused core and its backward over VMamba-T's, the
     # clamped form over the narrow reference runs, selective_scan_fused over
     # VMamba-T v052d's, the microbenchmarks over their sweeps
     paths = {name: (train_counts, cli_counts, serve_counts, eval_counts, flagship_counts,
-                    flagship_train_counts, vmunet_counts)
+                    flagship_train_counts, vmunet_counts, speed_counts, options_counts)
              for name in smoke.BEM_KERNELS}
     paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts),
                  ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts),

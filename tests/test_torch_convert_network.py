@@ -13,7 +13,8 @@ from the port's seeded nets. Then:
   leaf for leaf: ``Network`` deterministic and Bayesian (``mu_*`` /
   ``rho_*``), pixel-shuffle on (PatchMerging / DualUpSample) and off
   (conv / transposed conv), an m0-style ``conv2d.1`` key; the Decomp dual
-  branch (``convert_dualbranch_state``, the flagship's ``branches``).
+  branch (``convert_dualbranch_state``, the flagship's ``branches``); and,
+  in the port's converter alone, SAM blocks and FFNv02 / Mlp MLPs.
 - A converted net, loaded by ``convert.load_flax_params``, runs bem_tpu's
   forward within 1e-5 (``Network`` on bem_tpu's XLA scan backend).
 - A ``.pth`` round trip through ``convert_network_checkpoint`` (the
@@ -72,16 +73,8 @@ def _net(case, seed=0):
 
 
 def _source_tree(case):
-    """The port's seeded params; with pixel-shuffle off (a form the port's
-    ``Network`` does not build), seeded values in the shapes of bem_tpu's
-    init (``jax.eval_shape``, nothing compiled)."""
-    if CASES[case]["use_pixelshuffle"]:
-        return state_dict_to_flax(_net(case))
-    net = jax_build(dict(NET, **CASES[case], scan_backend="xla"))
-    shapes = jax.eval_shape(net.init, jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)))
-    rng = np.random.default_rng(1)
-    return jax.tree_util.tree_map(
-        lambda s: rng.standard_normal(s.shape).astype(np.float32), shapes["params"])
+    """The port's seeded params (pixel-shuffle on or off)."""
+    return state_dict_to_flax(_net(case))
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -119,7 +112,7 @@ def test_dualbranch_converter_matches_bem_tpu():
         np.testing.assert_array_equal(m(x)[-1].numpy(), net(x)[-1].numpy())
 
 
-@pytest.mark.parametrize("case", ["deterministic", "bayesian"])
+@pytest.mark.parametrize("case", list(CASES))
 def test_converted_forward_matches_bem_tpu(case):
     """The converted reference checkpoint's forward (on mu for the Bayesian
     net) in the port against bem_tpu's on bem_tpu's converted tree."""
@@ -133,6 +126,20 @@ def test_converted_forward_matches_bem_tpu(case):
     params = jax.tree_util.tree_map(jnp.asarray, jconv.convert_network_state(sd, **kw))
     want = jax.jit(lambda p, v: net.apply({"params": p}, v)[-1])(params, jnp.asarray(x))
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mlp_type", ["ffnv02", "mlp"])
+def test_sam_and_mlp_types_round_trip(mlp_type):
+    """A Bayesian net with SAM after every block and an FFNv02 / Mlp (keys
+    bem_tpu's converter does not map): reference layout and back through the
+    port's converter gives the source tree, every key used."""
+    cfg = dict(NET, use_pixelshuffle=False, bayesian=True, sam=True, mlp_type=mlp_type)
+    src = state_dict_to_flax(build_network(cfg, torch.Generator().manual_seed(4)))
+    sd = reference_state(src)
+    assert any(".sam_blocks.0.basic_block_4.conv_layers.4.conv.0.weight" in k for k in sd)
+    m = pconv._network_mapper(sd, num_blocks=NB, use_pixelshuffle=False)
+    assert set(sd) == m.used
+    _assert_same_tree(pconv.convert_network_state(sd, num_blocks=NB, use_pixelshuffle=False), src)
 
 
 def test_checkpoint_round_trip(tmp_path):
