@@ -18,20 +18,30 @@ from typing import Any, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
-from .paired_image_dataset import Dataset_PairedImage, Dataset_PairedImage_Mask
+from .gaussian_denoising_dataset import Dataset_GaussianDenoising, FFHQDataset
+from .paired_image_dataset import (Dataset_DefocusDeblur_DualPixel_16bit, Dataset_PairedImage,
+                                   Dataset_PairedImage_Mask, Dataset_PairedImage_Norm,
+                                   Dataset_PairedImage_Slide, PairedImageDataset)
+from .sid_image_dataset import Dataset_SIDImage
+from .single_image_dataset import SingleImageDataset
 
-DATASETS = {"Dataset_PairedImage": Dataset_PairedImage,
-            "Dataset_PairedImage_Mask": Dataset_PairedImage_Mask}
+DATASETS = {cls.__name__: cls for cls in (
+    Dataset_PairedImage, Dataset_PairedImage_Mask, Dataset_PairedImage_Slide,
+    Dataset_PairedImage_Norm, Dataset_DefocusDeblur_DualPixel_16bit, PairedImageDataset,
+    SingleImageDataset, Dataset_GaussianDenoising, FFHQDataset, Dataset_SIDImage)}
+# bem_tpu's other registered datasets, not ported yet
+_REFUSED = {"RealESRGANDataset": "RealESRGAN's degradations",
+            "RealESRGANPairedDataset": "RealESRGAN's degradations"}
 
 __all__ = ["build_dataset", "build_dataloader", "EnlargedSampler", "DataLoader",
-           "CPUPrefetcher", "DevicePrefetcher", "Dataset_PairedImage",
-           "Dataset_PairedImage_Mask"]
+           "CPUPrefetcher", "DevicePrefetcher", *DATASETS]
 
 
 def build_dataset(dataset_opt: Dict[str, Any]):
     if dataset_opt["type"] not in DATASETS:
-        raise NotImplementedError(f"dataset {dataset_opt['type']} is not ported "
-                                  f"(ported: {sorted(DATASETS)})")
+        why = _REFUSED.get(dataset_opt["type"], "a video dataset or unknown")
+        raise NotImplementedError(f"dataset {dataset_opt['type']} is not ported ({why}; "
+                                  f"ported: {sorted(DATASETS)})")
     return DATASETS[dataset_opt["type"]](dict(dataset_opt))
 
 

@@ -49,7 +49,7 @@ from ..utils.histogram import histogram_condition
 from ..utils.img_util import downsample, imread, imwrite
 from ..utils.options import parse
 
-IMAGE_EXTS = ("png", "jpg", "bmp", "tif")  # bem_tpu's glob; tif raises on reading
+IMAGE_EXTS = ("png", "jpg", "bmp", "tif")  # bem_tpu's glob
 RGB2GRAY = np.array([0.299, 0.587, 0.114], np.float32)  # cv2.COLOR_RGB2GRAY
 # floor of the means the GT-mean rescales divide by: an all-black channel
 # (mean 0) stays black where bem_tpu's 0 / 0 makes it NaN

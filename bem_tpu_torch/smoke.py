@@ -299,10 +299,11 @@ def _dir(w, d, with_d=True):
     return out + ((w[4][d].contiguous() if with_d else None),)
 
 
-def _cases_for(label, B, C, H, W, dtype, device, seed, col_probe=True, clamp=True):
+def _cases_for(label, B, C, H, W, dtype, device, seed, col_probe=True, clamp=True, rng=None):
     """Rows 1-7 at one shape and dtype; ``clamp`` adds the row pair's
-    clamp-hitting case, ``col_probe`` the column pair's clamp probes."""
-    rng = np.random.default_rng(seed)
+    clamp-hitting case, ``col_probe`` the column pair's clamp probes;
+    ``rng`` (default: seeded by ``seed``) draws the inputs."""
+    rng = np.random.default_rng(seed) if rng is None else rng
     L = H * W
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
     s = lambda a: t(a).to(dtype)  # noqa: E731
@@ -455,11 +456,39 @@ def _eval_cases(label, B, C, H, W, device, seed):
     return cases
 
 
-def _speed_cases(label, B, C, H, W, dtype, device, seed):
+class _SharedNormals:
+    """A seeded generator whose normal draws are float32 and kept: the k-th
+    draw of a shape returns the same array each time the cases of another
+    dtype ask for it again (``restart``), so a speed-test shape's
+    2^22-position inputs are drawn once for both dtypes."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+        self.kept, self.seen = {}, {}
+
+    def restart(self):
+        self.seen = {}
+        return self
+
+    def standard_normal(self, size=None):
+        key = tuple(np.atleast_1d(size).tolist()) if size is not None else ()
+        k = self.seen.get(key, 0)
+        self.seen[key] = k + 1
+        if (key, k) not in self.kept:
+            self.kept[(key, k)] = self.rng.standard_normal(size, dtype=np.float32)
+        return self.kept[(key, k)]
+
+    def __getattr__(self, name):
+        return getattr(self.rng, name)
+
+
+def _speed_cases(label, B, C, H, W, dtype, device, draws):
     """Rows 1-7 as _cases_for builds them at a speed-test shape, each a path
-    shape (its bound beside its time); the clamp cases in fp32 only."""
+    shape (its bound beside its time); the clamp cases in fp32 only; the
+    inputs from ``draws`` (a _SharedNormals of the shape)."""
     f32 = dtype == torch.float32
-    cases = _cases_for(label, B, C, H, W, dtype, device, seed, col_probe=f32, clamp=f32)
+    cases = _cases_for(label, B, C, H, W, dtype, device, None, col_probe=f32, clamp=f32,
+                       rng=draws.restart())
     for c in cases:
         c.report = True
     return cases
@@ -995,8 +1024,10 @@ def kernel_cases(small: bool = False, device="cuda"):
         for i, shape in enumerate(FLAGSHIP_TRAIN_SHAPES):
             yield from _scan_bwd_cases(*shape, device, seed=120 + i)
         for i, shape in enumerate(SPEED_SHAPES):
+            draws = _SharedNormals(880 + i)
             for dtype in (torch.float32, torch.bfloat16):
-                yield from _speed_cases(*shape, dtype, device, seed=880 + i)
+                yield from _speed_cases(*shape, dtype, device, draws)
+            del draws
         yield from _carry_cases(device)
         yield from _train_carry_cases(device)
         yield from _train_carry_cases(device, 790, SPEED_SHAPES[:1])

@@ -154,6 +154,20 @@ result line):
      reference-layout ckpt.pth files of the LOLv1 CG (Bayesian mu / rho)
      and IE, seeded, through convert_network_checkpoint: the forward
      equals the source net's on the CPU and agrees card vs CPU (2e-4);
+  9e. image formats at full width: a folder of 400x600 files, one of each
+     of progressive 4:2:0 JPEG and CMYK JPEG (committed beside the PNGs of
+     cv2's decodes), LZW TIFF, 16-bit Deflate TIFF, 8-bit palette BMP, RLE8
+     BMP and interlaced 16-bit PNG (the lossless ones written here by
+     utils/image_writers.py over seeded arrays); each decode equal to its
+     truth (the PNG, or the array under the rule the CPU tests pinned) and
+     its host ms (median of 3); the eval CLI (LOLv1 CG and IE, --no_ref
+     niqe, K=16, fp32) over the folder, s/img per file; card vs CPU on
+     112x176 crops of two of the files (a TIFF and an RLE8 BMP, K=4, noise
+     0, the same injected weight noise: the same picks, the written PNGs
+     within 1 LSB); the train CLI for 4 iters on 8 pairs of progressive
+     JPEG inputs (the committed file) and LZW TIFF targets
+     (Dataset_PairedImage_Mask): data_time and ms/step; rows 1-7 must launch
+     over the phase's CLI runs;
  10. the speed-test CLI (bem_tpu_torch.enhancement.speed_test) from the
      LOLv1 option files (n_feat 40, blocks (2,2,2), seeded): both bodies on
      the card vs the CPU at 256x256, fp32, four injected CG weight samples
@@ -259,6 +273,8 @@ from bem_tpu_torch.models.base_model import BaseModel
 from bem_tpu_torch.test import test_pipeline
 from bem_tpu_torch.train import synthetic_batch, train_pipeline
 from bem_tpu_torch.utils.checkpoint import load_params, load_state
+from bem_tpu_torch.utils.image_writers import (encode_bmp_palette, encode_png_samples,
+                                               encode_tiff)
 from bem_tpu_torch.utils.img_util import imdecode, imread, imwrite
 from bem_tpu_torch.utils.mask import MaskGenerator
 from bem_tpu_torch.utils.options import parse
@@ -296,6 +312,7 @@ VMUNET_TRAIN_IMAGES = 48
 SPEED_SIZE = 2048  # the speed test's input (speed_test.py's default)
 SPEED_REPEAT, SPEED_SPEEDUP_REPEAT = 3, 16
 SPEED_CHECK_SIZE, SPEED_CHECK_K = 256, 4  # its card-vs-CPU check
+FORMATS_DIR = os.path.join(REPO, "results", "chip_smoke_formats")  # gitignored, removed at the end
 OPTIONS_DIR = os.path.join(REPO, "results", "chip_smoke_options")  # gitignored, removed at the end
 OPTIONS_TRAIN_IMAGES = 48
 JPEG_FIXTURES = os.path.join(REPO, "bem_tpu_torch", "testdata")
@@ -1532,6 +1549,179 @@ def vmunet_phase(card: str):
     return counts
 
 
+FORMAT_JPEGS = ("e_420_prog.jpg", "f_cmyk.jpg")
+
+
+def _format_files(root, seed):
+    """The phase's files: name -> (bytes, the RGB uint8 truth of a colour
+    read). The lossless ones from seeded arrays, each truth the array under
+    the rule the CPU tests pin; the JPEGs committed, each truth the PNG of
+    cv2's decode beside it."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:H, 0:W] / 37.0
+    base = [0.2 + 0.15 * np.sin(yy * (1 + c) + xx * (2 - c))[..., None] for c in range(3)]
+    smooth = np.clip(np.concatenate(base, -1) + 0.02 * rng.standard_normal((H, W, 3)), 0, 1)
+    rgb8 = (smooth * 255).round().astype(np.int64)
+    rgb16 = (smooth * 65535).round().astype(np.int64)
+    pal = rng.integers(0, 140, (256, 3))
+    idx = (rgb8.sum(-1) * 255 // (3 * 255)).clip(0, 255)
+    runs = np.repeat(idx[:, ::8], 8, axis=1)[:, :W]
+    bgr_pal = [tuple(int(v) for v in p[::-1]) for p in pal]
+    files = {"c_lzw.tif": (encode_tiff(rgb8, 2, 8, 5, 2, rows_per_strip=16), rgb8),
+             "d_deflate16.tif": (encode_tiff(rgb16, 2, 16, 8, 2, rows_per_strip=16),
+                                 (rgb16 * 255 + 32767) // 65535),
+             "e_palette.bmp": (encode_bmp_palette(idx, bgr_pal), pal[idx]),
+             "f_rle8.bmp": (encode_bmp_palette(runs, bgr_pal, rle=True), pal[runs]),
+             "g_laced16.png": (encode_png_samples(rgb16, 2, 16, interlace=True), rgb16 >> 8)}
+    for name in FORMAT_JPEGS:
+        with open(os.path.join(JPEG_FIXTURES, name), "rb") as f:
+            files[name] = (f.read(), imread(os.path.join(JPEG_FIXTURES, name[:-4] + ".png"),
+                                            float32=False))
+    os.makedirs(root, exist_ok=True)
+    for name, (data, _) in files.items():
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(data)
+    return {k: (d, np.asarray(t, np.uint8)) for k, (d, t) in files.items()}
+
+
+def _format_decodes(card, files):
+    """Each file's host decode against its truth; its median time of 3."""
+    for name, (data, truth) in sorted(files.items()):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = imdecode(data, name)
+            times.append(time.perf_counter() - t0)
+        same = got.shape == truth.shape == (H, W, 3) and np.array_equal(got, truth)
+        print(f"decode {name} ({len(data)} bytes, {H}x{W}): {1e3 * statistics.median(times):.1f} "
+              f"ms (median of 3, host), equal to its truth {same} ({card})", flush=True)
+        if not same:
+            raise AssertionError(f"{name}: the decoder disagrees with the file's truth")
+
+
+def _format_crops(root, files):
+    """112x176 crops of the LZW TIFF and the RLE8 BMP, written in their own
+    formats."""
+    one = os.path.join(root, "crops")
+    os.makedirs(one, exist_ok=True)
+    y0, x0 = (H - CPU_CROP[0]) // 2, (W - CPU_CROP[1]) // 2
+    win = (slice(y0, y0 + CPU_CROP[0]), slice(x0, x0 + CPU_CROP[1]))
+    tiff = files["c_lzw.tif"][1][win].astype(np.int64)
+    with open(os.path.join(one, "0.tif"), "wb") as f:
+        f.write(encode_tiff(tiff, 2, 8, 5, 2))
+    # the BMP crop through its palette: the crop's colours as a palette
+    crop = files["f_rle8.bmp"][1][win].astype(np.int64)
+    colours, idx = np.unique(crop.reshape(-1, 3), axis=0, return_inverse=True)
+    with open(os.path.join(one, "1.bmp"), "wb") as f:
+        f.write(encode_bmp_palette(idx.reshape(CPU_CROP), [tuple(int(v) for v in c[::-1])
+                                                          for c in colours], rle=True))
+    return one
+
+
+def formats_phase(card: str):
+    """Image formats at full width (phase 9e)."""
+    root = FORMATS_DIR
+    inp = os.path.join(root, "input")
+    files = _format_files(inp, seed=91)
+    _format_decodes(card, files)
+    cg, ie = (os.path.join(REPO, "Options", n) for n in EVAL_OPTIONS)
+    names = sorted(files, key=lambda n: [int(t) if t.isdigit() else t
+                                         for t in re.split(r"(\d+)", n)])
+    smoke.reset_launch_counts()
+    with torch_tf32_defaults():
+        res = eval_main(["--opt", cg, "--cond_opt", ie, "--input_dir", inp, "--result_dir",
+                         os.path.join(root, "eval"), "--num_samples", str(K), "--parallel_num",
+                         "8", "--seed", "5", "--device", "cuda", "--no_ref", "niqe"])
+    scores = [v for sc in res["scores"] for v in sc]
+    if not (len(res["per_image_s"]) == len(files) and len(scores) == len(files) * K
+            and np.isfinite(scores).all() and all(0 <= i < K for i in res["selected"])):
+        raise AssertionError(f"eval over the formats: bad result {res}")
+    for name in names:
+        out = imread(os.path.join(root, "eval", "dataset", os.path.splitext(name)[0] + ".png"))
+        if out.shape != (H, W, 3):
+            raise AssertionError(f"eval over the formats: output of {name} is {out.shape}")
+    per = "; ".join(f"{n} {s:.4f}" for n, s in zip(names, res["per_image_s"]))
+    print(f"eval CG {EVAL_OPTIONS[0]} + IE {EVAL_OPTIONS[1]} --no_ref niqe K={K} parallel_num 8 "
+          f"{H}x{W} fp32, TF32 defaults, {len(files)} formats: s/img {per} (the first pays the "
+          f"compiles); steady-state {res['steady_s_per_img']:.4f} s/img; NIQE {res['niqe']:.4f}"
+          f" ({card})", flush=True)
+    torch.cuda.empty_cache()
+
+    # the CLI again, card vs CPU, on crops of two files: noise 0, the same
+    # injected weight noise
+    opts = _copy_options(os.path.join(root, "noise0"), EVAL_OPTIONS,
+                         **{"noise_level: 0.1": "noise_level: 0"})
+    crops = _format_crops(root, files)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        restore = _inject_cg_eps(opts[0], 2 * VMUNET_CPU_K, seed=62)
+        try:
+            outs[dev] = eval_main(["--opt", opts[0], "--cond_opt", opts[1], "--input_dir", crops,
+                                   "--result_dir", os.path.join(root, f"crops_{dev}"),
+                                   "--num_samples", str(VMUNET_CPU_K), "--parallel_num", "4",
+                                   "--seed", "5", "--device", dev, "--no_ref", "niqe"])
+        finally:
+            restore()
+    lsb = max(int(np.abs(imread(os.path.join(root, "crops_cuda", "dataset", f"{i}.png"),
+                                float32=False).astype(int)
+                         - imread(os.path.join(root, "crops_cpu", "dataset", f"{i}.png"),
+                                  float32=False).astype(int)).max()) for i in range(2))
+    g, c = outs["cuda"], outs["cpu"]
+    print(f"eval niqe card vs CPU on {CPU_CROP[0]}x{CPU_CROP[1]} crops (LZW TIFF, RLE8 BMP), "
+          f"K={VMUNET_CPU_K}, noise 0, the same weight noise: selected card {g['selected']} cpu "
+          f"{c['selected']}, written images max diff {lsb} LSB (tol 1), NIQE {g['niqe']:.6f} / "
+          f"{c['niqe']:.6f}", flush=True)
+    if not (g["selected"] == c["selected"] and lsb <= 1):
+        raise AssertionError("eval over the formats on the card disagrees with the CPU")
+
+    # the train CLI on progressive-JPEG inputs and TIFF targets
+    lines = _Lines()
+    logging.getLogger("bem_tpu_torch").addHandler(lines)
+    try:
+        train = os.path.join(root, "train")
+        for sub in ("input", "target", "val_input", "val_target"):
+            os.makedirs(os.path.join(train, sub), exist_ok=True)
+        rng = np.random.default_rng(92)
+        prog = files["e_420_prog.jpg"][0]
+        for i in range(10):
+            sub = "" if i < 8 else "val_"
+            with open(os.path.join(train, sub + "input", f"{i:03d}.jpg"), "wb") as f:
+                f.write(prog)
+            gt = np.clip(files["e_420_prog.jpg"][1].astype(np.int64) * 3
+                         + rng.integers(-8, 9, (H, W, 3)), 0, 255)
+            with open(os.path.join(train, sub + "target", f"{i:03d}.tif"), "wb") as f:
+                f.write(encode_tiff(gt, 2, 8, 5, 2, rows_per_strip=32))
+        args = ["--device", "cuda", "--force_yml",
+                f"datasets:train:dataroot_lq={os.path.join(train, 'input')}",
+                f"datasets:train:dataroot_gt={os.path.join(train, 'target')}",
+                f"datasets:val:dataroot_lq={os.path.join(train, 'val_input')}",
+                f"datasets:val:dataroot_gt={os.path.join(train, 'val_target')}",
+                "name=smoke_formats", "logger:print_freq=1", "logger:save_checkpoint_freq=4",
+                "val:val_freq=4", "logger:use_tb_logger=false", "logger:wandb:project=~",
+                "datasets:train:num_worker_per_gpu=2", "train:total_iter=4", *SSIM]
+        model, log, _ = _cli_run(EVAL_OPTIONS[1], args, root, lines)
+    finally:
+        logging.getLogger("bem_tpu_torch").removeHandler(lines)
+    losses = [float(m) for line in log for m in re.findall(r"l_total: (\S+)", line)]
+    if not (len(losses) == 4 and np.isfinite(losses).all() and model.step == 4):
+        raise AssertionError(f"train CLI on the formats: losses {losses}, step {model.step}")
+    _check_validation("train CLI on the formats", model.metric_results)
+    per_iter = ", ".join(f"{i}: {1e3 * wall:.1f} ({1e3 * data:.1f})"
+                         for i, _, data, wall in model.timings)
+    rest = model.timings[1:]
+    print(f"ImageEnhancer train CLI 4 iters B=8 fp32 on 8 progressive-JPEG / LZW-TIFF pairs "
+          f"{H}x{W} (Dataset_PairedImage_Mask, 2 loader threads): losses "
+          f"{[f'{x:.5f}' for x in losses]}; wall ms/step (data_time ms) by iter {per_iter}; "
+          f"iters 2-4 mean {1e3 * statistics.mean(t[3] for t in rest):.1f} ms/step, data_time "
+          f"{1e3 * statistics.mean(t[2] for t in rest):.1f} ms; validation PSNR "
+          f"{model.metric_results['psnr']:.4f} ({card})", flush=True)
+    counts = smoke.launch_counts()
+    print(f"launches over the image formats' CLI runs: {counts}")
+    if min(counts[k] for k in smoke.BEM_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the image formats' paths never launched: {counts}")
+    return counts
+
+
 def _speed_check(card):
     """Both speed-test bodies on the card and the CPU from the same nets
     (the LOLv1 option files, seeded) on the 256x256 input, fp32, TF32 off,
@@ -1968,6 +2158,11 @@ def main() -> int:
         vmunet_counts = vmunet_phase(card)
     finally:
         shutil.rmtree(VMUNET_DIR, ignore_errors=True)
+    phase("image formats at full width")
+    try:
+        formats_counts = formats_phase(card)
+    finally:
+        shutil.rmtree(FORMATS_DIR, ignore_errors=True)
     phase("speed test at 2048x2048")
     speed_counts = speed_phase(card)
     phase("Network and training options at full width")
@@ -1993,11 +2188,12 @@ def main() -> int:
     mb_counts = microbench_phase()
     # each kernel's launches over the runs of its own paths: the BEM kernels
     # over the training, train / test CLI, serving, eval, flagship, flagship
-    # training, VMUNet family, speed test and option-set runs, the fused core and its backward over VMamba-T's, the
+    # training, VMUNet family, image formats, speed test and option-set runs, the fused core and its backward over VMamba-T's, the
     # clamped form over the narrow reference runs, selective_scan_fused over
     # VMamba-T v052d's, the microbenchmarks over their sweeps
     paths = {name: (train_counts, cli_counts, serve_counts, eval_counts, flagship_counts,
-                    flagship_train_counts, vmunet_counts, speed_counts, options_counts)
+                    flagship_train_counts, vmunet_counts, formats_counts, speed_counts,
+                    options_counts)
              for name in smoke.BEM_KERNELS}
     paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts),
                  ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts),

@@ -109,7 +109,7 @@ def test_unported_options_raise(folder):
     with pytest.raises(NotImplementedError, match="lmdb"):
         build_dataset(dict(_opt(folder, "train"), io_backend={"type": "lmdb"}))
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_dataset(dict(_opt(folder, "train"), type="Dataset_PairedImage_Slide"))
+        build_dataset(dict(_opt(folder, "train"), type="RealESRGANPairedDataset"))
 
 
 @pytest.mark.parametrize("n,replicas,ratio,seed", [(7, 1, 1, 0), (10, 2, 3, 100), (5, 3, 2, 7)])

@@ -9,7 +9,10 @@ also copied to the host) against the run without, and NIQE at 64x64,
 which the port refuses (no 96x96 block). Checked: the written images
 within 1 LSB, PSNR within 1e-3 dB, SSIM within 1e-4, NIQE within 1e-3
 relative, result.txt's lines, and the refusals of what the port leaves
-out. Also: the port's eval, CLIP and LPIPS modules and chip_smoke.py
+out. A folder mixing the formats bem_tpu's glob takes (progressive and
+CMYK JPEG, LZW and 16-bit Deflate TIFF, palette and RLE8 BMP, interlaced
+16-bit PNG): the port's reads equal bem_tpu's ``cv2.imread`` path and both
+``main``s agree on it. Also: the port's eval, CLIP and LPIPS modules and chip_smoke.py
 import none of jax, flax, bem_tpu, cv2, PIL, yaml, msgpack or
 transformers. Selection among distinct candidates:
 test_torch_eval_select.py.
@@ -125,6 +128,56 @@ def test_niqe_selection(env):
         a = cv2.imread(str(env / "niqe_all_k" / "dataset" / f"{i}.png"))
         b = cv2.imread(str(env / "niqe_port" / "dataset" / f"{i}.png"))
         np.testing.assert_array_equal(a, b)
+
+
+def _mixed_folder(root):
+    """One 64x64 file of each new format, from a seeded image."""
+    import io
+
+    from PIL import Image
+
+    from bem_tpu_torch.utils.image_writers import (encode_bmp_palette, encode_png_samples,
+                                                   encode_tiff)
+
+    rng = np.random.default_rng(5)
+    os.makedirs(root, exist_ok=True)
+    img = (rng.random((64, 64, 3)) * 90).astype(np.uint8)
+    ok, prog = cv2.imencode(".jpg", img[..., ::-1], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    cmyk = io.BytesIO()
+    Image.fromarray(img).convert("CMYK").save(cmyk, "JPEG", quality=90)
+    pal = rng.integers(0, 120, (256, 3))
+    idx = rng.integers(0, 256, (64, 64))
+    runs = np.repeat(rng.integers(0, 256, (64, 8)), 8, axis=1)
+    files = {"a_prog.jpg": prog.tobytes(), "b_cmyk.jpg": cmyk.getvalue(),
+             "c_lzw.tif": encode_tiff(img, 2, 8, 5, 2),
+             "d_16bit.tif": encode_tiff(img.astype(np.int64) * 257, 2, 16, 32946, 2),
+             "e_palette.bmp": encode_bmp_palette(idx, [tuple(p[::-1]) for p in pal]),
+             "f_rle8.bmp": encode_bmp_palette(runs, [tuple(p[::-1]) for p in pal], rle=True),
+             "g_laced16.png": encode_png_samples(img.astype(np.int64) * 257, 2, 16, True)}
+    for name, data in files.items():
+        with open(os.path.join(root, name), "wb") as f:
+            f.write(data)
+    return sorted(files)
+
+
+def test_mixed_formats_read_as_bem_tpu(env):
+    from bem_tpu_torch.utils.img_util import imread
+
+    names = _mixed_folder(str(env / "mixed"))
+    for name in names:
+        path = str(env / "mixed" / name)
+        want = cv2.imread(path, cv2.IMREAD_COLOR)[:, :, ::-1].astype(np.float32) / 255.0
+        np.testing.assert_array_equal(imread(path), want, err_msg=name)
+    extra = ["--target_dir", str(env / "mixed")]
+    want = jax_main(_args(env, "mixed_jax", "mixed", extra))
+    got = main(_args(env, "mixed_port", "mixed", extra + ["--device", "cpu"]))
+    assert got["psnr"] == pytest.approx(want["psnr"], abs=1e-3)
+    assert got["ssim"] == pytest.approx(want["ssim"], abs=1e-4)
+    for name in names:
+        stem = os.path.splitext(name)[0]
+        a = cv2.imread(str(env / "mixed_jax" / "dataset" / f"{stem}.png")).astype(int)
+        b = cv2.imread(str(env / "mixed_port" / "dataset" / f"{stem}.png")).astype(int)
+        assert np.abs(a - b).max() <= 1, name
 
 
 def test_niqe_under_96_pixels_refused(env):

@@ -28,6 +28,7 @@ from bem_tpu_torch.options import lolv1_options
 from bem_tpu_torch.utils import yaml_lite
 from bem_tpu_torch.utils.checkpoint import load_params, msgpack_restore
 from bem_tpu_torch.utils.image_codec import encode_png
+from bem_tpu_torch.utils.image_writers import encode_bmp, encode_tiff
 from bem_tpu_torch.utils.img_util import imread, imwrite
 from bem_tpu_torch.utils.options import parse, yaml_load
 
@@ -147,23 +148,20 @@ def test_bmp_matches_cv2(tmp_path, shape):
 
 def test_unsupported_images_raise_naming_the_file(tmp_path):
     img = _rand(np.random.default_rng(3), 8, 8, 3)
-    path = tmp_path / "x.tif"
+    # TIFF, progressive JPEG, interlaced PNG and every BMP cv2 reads are
+    # decoded (test_torch_tiff_bmp_png.py, test_torch_jpeg_progressive.py);
+    # WebP, a 4-bit grey TIFF and a 16-bit BMP with 4-4-4 masks raise
+    path = tmp_path / "x.webp"
     _write_cv2(path, img)
-    with pytest.raises(ValueError, match=f"{path}.*TIFF decoding is not supported"):
+    with pytest.raises(ValueError, match=f"{path}: WebP decoding is not supported"):
         imread(str(path))
-    # baseline JPEG is decoded (test_torch_jpeg.py); a progressive one raises
-    path = tmp_path / "x.jpg"
-    Image.fromarray(img).save(str(path), "JPEG", progressive=True)
-    with pytest.raises(ValueError, match=f"{path}: a progressive JPEG"):
+    path = tmp_path / "grey4.tif"
+    path.write_bytes(encode_tiff(_rand(np.random.default_rng(3), 8, 8, 1, hi=16), 1, 4, 8))
+    with pytest.raises(ValueError, match=f"{path}: a TIFF of photometric 1 at 4 bits"):
         imread(str(path))
-    path = tmp_path / "laced.png"
-    rows = b"".join(b"\x00" + r.tobytes() for r in img.reshape(8, 24))
-    path.write_bytes(_png(8, 8, 8, 2, rows, interlace=1))
-    with pytest.raises(ValueError, match=f"{path}: interlaced PNG"):
-        imread(str(path))
-    path = tmp_path / "x32.bmp"
-    _write_cv2(path, _rand(np.random.default_rng(3), 8, 8, 4))
-    with pytest.raises(ValueError, match=f"{path}: only uncompressed 24-bit BMP"):
+    path = tmp_path / "x444.bmp"
+    path.write_bytes(encode_bmp(bytes(8 * 16), 8, 8, 16, 3, masks=(0xF00, 0xF0, 0xF)))
+    with pytest.raises(ValueError, match=f"{path}: a 16-bit BMP with bit masks"):
         imread(str(path))
     with pytest.raises(FileNotFoundError):
         imread(str(tmp_path / "missing.png"))

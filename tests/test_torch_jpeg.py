@@ -11,8 +11,9 @@
   grey, restart intervals, quality 50 and 95, at 17x23, 400x600 and a size
   under one MCU; PIL's encoder with each subsampling; EXIF orientations
   1-8 (and an out-of-range 9, which cv2 ignores).
-- Progressive, arithmetic-coded, 12-bit and CMYK files raise a ValueError
-  naming the file.
+- Arithmetic-coded, 12-bit, hierarchical and lossless files raise a
+  ValueError naming the file (progressive and CMYK ones are read:
+  test_torch_jpeg_progressive.py).
 """
 
 import io
@@ -141,19 +142,17 @@ def test_exif_orientation(orientation):
 
 def test_unsupported_kinds_raise_naming_the_file(tmp_path):
     img = scene(9, 16, 16)
-    path = tmp_path / "prog.jpg"
-    Image.fromarray(img).save(str(path), "JPEG", progressive=True)
-    with pytest.raises(ValueError, match=f"{path}: a progressive JPEG"):
-        imread(str(path))
     base = _cv2_jpeg(img, 90)
     sof = base.index(b"\xff\xc0")
+    path = tmp_path / "hier.jpg"
+    path.write_bytes(base[:sof + 1] + b"\xc5" + base[sof + 2:])
+    with pytest.raises(ValueError, match=f"{path}: a hierarchical"):
+        imread(str(path))
     with pytest.raises(ValueError, match="x.jpg: a arithmetic-coded JPEG"):
         decode_jpeg(base[:sof + 1] + b"\xc9" + base[sof + 2:], "x.jpg")
     twelve = bytearray(base)
     twelve[sof + 4] = 12  # the frame's sample precision
     with pytest.raises(ValueError, match="y.jpg: a 12-bit JPEG"):
         decode_jpeg(bytes(twelve), "y.jpg")
-    b = io.BytesIO()
-    Image.fromarray(img).convert("CMYK").save(b, "JPEG")
-    with pytest.raises(ValueError, match="z.jpg: a 4-component"):
-        decode_jpeg(b.getvalue(), "z.jpg")
+    with pytest.raises(ValueError, match="z.jpg: a lossless JPEG"):
+        decode_jpeg(base[:sof + 1] + b"\xc3" + base[sof + 2:], "z.jpg")
