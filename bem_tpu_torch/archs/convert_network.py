@@ -6,10 +6,14 @@ the tree into the port's module.
 Handles deterministic layers and the Bayesian ``mu_*`` / ``rho_*`` pairs,
 PatchMerging / DualUpSample or conv / transposed-conv resampling, the four
 MLP types (gdMlp, Mlp / gMlp ``fc1`` / ``fc2``, FFNv02 ``net.0`` / ``.2`` /
-``.4``), a BasicBlock's ``sam_blocks.<i>`` and the m0 SS2D's ``conv2d.1``.
-bem_tpu's converter maps neither FFNv02 nor SAM; their reference key
-names here are the module paths of the reference's ``nn.Sequential`` /
-``ModuleList`` layout, not yet checked against a released checkpoint. A key the mapping needs and does not find raises
+``.4``), a BasicBlock's ``sam_blocks.<i>``, the m0 SS2D's ``conv2d.1`` and
+the SS2D out-norms held in the reference's ``get_outnorm`` Sequential
+(``_oncnorm``: ``out_norm.0`` LN and ``out_norm.2`` conv -> ``out_norm`` /
+``out_norm_conv``; ``_ondwconv3``: ``out_norm.1`` conv -> ``out_norm``).
+bem_tpu's converter maps neither FFNv02, SAM nor those out-norms; their
+reference key names here are the module paths of the reference's
+``nn.Sequential`` / ``ModuleList`` layout, not yet checked against a
+released checkpoint. A key the mapping needs and does not find raises
 a KeyError; ``convert_network_checkpoint`` warns of the keys the
 checkpoint has and the mapping left unused.
 """
@@ -90,6 +94,11 @@ def _convert_ss2d(m: _Mapper, dst: str, src: str):
     m.raw(f"{dst}/Ds", f"{src}.Ds")
     if f"{src}.out_norm.weight" in m.sd:
         m.ln(f"{dst}/out_norm", f"{src}.out_norm")
+    elif f"{src}.out_norm.2.weight" in m.sd:  # _oncnorm: LN, (permute,) dw conv
+        m.ln(f"{dst}/out_norm", f"{src}.out_norm.0")
+        m.conv(f"{dst}/out_norm_conv", f"{src}.out_norm.2")
+    elif f"{src}.out_norm.1.weight" in m.sd:  # _ondwconv3: (permute,) dw conv
+        m.conv(f"{dst}/out_norm", f"{src}.out_norm.1")
     m.linear(f"{dst}/out_proj", f"{src}.out_proj")
 
 

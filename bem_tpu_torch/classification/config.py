@@ -189,3 +189,14 @@ _C.FUSED_LAYERNORM = False
 def get_config() -> CfgNode:
     """A fresh copy of the default tree."""
     return _C.clone()
+
+
+def vmamba_tiny(cfg: CfgNode, forward_type: str = "v05_noz") -> CfgNode:
+    """``cfg`` with bem_tpu's ``vmamba_tiny`` fields (nn/vssm.py:180-183):
+    depths (2, 2, 5, 2), embed 96, d_state 1, ssm_ratio 2, no conv bias,
+    mlp_ratio 4, v3 downsampling, v2 patch embedding; ``forward_type``."""
+    v = cfg.MODEL.VSSM
+    v.DEPTHS, v.EMBED_DIM, v.SSM_D_STATE, v.SSM_RATIO = [2, 2, 5, 2], 96, 1, 2.0
+    v.SSM_CONV_BIAS, v.MLP_RATIO, v.DOWNSAMPLE, v.PATCHEMBED = False, 4.0, "v3", "v2"
+    v.SSM_FORWARDTYPE = forward_type
+    return cfg

@@ -4,7 +4,7 @@ Counterpart of bem_tpu/classification/train.py (reference
 basicsr/vmamba/main.py): cross-entropy with label smoothing, the optax chain
 ``clip_by_global_norm(5) -> adamw(warmup_cosine_decay_schedule(0, lr,
 warmup, total), weight_decay)`` (:class:`..models.base_model.AdamWChain`
-reproduces it), drop-path drawn from the trainer's generator, top-1 / top-5
+reproduces it), drop-path and SSM dropout drawn from the trainer's generator, top-1 / top-5
 evaluation and the bf16 throughput probe. Data is any iterable of
 ``(images NHWC in [0, 1], labels)``; the ImageNet folder loader with its
 mixup / cutmix is not ported, and :func:`synthetic_batch` makes seeded
@@ -28,10 +28,6 @@ import torch.nn.functional as F
 from ..models.base_model import AdamWChain, global_norm
 from ..nn import init
 from ..nn.vssm import VSSM
-
-# MODEL.VSSM settings the port implements only at these values
-PORTED_ONLY = {"SSM_DROP_RATE": 0.0, "MLP_DROP_RATE": 0.0, "SSM_INIT": "v0", "POSEMBED": False}
-
 
 def cross_entropy(logits, labels, smoothing: float = 0.1):
     """Mean cross-entropy against one-hot labels smoothed by ``smoothing``."""
@@ -157,21 +153,19 @@ def throughput(model: VSSM, batch: int = 64, size: int = 224, iters: int = 10,
 
 
 def build_model_from_config(config, gen=None) -> VSSM:
-    """MODEL.VSSM config subtree -> VSSM (train.py:122-149), its weights
-    drawn from ``gen`` (a CPU generator; seed 0 when None). Raises
-    NotImplementedError on the settings the port lacks: SSM / MLP dropout,
-    an SSM init other than v0, posembed."""
+    """MODEL.VSSM config subtree -> VSSM, every field bem_tpu passes
+    (train.py:122-149), its weights drawn from ``gen`` (a CPU generator;
+    seed 0 when None)."""
     v = config.MODEL.VSSM
-    lacking = {k: v[k] for k, default in PORTED_ONLY.items() if v[k] != default}
-    if lacking:
-        raise NotImplementedError(f"VSSM port: {lacking} (only {PORTED_ONLY})")
     model = VSSM(
         patch_size=v.PATCH_SIZE, in_chans=v.IN_CHANS, num_classes=config.MODEL.NUM_CLASSES,
         depths=tuple(v.DEPTHS), dims=v.EMBED_DIM, ssm_d_state=v.SSM_D_STATE,
         ssm_ratio=v.SSM_RATIO, ssm_dt_rank=v.SSM_DT_RANK, ssm_conv=v.SSM_CONV,
-        ssm_conv_bias=v.SSM_CONV_BIAS, forward_type=v.SSM_FORWARDTYPE, mlp_ratio=v.MLP_RATIO,
+        ssm_conv_bias=v.SSM_CONV_BIAS, ssm_drop_rate=v.SSM_DROP_RATE, ssm_init=v.SSM_INIT,
+        forward_type=v.SSM_FORWARDTYPE, mlp_ratio=v.MLP_RATIO, mlp_drop_rate=v.MLP_DROP_RATE,
         gmlp=v.GMLP, drop_path_rate=config.MODEL.DROP_PATH_RATE, patch_norm=v.PATCH_NORM,
-        downsample_version=v.DOWNSAMPLE, patchembed_version=v.PATCHEMBED)
+        downsample_version=v.DOWNSAMPLE, patchembed_version=v.PATCHEMBED,
+        posembed=v.POSEMBED, imgsize=config.DATA.IMG_SIZE)
     return init.initialize(model, gen if gen is not None else torch.Generator().manual_seed(0))
 
 

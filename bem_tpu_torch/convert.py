@@ -13,8 +13,11 @@ bem_tpu/archs/convert_network.py applied in reverse:
 - dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - ``mu_kernel`` / ``rho_kernel`` pairs -> ``mu_weight`` / ``rho_weight``, same rules;
 - LayerNorm ``scale`` and PReLU ``slope`` -> ``weight``;
-- ``mask_token`` (1,1,1,C) -> (1,C,1,1); everything else as it is (e.g.
-  CrossFusionBlock's (C,) ``gate``).
+- ``mask_token`` (1,1,1,C) -> (1,C,1,1) and the VSSM's ``pos_embed`` (1,H,W,C)
+  -> (1,C,H,W); everything else as it is (e.g. CrossFusionBlock's (C,)
+  ``gate``);
+- the ``ssm_state`` collection (m0's ``initial_state``) <-> the SS2D's
+  ``initial_state`` buffer, as it is.
 
 Reference PyTorch checkpoints reach the port by composing with
 ``bem_tpu.archs.convert_network.convert_network_state`` (torch -> flax).
@@ -60,12 +63,18 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), np.asarray(v)
 
 
+_NHWC = ("mask_token", "pos_embed")  # 4-D leaves kept channels-last in flax
+
+
 def flax_to_state_dict(params) -> dict:
-    """flax ``params`` (nested dict of arrays; a ``{"params": ...}`` wrapper
-    is unwrapped) -> {torch name: numpy array} in the port's layouts."""
-    if "params" in params and len(params) == 1:
-        params = params["params"]
+    """flax ``params`` (nested dict of arrays) or variables (``{"params":
+    ..., "ssm_state": ...}``) -> {torch name: numpy array} in the port's
+    layouts; the ``ssm_state`` leaves become buffers of the same path."""
     sd = {}
+    if "params" in params and set(params) <= {"params", "ssm_state"}:
+        for path, a in _flatten(params.get("ssm_state", {})):
+            sd[".".join(path)] = np.ascontiguousarray(np.asarray(a, np.float32))
+        params = params["params"]
     for path, a in _flatten(params):
         *mods, leaf = path
         a = np.asarray(a, np.float32)
@@ -75,7 +84,7 @@ def flax_to_state_dict(params) -> dict:
             leaf, a = leaf[:-len("kernel")] + "weight", _to_torch_layout(a)
         elif leaf in ("scale", "slope"):
             leaf = "weight"
-        elif leaf == "mask_token":
+        elif leaf in _NHWC:
             a = a.transpose(0, 3, 1, 2)
         sd[".".join(mods + [leaf])] = np.ascontiguousarray(a)
     return sd
@@ -101,7 +110,7 @@ def state_dict_to_flax(module: nn.Module, state=None, subset: bool = False) -> d
             leaf, a = _WEIGHTS[leaf], _to_flax_layout(a)
         elif _RAW_WEIGHT.fullmatch(leaf):
             leaf, a = leaf[:-len("weight")] + "kernel", _to_flax_layout(a)
-        elif leaf == "mask_token":
+        elif leaf in _NHWC:
             a = a.transpose(0, 2, 3, 1)
         node = tree
         for part in head.split(".") if head else []:
@@ -110,9 +119,25 @@ def state_dict_to_flax(module: nn.Module, state=None, subset: bool = False) -> d
     return tree
 
 
+def ssm_state_to_flax(module: nn.Module) -> dict:
+    """The port's m0 initial-state buffers -> bem_tpu's ``ssm_state``
+    collection (nested dict of numpy arrays; empty when there are none)."""
+    tree: dict = {}
+    for name, t in module.named_buffers():
+        head, _, leaf = name.rpartition(".")
+        if leaf != "initial_state":
+            continue
+        node = tree
+        for part in head.split(".") if head else []:
+            node = node.setdefault(part, {})
+        node[leaf] = t.detach().float().cpu().numpy().copy()  # not a view of the buffer
+    return tree
+
+
 def load_flax_params(module: nn.Module, params) -> nn.Module:
-    """Load a JAX module's params (numpy arrays) into the port's module, in
-    place; every parameter must be matched."""
+    """Load a JAX module's params (numpy arrays), or its variables with an
+    ``ssm_state`` collection, into the port's module, in place; every
+    parameter and buffer must be matched."""
     sd = {k: torch.tensor(v) for k, v in flax_to_state_dict(params).items()}
     module.load_state_dict(sd, strict=True)
     return module

@@ -35,6 +35,20 @@ def torch_default_(t, fan_in: int, gen):
 
 
 @torch.no_grad()
+def normal_(t, std: float, gen):
+    """N(0, std^2)."""
+    t.copy_(torch.randn(t.shape, generator=gen) * std)
+    return t
+
+
+@torch.no_grad()
+def uniform01_(t, scale: float, gen):
+    """scale * U[0, 1) (jax.random.uniform's default range)."""
+    t.copy_(torch.rand(t.shape, generator=gen) * scale)
+    return t
+
+
+@torch.no_grad()
 def kaiming_normal_(t, fan: int, gain: float, gen):
     t.copy_(torch.randn(t.shape, generator=gen) * (gain / math.sqrt(fan)))
     return t

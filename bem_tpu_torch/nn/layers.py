@@ -214,6 +214,23 @@ class LayerNorm2d(nn.Module):
         return layer_norm_c(x.float(), self.weight, self.bias, self.eps).to(x.dtype)
 
 
+def dropout_mask(shape, rate: float, gen) -> torch.Tensor:
+    """The keep mask of elementwise dropout at ``rate``: uniform < 1 - rate,
+    drawn from ``gen`` on its device (bool, ``shape``)."""
+    return torch.rand(shape, generator=gen, device=gen.device) < 1.0 - rate
+
+
+def dropout(x, rate: float, gen=None, mask=None):
+    """Elementwise dropout (bem_tpu/nn/ss2d.py:604-607): x / keep where the
+    keep mask is set, 0 elsewhere; the mask (bool, x's shape) drawn from
+    ``gen`` or given; with neither, or at rate 0, x passes unchanged."""
+    if rate == 0.0 or (gen is None and mask is None):
+        return x
+    if mask is None:
+        mask = dropout_mask(x.shape, rate, gen)
+    return torch.where(mask.to(x.device), x / (1.0 - rate), torch.zeros_like(x))
+
+
 def drop_path(x, rate: float, gen=None, mask=None):
     """Per-sample stochastic depth (layers.py:359-371): with keep = 1 - rate,
     each sample is x / keep where its mask is set and 0 elsewhere. The mask
@@ -221,11 +238,10 @@ def drop_path(x, rate: float, gen=None, mask=None):
     given; with neither, or at rate 0, x passes unchanged (eval)."""
     if rate == 0.0 or (gen is None and mask is None):
         return x
-    keep = 1.0 - rate
     if mask is None:
-        mask = torch.rand(x.shape[0], generator=gen, device=gen.device) < keep
+        mask = dropout_mask((x.shape[0],), rate, gen)
     mask = mask.to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class DropPath(nn.Module):

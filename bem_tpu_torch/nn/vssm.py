@@ -7,7 +7,9 @@ the spatial mean, ``head``). The input is bem_tpu's NHWC image batch; the
 interior runs channel-first (B, C, H, W). Parameter names follow the flax
 tree (``patch_embed_1``, ``layer{i}_block{d}``, ``downsample_{i}``, ...),
 so :func:`bem_tpu_torch.convert.load_flax_params` maps it mechanically.
-``posembed`` and the feature-pyramid ``BackboneVSSM`` are not ported.
+``posembed`` adds a learned (1, C, imgsize / patch, imgsize / patch)
+``pos_embed`` after the patch embedding; :class:`BackboneVSSM` is the
+feature pyramid (vssm.py:165-177).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import init
 from .layers import Conv2d, Dense, LayerNorm2d
 from .vss import VSSBlock
 
@@ -40,17 +43,17 @@ class PatchMerging2D(nn.Module):
 
 
 class VSSM(nn.Module):
-    """The VMamba classifier with bem_tpu VSSM's fields and defaults, less
-    those the port does not implement (the SSM and MLP dropouts, the v1 / v2
-    inits, posembed; build_model_from_config refuses their non-defaults)."""
+    """The VMamba classifier with bem_tpu VSSM's fields and defaults
+    (vssm.py:52-162)."""
 
     def __init__(self, patch_size: int = 4, in_chans: int = 3, num_classes: int = 1000,
                  depths: Sequence[int] = (2, 2, 9, 2), dims=(96, 192, 384, 768),
                  ssm_d_state: int = 16, ssm_ratio: float = 2.0, ssm_dt_rank="auto",
-                 ssm_conv: int = 3, ssm_conv_bias: bool = True, forward_type: str = "v05_noz",
-                 mlp_ratio: float = 4.0, gmlp: bool = False, drop_path_rate: float = 0.1,
+                 ssm_conv: int = 3, ssm_conv_bias: bool = True, ssm_drop_rate: float = 0.0,
+                 ssm_init: str = "v0", forward_type: str = "v05_noz", mlp_ratio: float = 4.0,
+                 mlp_drop_rate: float = 0.0, gmlp: bool = False, drop_path_rate: float = 0.1,
                  patch_norm: bool = True, downsample_version: str = "v2",
-                 patchembed_version: str = "v1"):
+                 patchembed_version: str = "v1", posembed: bool = False, imgsize: int = 224):
         super().__init__()
         dims = [dims * 2 ** i for i in range(len(depths))] if isinstance(dims, int) else list(dims)
         self.patchembed_version, self.use_patch_norm = patchembed_version, patch_norm
@@ -70,6 +73,9 @@ class VSSM(nn.Module):
                 self.patch_norm_2 = LayerNorm2d(dims[0])
         else:
             raise ValueError(f"patchembed_version {patchembed_version!r}")
+        if posembed and type(self) is VSSM:  # the backbone has none (vssm.py:165-177)
+            ph = imgsize // patch_size
+            self.pos_embed = nn.Parameter(torch.empty(1, dims[0], ph, ph))
         total = sum(depths)
         dpr = [drop_path_rate * i / max(total - 1, 1) for i in range(total)]
         blk = 0
@@ -79,12 +85,21 @@ class VSSM(nn.Module):
                     dims[i], ssm_d_state=ssm_d_state, ssm_ratio=ssm_ratio,
                     mlp_ratio=mlp_ratio, drop_path=dpr[blk], ssm_dt_rank=ssm_dt_rank,
                     ssm_conv=ssm_conv, ssm_conv_bias=ssm_conv_bias, forward_type=forward_type,
-                    mlp_type="gmlp" if gmlp else "mlp"))
+                    mlp_type="gmlp" if gmlp else "mlp", ssm_drop_rate=ssm_drop_rate,
+                    ssm_init=ssm_init, mlp_drop_rate=mlp_drop_rate))
                 blk += 1
             if i < len(depths) - 1:
                 self._add_downsample(i, dims[i], dims[i + 1])
+        self._add_head(dims, num_classes)
+
+    def _add_head(self, dims, num_classes):
         self.classifier_norm = LayerNorm2d(dims[-1])
         self.head = Dense(dims[-1], num_classes, weight_init="trunc_normal")
+
+    @torch.no_grad()
+    def reset_parameters(self, gen):
+        if hasattr(self, "pos_embed"):
+            init.trunc_normal_(self.pos_embed, 0.02, gen=gen)
 
     def _add_downsample(self, i: int, dim: int, out_dim: int):
         v = self.downsample_version
@@ -107,19 +122,53 @@ class VSSM(nn.Module):
         x = self.patch_embed_2(x)
         return self.patch_norm_2(x) if norm else x
 
-    def forward(self, x, gen=None):
-        """x: images (B, H, W, in_chans) -> logits (B, num_classes) in x.dtype.
-        ``gen`` turns drop-path on (training)."""
-        x = self._patch_embed(x.permute(0, 3, 1, 2))
+    def _stages(self, x, gen=None, masks=None):
+        """The stages on the embedded (B, C, H, W) map: each stage's output
+        (before its downsample). ``masks``: per block name, its injected
+        keep masks (VSSBlock.draw_masks)."""
+        masks = masks or {}
+        feats = []
         for i, depth in enumerate(self.depths):
             for d in range(depth):
-                x = getattr(self, f"layer{i}_block{d}")(x, gen)
+                name = f"layer{i}_block{d}"
+                x = getattr(self, name)(x, gen, masks.get(name))
+            feats.append(x)
             if i < len(self.depths) - 1 and self.downsample_version != "none":
                 x = getattr(self, f"downsample_{i}")(x)
                 if self.downsample_version != "v1":
                     x = getattr(self, f"downsample_norm_{i}")(x)
-        x = self.classifier_norm(x).mean((2, 3))
+        return feats
+
+    def forward(self, x, gen=None, masks=None):
+        """x: images (B, H, W, in_chans) -> logits (B, num_classes) in x.dtype.
+        ``gen`` turns drop-path and SSM dropout on (training); ``masks``
+        injects blocks' keep masks (see :meth:`_stages`)."""
+        x = self._patch_embed(x.permute(0, 3, 1, 2))
+        if hasattr(self, "pos_embed"):
+            x = x + self.pos_embed.to(x.dtype)
+        x = self.classifier_norm(self._stages(x, gen, masks)[-1]).mean((2, 3))
         return self.head(x)
+
+
+class BackboneVSSM(VSSM):
+    """The feature pyramid (vssm.py:165-177): the stages of :class:`VSSM`,
+    each stage of ``out_indices`` through its LayerNorm ``outnorm{i}``; no
+    classifier and no position embedding, even with ``posembed``."""
+
+    def __init__(self, out_indices: Sequence[int] = (0, 1, 2, 3), **kw):
+        self.out_indices = tuple(out_indices)
+        super().__init__(**kw)
+
+    def _add_head(self, dims, num_classes):
+        for i in self.out_indices:
+            self.add_module(f"outnorm{i}", LayerNorm2d(dims[i]))
+
+    def forward(self, x, gen=None, masks=None):
+        """x: images (B, H, W, in_chans) -> the features of ``out_indices``,
+        each (B, H_i, W_i, C_i) channels-last as bem_tpu returns them."""
+        feats = self._stages(self._patch_embed(x.permute(0, 3, 1, 2)), gen, masks)
+        return [getattr(self, f"outnorm{i}")(feats[i]).permute(0, 2, 3, 1)
+                for i in self.out_indices]
 
 
 def vmamba_tiny(**kw):

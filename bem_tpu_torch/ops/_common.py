@@ -51,6 +51,11 @@ def layer_norm_c(x: torch.Tensor, scale, bias, eps: float = 1e-5) -> torch.Tenso
     return (x - m) * torch.rsqrt(v + eps) * scale.reshape(shape) + bias.reshape(shape)
 
 
+def softplus(v: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^v) as jax.nn.softplus computes it (logaddexp(v, 0))."""
+    return torch.clamp(v, min=0.0) + torch.log1p(torch.exp(-v.abs()))
+
+
 def round_bf16(t: torch.Tensor) -> torch.Tensor:
     """The fp32 value a bf16 cast keeps (round-to-nearest-even)."""
     return t.to(torch.bfloat16).to(torch.float32)

@@ -19,6 +19,10 @@ backward is the same primitive run in the opposite direction over the
 shifted ``a`` and ``h``
 (bem_tpu/ops/scan.py:225-254): with lambda_t = g_t + a_{t+1} lambda_{t+1},
 db = lambda and da_t = lambda_t h_{t-1}.
+
+:func:`selective_scan` (bem_tpu/ops/scan.py:275-322) is the channels-last
+selective scan of the cascade SS2D (``v052dc``): its discretization and
+readout are plain tensor code, its recurrence is :func:`linear_scan`.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from ._common import on_cuda, ptr
+from ._common import on_cuda, ptr, softplus
 
 SCAN_THREADS = 256  # threads of a block of either form
 SCAN_SEG = 16       # positions a thread of the look-back form holds (kScanSeg)
@@ -162,3 +166,27 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, reverse: bool = False) -> torc
 
 
 linear_scan.launches = 0
+
+
+def selective_scan(u, delta, A, B, C, D=None, delta_bias=None, delta_softplus: bool = True):
+    """h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t, y_t = C_t . h_t + D u_t,
+    channels-last (bem_tpu/ops/scan.py:275-322): u, delta (Bt, L, KD); A
+    (KD, N); B, C (Bt, L, K, N), shared over the KD / K channels of each
+    group; D, delta_bias (KD,). Everything in fp32, the recurrence on
+    :func:`linear_scan` (the kernel for CUDA tensors); returns y (Bt, L,
+    KD) fp32 whatever the inputs' dtype."""
+    Bt, L, KD = u.shape
+    K, N = B.shape[-2:]
+    u, delta, A, B, C = (t.float() for t in (u, delta, A, B, C))
+    if delta_bias is not None:
+        delta = delta + delta_bias.float()
+    if delta_softplus:
+        delta = softplus(delta)
+    a = torch.exp(delta[..., None] * A)                              # (Bt, L, KD, N)
+    # B and C broadcast over each group's KD / K channels (bem_tpu repeats them)
+    b = (delta * u).reshape(Bt, L, K, KD // K, 1) * B[:, :, :, None]
+    h = linear_scan(a.reshape(Bt, L, KD * N), b.reshape(Bt, L, KD * N))
+    y = (h.reshape(Bt, L, K, KD // K, N) * C[:, :, :, None]).sum(-1).reshape(Bt, L, KD)
+    if D is not None:
+        y = y + u * D.float()
+    return y

@@ -50,6 +50,7 @@ import torch
 
 from .. import _build
 from ._common import check_stream, on_cuda, ptr, weight
+from ._common import softplus as _softplus
 from .scan import linear_scan, scan_plain
 
 W_CLAMP = -10.0  # ss2d_fused_g.py:52
@@ -65,10 +66,6 @@ def pick_group(B: int, C: int, max_sublanes: int = 256) -> int:
         if B % g == 0 and g * C <= max_sublanes:
             return g
     return 1
-
-
-def _softplus(v: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(v, min=0.0) + torch.log1p(torch.exp(-v.abs()))
 
 
 def _args(xs2, Wx, Wdt, bias, A, D):

@@ -9,6 +9,10 @@ host ops, beside the card's name and power limit:
 
     python -m bem_tpu_torch.profile_classify                       # v2, train batch 128
     python -m bem_tpu_torch.profile_classify --forward-type v052d --train-batch 8
+    python -m bem_tpu_torch.profile_classify --tiny --forward-type v052dc_noz --train-batch 64
+
+``--tiny`` takes bem_tpu's vmamba_tiny fields instead (depths (2,2,5,2),
+d_state 1, v3 downsampling).
 
 v052d trains at batch 8: its backward recomputes through the unfolded
 composition, whose (4 B, d_inner, L, d_state) fp32 tensors would take
@@ -21,7 +25,8 @@ import argparse
 
 import torch
 
-from .classification import build_model_from_config, get_config, make_trainer, synthetic_batch
+from .classification import (build_model_from_config, get_config, make_trainer, synthetic_batch,
+                             vmamba_tiny)
 from .profile_train import card_setup, profiled, report
 
 
@@ -30,9 +35,12 @@ def main(argv=None):
     ap.add_argument("--forward-type", default="v2")
     ap.add_argument("--train-batch", type=int, default=None,
                     help="batch of the profiled train step (default: the config's)")
+    ap.add_argument("--tiny", action="store_true", help="bem_tpu's vmamba_tiny fields")
     args = ap.parse_args(argv)
     card = card_setup("profile_classify")
     c = get_config()
+    if args.tiny:
+        vmamba_tiny(c)
     c.MODEL.VSSM.SSM_FORWARDTYPE = args.forward_type
     ft = args.forward_type
     model = build_model_from_config(c, torch.Generator().manual_seed(c.SEED))

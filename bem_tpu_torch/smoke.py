@@ -155,6 +155,14 @@ CLS_SHAPES = [
     ("VMamba-T S2 14x14 C768", 2, 768, 14, 14, 24, 16),
     ("VMamba-T S3 7x7 C1536", 2, 1536, 7, 7, 48, 16),
 ]
+# linear_scan in the cascade SS2D (v052dc) of VMamba-T (d_state 1, ssm_ratio
+# 2) at 224x224, (label, B, H, d_inner): each stage's bidirectional row scan
+# runs over (B*H, W, 2*d_inner*N) and its column scan over (B*W, H, ...) --
+# square maps, so one shape a stage -- at batch 2 and at the training and
+# throughput batch 128; forward and reverse (the backward's direction)
+CASCADE_SHAPES = [("VMamba-T v052dc S0 56x56", 56, 192), ("VMamba-T v052dc S1 28x28", 28, 384),
+                  ("VMamba-T v052dc S2 14x14", 14, 768), ("VMamba-T v052dc S3 7x7", 7, 1536)]
+CASCADE_BATCHES = (2, 128)
 # the classifier's training batch (the harness's default): row 9 at stage 0,
 # rows 8, 10 and 11 (bf16, the throughput batch too) at stages 0 and 2
 CLS_TRAIN_BATCH = 128
@@ -531,6 +539,22 @@ def _carry_cases(device, seed=760):
     return out
 
 
+def _cascade_cases(device, seed=810):
+    """linear_scan at CASCADE_SHAPES and CASCADE_BATCHES, forward and
+    reverse: decays exp(-dt) of the classifier's dt range, inputs of order 1."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    for label, H, C in CASCADE_SHAPES:
+        for B in CASCADE_BATCHES:
+            shape = (B * H, H, 2 * C)
+            a = t(_scan_decays(rng, shape, 0.0, 0.2))
+            b = t(rng.standard_normal(shape, dtype=np.float32))
+            for rev in (False, True):
+                yield Case("linear_scan", f"{label} B={B}" + (" rev" if rev else ""),
+                           torch.float32, (a, b, rev), report=True)
+            del a, b
+
+
 def _train_carry_cases(device, seed=770, shapes=FLAGSHIP_TRAIN_SHAPES):
     """linear_scan at the row and column pairs' carries at ``shapes`` (the
     flagship training's, the speed test's), forward and reverse: the row
@@ -677,13 +701,15 @@ def _scan_edge_cases(rng, t):
     a second group); a long L (2^20) at D = 1 (256 chunks of 4096, 8
     groups); D = 3072 over 12 channel tiles of one-thread segments (the
     fused core's width, M below the walk's fill), D = 100 (P = 2), and M * D
-    at the walk's fill; decays in (0.9, 1) with 1 % exact zeros, forward
-    and reverse."""
+    at the walk's fill; the cascade SS2D's walks of few short sequences
+    (VMamba-T's 7x7 stage for one image, L = 7 at D = 3072; stage 0's row
+    for one image, L = 56 at D = 384; D = 770, off the warp width); decays
+    in (0.9, 1) with 1 % exact zeros, forward and reverse."""
     out = []
     W = _scan.WALK_L
     for M, L, D in ((3, 1, 40), (2, W, 40), (2, W + 1, 40), (2, 95, 40), (2, 96, 40),
                     (2, 97, 40), (3, 3841, 40), (2, 1 << 20, 1), (2, 300, 3072), (1, 777, 100),
-                    (_scan.WALK_FILL // 64, 100, 64)):
+                    (_scan.WALK_FILL // 64, 100, 64), (7, 7, 3072), (1, 56, 384), (3, 28, 770)):
         a = t(_scan_decays(rng, (M, L, D), 0.0, -np.log(0.9), zeros=0.01))
         b = t(rng.standard_normal((M, L, D), dtype=np.float32))
         out += [Case("linear_scan", f"M{M} L{L} D{D}" + (" rev" if rev else ""), torch.float32,
@@ -1001,9 +1027,9 @@ def kernel_cases(small: bool = False, device="cuda"):
     bf16, rows 1-6 at the serving batch (bf16; row 3 in its path form),
     rows 1-7 at the eval CLI's and the flagship's eval and training
     shapes (fp32) and at the speed test's 2048x2048 levels (fp32 and bf16),
-    linear_scan at the serving, eval, flagship and speed-test carries and at
-    the flagship training's backward recompute shape, and the
-    microbenchmarks
+    linear_scan at the serving, eval, flagship and speed-test carries, at
+    the flagship training's backward recompute shape and at the cascade
+    SS2D's shapes (CASCADE_SHAPES), and the microbenchmarks
     at the tool's shapes; or at tiny shapes (``small``). Yields them a shape
     at a time, so the card holds one shape's inputs at once."""
     shapes = SMALL_SHAPES if small else PATH_SHAPES + TRAIN_SHAPES
@@ -1031,6 +1057,7 @@ def kernel_cases(small: bool = False, device="cuda"):
         yield from _carry_cases(device)
         yield from _train_carry_cases(device)
         yield from _train_carry_cases(device, 790, SPEED_SHAPES[:1])
+        yield from _cascade_cases(device)
     for i, shape in enumerate(SMALL_CLS_SHAPES if small else CLS_SHAPES):
         yield from _cls_cases(*shape, device, seed=300 + i)
         yield from _scan_fused_cases(*shape, device, seed=500 + 4 * i)
@@ -1349,12 +1376,29 @@ def _scan_fused_grad_cases(device):
     return out
 
 
+def _cascade_grad_cases(small, device):
+    """linear_scan's autograd (the backward's reverse-direction kernel) at the
+    cascade's stage-0 row scan for two images, (112, 56, 384), forward and
+    reverse."""
+    rng = np.random.default_rng(420)
+    label, H, C = CASCADE_SHAPES[-1] if small else CASCADE_SHAPES[0]
+    shape = (H if small else 2 * H, H, 2 * C)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    a, b = t(_scan_decays(rng, shape, 0.0, 0.2)), t(rng.standard_normal(shape))
+    return [GradCase("linear_scan", f"{label} B={shape[0] // H}" + (" rev" if rev else ""),
+                     lambda a, b, rev=rev: _scan.linear_scan(a, b, rev),
+                     lambda a, b, rev=rev: _scan.linear_scan_plain(a, b, rev), [a, b], shape)
+            for rev in (False, True)]
+
+
 def grad_cases(small: bool = False, device="cuda"):
     """The five autograd wrappers of the VSSBlock and linear_scan at the
     LOLv1 and flagship training shapes (``small``: tiny shapes), fp32,
     clamp-hitting scan biases; then the classifier's fused core at its
-    stage shapes and selective_scan_fused at tiny ones."""
-    out = _cls_grad_cases(small, device) + _scan_fused_grad_cases(device)
+    stage shapes, selective_scan_fused at tiny ones and linear_scan at the
+    cascade SS2D's stage-0 shape for two images (tiny: one image of 7x7)."""
+    out = (_cls_grad_cases(small, device) + _scan_fused_grad_cases(device)
+           + _cascade_grad_cases(small, device))
     shapes = SMALL_SHAPES if small else TRAIN_SHAPES + FLAGSHIP_TRAIN_SHAPES
     for i, (label, B, C, H, W) in enumerate(shapes):
         rng = np.random.default_rng(200 + i)

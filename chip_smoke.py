@@ -34,7 +34,10 @@ result line):
      and column carries and their backward recompute shape) and at the
      speed test's (smoke.SPEED_SHAPES: the IE's 2048x2048 / 1024x1024 /
      512x512 and the CG's 128x128 / 64x64 / 32x32 levels at B=1, fp32 and
-     bf16, linear_scan at the IE-L0 row and column carries); every linear_scan, stem and gdMlp case launched twice, its
+     bf16, linear_scan at the IE-L0 row and column carries), and
+     linear_scan at the cascade SS2D's shapes (smoke.CASCADE_SHAPES:
+     VMamba-T v052dc's four stages, (B*H, W, 2*d_inner) at B = 2 and 128,
+     forward and reverse, each with its bound); every linear_scan, stem and gdMlp case launched twice, its
      outputs bit-identical; then the stem, the row pair, the gdMlp, the
      column pair, the fused core's backward, selective_scan_fused,
      linear_scan and the tail at the edges of their tiles (smoke.edge_cases:
@@ -50,11 +53,13 @@ result line):
      its output bit-identical, each line naming the form that ran
      (tensor-core or CUDA-core), linear_scan at L = 1, around its
      walk limit and chunk, over several anchor groups, at L = 2^20 and D =
-     1 and 3072, the tail at C = 40, C_out != C, L = 1, a tile + 1 and off
+     1 and 3072, at the cascade's few short walks (L = 7 at D = 3072, L =
+     56 at D = 384, D = 770), the tail at C = 40, C_out != C, L = 1, a tile + 1 and off
      the vector width), checked only;
   4. gradients: each autograd wrapper of the VSSBlock (stem, gdMlp, tail,
      row pair, column pair) and linear_scan on the card vs its plain
-     composition, at the training shapes, fp32;
+     composition, at the training shapes, fp32, and linear_scan also at the
+     cascade's stage-0 row scan for two images, forward and reverse;
   5. reference checks on small inputs: the fp32 serving pipeline at
      flagship widths on the card vs the same pipeline on the CPU; one IE
      and one CG train step at flagship widths (B=2, 32x32, fp32) on the
@@ -202,6 +207,30 @@ result line):
      whose (4 B, d_inner, L, d_state) fp32 tensors take 19.7 GB each at
      batch 128) and its bf16 throughput at batch 128; selective_scan_fused
      must launch 15 times per forward;
+ 14b. every SS2D mode and VSSM option: (a) at narrow width (embed 16,
+     depths (1,1), d_state 16, 32x32, fp32, TF32 off) on the card vs the
+     CPU from the same weights, the logits (1e-4 of their largest) and one
+     train step's gradients (cross-entropy; each leaf within 1e-5 of its
+     largest) of VSSMs with forward_type v052dc and v052dc_noz (the
+     cascade: linear_scan), m0_noz and m0 with its gate and act_layer gelu
+     (the SSD scan, plain tensor code), v05 with each of the five other
+     out-norms (none, dwconv3, cnorm, softmax, sigmoid: the clamped fused
+     core at B=2 and its backward), v05_noz_oact at B=1 (the unclamped
+     core), and posembed with SSM dropout 0.2 (the keep masks drawn once
+     and given to both) and init v2; BackboneVSSM's four outputs (depths
+     (1,1,1,1)); a windowed VSSBlock (grid_size 8 on 28x28, so it pads,
+     with SSM dropout and drop-path masks given) with and without
+     use_checkpoint, whose gradients on the card must agree (1e-6);
+     linear_scan and rows 8-10 must launch; (b) VMamba-T (bem_tpu's
+     vmamba_tiny fields: depths (2,2,5,2), embed 96, d_state 1, ssm_ratio 2,
+     v3 downsampling, v2 patch embedding) at 224x224 with forward_type
+     v052dc_noz, then m0_noz: bf16 throughput at batch 128 through
+     throughput() (1 warm-up + 5 timed batches), then training at the
+     largest power-of-two batch up to 128 whose peak memory, extrapolated
+     from one step at batch 8, stays under 60 GB (1 warm-up + 3 timed
+     steps): ms/step and peak memory beside the card's name and power
+     limit; linear_scan must launch in the v052dc_noz runs, and the m0_noz
+     runs launch no kernel of the port (printed);
  15. the microbenchmarks (bem_tpu_torch.tools.microbench_vpu): the lanes /
      npass sweep and the four modes, each line as the tool prints it.
 The kernels' phase also holds the three classifier kernels (the fused core,
@@ -252,8 +281,9 @@ from bem_tpu_torch.archs import build_network
 from bem_tpu_torch.convert import load_flax_params, state_dict_to_flax
 from bem_tpu_torch.classification import build_model_from_config, get_config, make_trainer
 from bem_tpu_torch.classification import synthetic_batch as cls_batch
-from bem_tpu_torch.classification import throughput
+from bem_tpu_torch.classification import cross_entropy, throughput, vmamba_tiny
 from bem_tpu_torch.data import CPUPrefetcher, DevicePrefetcher, build_dataloader, build_dataset
+from bem_tpu_torch.nn import BackboneVSSM, VSSBlock, init
 from bem_tpu_torch.nn.ss2d import SS2D
 from bem_tpu_torch.qd.evaluate import load_qd_net
 from bem_tpu_torch.qd.evaluate import main as qd_evaluate
@@ -2086,6 +2116,193 @@ def cls_throughput_phase(card: str, forward_type="v2", kernels=("ss2d_dir_fused"
     return counts
 
 
+# phase 14b: the SS2D modes and VSSM options at narrow width, card vs CPU
+# ((label, MODEL.VSSM overrides, batch, post-build edit)), then VMamba-T
+# (bem_tpu's vmamba_tiny fields) at full width in two forward types
+MODE_TRAIN_MEM_GB = 60.0   # the training batch: the largest power of two under this
+MODE_TIMED_STEPS = 3
+
+
+def _gelu_m0(model):
+    for m in model.modules():
+        if isinstance(m, SS2D):
+            m.act_layer = "gelu"
+
+
+MODE_CASES = [("v052dc", dict(SSM_FORWARDTYPE="v052dc"), 2, None),
+              ("v052dc_noz", dict(SSM_FORWARDTYPE="v052dc_noz"), 2, None),
+              ("m0_noz", dict(SSM_FORWARDTYPE="m0_noz"), 2, None),
+              ("m0 gelu", dict(SSM_FORWARDTYPE="m0"), 2, _gelu_m0)] + [
+    (f"v05_on{n}", dict(SSM_FORWARDTYPE=f"v05_on{n}"), 2, None)
+    for n in ("none", "dwconv3", "cnorm", "softmax", "sigmoid")] + [
+    ("v05_noz_oact B=1", dict(SSM_FORWARDTYPE="v05_noz_oact"), 1, None),
+    ("posembed dropout v2", dict(POSEMBED=True, SSM_DROP_RATE=0.2, SSM_INIT="v2"), 2, None)]
+MODE_KERNELS = ("linear_scan", "ss2d_dir_fused", "ss2d_dir_fused_g", "ss2d_dir_fused_bwd")
+
+
+def _card_vs_cpu(label, model, inputs, loss_fn, masks=None):
+    """``model``'s outputs and the gradients of ``loss_fn(outputs)`` with
+    respect to every parameter, on the card and on the CPU from the same
+    weights and ``inputs`` (and injected ``masks``): outputs within 1e-4 of
+    their largest entry, each gradient leaf within 1e-5 of its largest.
+    Returns the card's gradients."""
+    res = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        out = m(*(t.to(dev) for t in inputs), **({} if masks is None else {"masks": masks}))
+        outs = out if isinstance(out, list) else [out]
+        names = [k for k, _ in m.named_parameters()]
+        grads = torch.autograd.grad(loss_fn(outs, dev), [p for _, p in m.named_parameters()])
+        res[dev] = ([o.detach().cpu() for o in outs], dict(zip(names, (g.cpu() for g in grads))))
+    (og, gg), (oc, gc) = res["cuda"], res["cpu"]
+    out_err = max((a - b).abs().max().item() / b.abs().max().item() for a, b in zip(og, oc))
+    grad_err = max((gg[k] - gc[k]).abs().max().item() / max(gc[k].abs().max().item(), 1e-30)
+                   for k in gc)
+    ok = out_err <= 1e-4 and grad_err <= 1e-5 and all(torch.isfinite(o).all() for o in og)
+    print(f"  {label:28s} outputs err / max {out_err:.2e} (tol 1e-4), gradients err / leaf max "
+          f"{grad_err:.2e} (tol 1e-5) over {len(gc)} leaves {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
+    return gg
+
+
+def ss2d_modes_check():
+    """Phase 14b (a): every SS2D mode and VSSM option bem_tpu has, on the card
+    vs the CPU at narrow width (embed 16, depths (1, 1), d_state 16, 32x32,
+    fp32): the logits and one train step's gradients (cross-entropy on
+    seeded labels) of each MODE_CASES model, the SSM dropout's masks drawn
+    once and given to both; BackboneVSSM's four outputs (depths (1, 1, 1,
+    1)); a windowed VSSBlock (grid_size 8 on 28x28, so it pads) and that
+    block with use_checkpoint (the same gradients on the card). Each of
+    MODE_KERNELS must launch."""
+    smoke.reset_launch_counts()
+    rng = np.random.default_rng(14)
+    for label, overrides, B, edit in MODE_CASES:
+        c = _narrow_cls_config()
+        for k, v in overrides.items():
+            c.MODEL.VSSM[k] = v
+        model = build_model_from_config(c, torch.Generator().manual_seed(15))
+        if edit:
+            edit(model)
+        images = torch.from_numpy(rng.random((B, 32, 32, 3), np.float32))
+        labels = torch.from_numpy(rng.integers(0, 10, B))
+        masks = None
+        if c.MODEL.VSSM.SSM_DROP_RATE:  # each block's masks, drawn for its input's shape
+            s = 32 // c.MODEL.VSSM.PATCH_SIZE
+            masks = {f"layer{i}_block0": getattr(model, f"layer{i}_block0").draw_masks(
+                torch.zeros(B, 16 * 2 ** i, s >> i, s >> i), torch.Generator().manual_seed(i))
+                for i in range(2)}
+        _card_vs_cpu(label, model, (images,),
+                     lambda o, dev, y=labels: cross_entropy(o[0], y.to(dev)), masks)
+    c = _narrow_cls_config()
+    v = c.MODEL.VSSM
+    backbone = init.initialize(BackboneVSSM(
+        depths=(1, 1, 1, 1), dims=16, ssm_d_state=16, drop_path_rate=0.0, forward_type="v2",
+        patchembed_version=v.PATCHEMBED, downsample_version=v.DOWNSAMPLE),
+        torch.Generator().manual_seed(16))
+    images = torch.from_numpy(rng.random((2, 32, 32, 3), np.float32))
+    cots = [torch.from_numpy(rng.standard_normal((2, s, s, 16 * 2 ** i), np.float32))
+            for i, s in enumerate((8, 4, 2, 1))]
+    _card_vs_cpu("BackboneVSSM 4 outputs", backbone, (images,),
+                 lambda o, dev: sum((a * g.to(dev)).sum() for a, g in zip(o, cots)))
+    x = torch.from_numpy(rng.standard_normal((2, 16, 28, 28), np.float32))
+    cot = torch.from_numpy(rng.standard_normal((2, 16, 28, 28), np.float32))
+    grads = []
+    for ckpt in (False, True):
+        block = init.initialize(VSSBlock(16, ssm_d_state=16, ssm_ratio=2.0, mlp_type="mlp",
+                                         forward_type="v2", grid_size=8, ssm_drop_rate=0.1,
+                                         drop_path=0.2, use_checkpoint=ckpt),
+                                torch.Generator().manual_seed(17))
+        masks = block.draw_masks(x, torch.Generator().manual_seed(18))
+        grads.append(_card_vs_cpu(f"VSSBlock grid 8 28x28 ckpt {int(ckpt)}", block, (x,),
+                                  lambda o, dev: (o[0] * cot.to(dev)).sum(), masks))
+    same = all(torch.equal(grads[0][k], grads[1][k]) for k in grads[0])
+    err = max((grads[0][k] - grads[1][k]).abs().max().item()
+              / max(grads[0][k].abs().max().item(), 1e-30) for k in grads[0])
+    print(f"  use_checkpoint vs none on the card: gradients err / leaf max {err:.2e} "
+          f"(tol 1e-6){', bit-identical' if same else ''}")
+    if not err <= 1e-6:
+        raise AssertionError("use_checkpoint changes the gradients on the card")
+    counts = smoke.launch_counts()
+    print(f"launches over the SS2D modes checks: { {k: v for k, v in counts.items() if v} }")
+    if min(counts[k] for k in MODE_KERNELS) <= 0:
+        raise AssertionError(f"a kernel of the SS2D modes never launched: {counts}")
+    return counts
+
+
+def _vmamba_t_config(forward_type, batch=None):
+    """bem_tpu's vmamba_tiny fields (vssm.py:180-183) in the harness config."""
+    c = vmamba_tiny(get_config(), forward_type)
+    c.DATA.BATCH_SIZE = batch or c.DATA.BATCH_SIZE
+    return c
+
+
+def vmamba_modes_phase(card: str, forward_type: str, kernels=()):
+    """Phase 14b (b): VMamba-T (vmamba_tiny) with ``forward_type`` at 224x224:
+    bf16 throughput at batch 128 through throughput() (1 warm-up + 5 timed
+    batches); training at the largest power-of-two batch up to 128 whose
+    peak memory, extrapolated from a step at batch 8, stays under
+    MODE_TRAIN_MEM_GB (1 warm-up + MODE_TIMED_STEPS timed steps): ms/step
+    and peak memory. Each of ``kernels`` must launch; with none, no kernel
+    may launch."""
+    c = _vmamba_t_config(forward_type)
+    model = build_model_from_config(c, torch.Generator().manual_seed(c.SEED)).to("cuda")
+    smoke.reset_launch_counts()
+    ips = throughput(model, batch=CLS_BATCH, size=c.DATA.IMG_SIZE, iters=N_TRAIN_STEPS)
+    tp_counts = smoke.launch_counts()
+    S = c.DATA.IMG_SIZE
+    print(f"VMamba-T {forward_type} throughput B={CLS_BATCH} {S}x{S} bf16: {ips:.1f} images/s, "
+          f"{1e3 * CLS_BATCH / ips:.1f} ms/batch ({card})", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    def train(batch, steps):
+        cb = _vmamba_t_config(forward_type, batch)
+        torch.cuda.reset_peak_memory_stats()
+        m = build_model_from_config(cb, torch.Generator().manual_seed(cb.SEED))
+        state, train_step, _ = make_trainer(m, total_steps=300 * -(-IMAGENET_TRAIN // batch),
+                                            base_lr=cb.TRAIN.BASE_LR, warmup_steps=20,
+                                            device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        times = []
+        for i in range(1 + steps):
+            images, labels = cls_batch(cb, gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = train_step(state, images, labels)
+            loss = float(loss)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if not np.isfinite(loss):
+                raise AssertionError(f"VMamba-T {forward_type} B={batch}: loss {loss}")
+        mem = torch.cuda.max_memory_allocated() / 1e9
+        del m, state
+        torch.cuda.empty_cache()
+        return times[1:], mem, loss
+
+    _, probe_mem, _ = train(8, 0)
+    batch = CLS_BATCH
+    while batch > 8 and probe_mem * batch / 8 > MODE_TRAIN_MEM_GB:
+        batch //= 2
+    times, mem, loss = train(batch, MODE_TIMED_STEPS)
+    med = statistics.median(times)
+    print(f"VMamba-T {forward_type} train B={batch} {S}x{S} fp32: median {1e3 * med:.1f} "
+          f"ms/step ({', '.join(f'{1e3 * t:.1f}' for t in times)}), {batch / med:.1f} images/s, "
+          f"peak memory {mem:.2f} GB (batch 8: {probe_mem:.2f} GB), last loss {loss:.4f} "
+          f"({card})", flush=True)
+    counts = smoke.launch_counts()
+    print(f"VMamba-T {forward_type} launches: throughput "
+          f"{ {k: v for k, v in tp_counts.items() if v} }; the phase "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if kernels and min(counts[k] for k in kernels) <= 0:
+        raise AssertionError(f"VMamba-T {forward_type}: a kernel never launched: {counts}")
+    if not kernels:
+        if sum(counts.values()):
+            raise AssertionError(f"VMamba-T {forward_type} launched a kernel: {counts}")
+        print(f"VMamba-T {forward_type} runs no kernel of the port (plain tensor code)")
+    return counts
+
+
 def microbench_phase():
     """The tool's two sweeps, each line as it prints it; both kernels must launch."""
     smoke.reset_launch_counts()
@@ -2184,20 +2401,27 @@ def main() -> int:
                                         ("selective_scan_fused", "linear_scan"))
     phase("scan-pattern classifier throughput")
     scan_tp_counts = cls_throughput_phase(card, "v052d", ("selective_scan_fused",))
+    phase("SS2D modes and VSSM options, card vs CPU")
+    modes_counts = ss2d_modes_check()
+    phase("VMamba-T v052dc_noz and m0_noz at full width")
+    cascade_counts = vmamba_modes_phase(card, "v052dc_noz", ("linear_scan",))
+    vmamba_modes_phase(card, "m0_noz")
     phase("microbenchmarks")
     mb_counts = microbench_phase()
     # each kernel's launches over the runs of its own paths: the BEM kernels
     # over the training, train / test CLI, serving, eval, flagship, flagship
     # training, VMUNet family, image formats, speed test and option-set runs, the fused core and its backward over VMamba-T's, the
     # clamped form over the narrow reference runs, selective_scan_fused over
-    # VMamba-T v052d's, the microbenchmarks over their sweeps
+    # VMamba-T v052d's, the SS2D modes' over their checks and VMamba-T
+    # v052dc_noz's, the microbenchmarks over their sweeps
     paths = {name: (train_counts, cli_counts, serve_counts, eval_counts, flagship_counts,
                     flagship_train_counts, vmunet_counts, formats_counts, speed_counts,
                     options_counts)
              for name in smoke.BEM_KERNELS}
-    paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts),
-                 ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts),
-                 ss2d_dir_fused_g=(cls_ref_counts,),
+    paths["linear_scan"] += (modes_counts, cascade_counts)
+    paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts, modes_counts),
+                 ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts, modes_counts),
+                 ss2d_dir_fused_g=(cls_ref_counts, modes_counts),
                  selective_scan_fused=(scan_train_counts, scan_tp_counts),
                  vpu_scan_step=(mb_counts,), vpu_op_rounds=(mb_counts,))
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,

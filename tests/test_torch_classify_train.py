@@ -13,6 +13,8 @@
 - The schedule vs optax.warmup_cosine_decay_schedule.
 - The default config tree vs bem_tpu's get_config(), and merge_from_list.
 - drop_path with a given mask vs bem_tpu's DropPath (the same mask).
+- The settings the port once refused (SSM / MLP dropout, SSM_INIT, POSEMBED)
+  build bem_tpu's parameter tree (the test keeps its old name).
 """
 
 import os
@@ -160,11 +162,18 @@ def test_config_tree_matches():
 @pytest.mark.parametrize("key,value", [("SSM_DROP_RATE", "0.1"), ("MLP_DROP_RATE", "0.1"),
                                        ("SSM_INIT", "v1"), ("POSEMBED", "true")])
 def test_build_refuses_settings_not_ported(key, value):
-    """Settings the port lacks raise in one place instead of being ignored."""
-    cfg = _narrow(get_config())
-    cfg.merge_from_list([f"MODEL.VSSM.{key}", value])
-    with pytest.raises(NotImplementedError, match=key):
-        build_model_from_config(cfg)
+    """The settings the port once refused are ported: the model built from
+    each has bem_tpu's parameter tree (names and shapes) and applies it."""
+    cfgs = [_narrow(get()) for get in (get_config, jax_get_config)]
+    for c in cfgs:
+        c.merge_from_list([f"MODEL.VSSM.{key}", value])
+    model = build_model_from_config(cfgs[0])
+    x = jnp.zeros((1, 32, 32, 3))
+    shapes = jax.eval_shape(jax_build(cfgs[1]).init, jax.random.PRNGKey(0), x)["params"]
+    assert {k: v.shape for k, v in _flat(state_dict_to_flax(model)).items()} == {
+        k: v.shape for k, v in _flat(jax.tree_util.tree_map(lambda s: np.zeros(s.shape),
+                                                            shapes)).items()}
+    assert model(torch.zeros(1, 32, 32, 3)).shape == (1, 10)
 
 
 def test_drop_path_with_given_mask():

@@ -13,6 +13,8 @@ the scan mode) it gives other numbers and these tests fail.
   _noz forms in NHWC, bem_tpu's initialized params loaded into the port
   (convert.load_flax_params), every third channel's dt bias +12: fp32
   within 1e-5 of the output's largest entry;
+- the narrow VSSM's logits for v052dc (the cascade, ported since the test
+  that checked its refusal was written; the test keeps its name) in fp32;
 - the narrow VSSM's logits for v052d (d_state 16) in fp32 (1e-5) and (in
   test_torch_vssm_scans_train.py, with one make_trainer step for v052d,
   checked as test_torch_classify_train.py checks v2's) in the bf16 stream
@@ -89,5 +91,12 @@ def test_v052d_logits_fp32():
 
 
 def test_v052dc_still_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SS2D(8, forward_type="v052dc")
+    """v052dc (cascade2d) is ported: the narrow v052dc VSSM's fp32 logits
+    match bem_tpu's (1e-5 of the largest), its scans on linear_scan."""
+    kw = narrow(ssm_d_state=4, ssm_ratio=2.0, forward_type="v052dc")
+    model = port_model(kw, seed=3)
+    assert all(m.scans == 3 for m in model.modules() if isinstance(m, SS2D))
+    x = images(2, seed=5)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x))
+    _close(got.numpy(), jax_logits(kw, state_dict_to_flax(model), x), 1e-5)
