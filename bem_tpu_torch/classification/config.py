@@ -1,25 +1,34 @@
-"""The classification harness's config tree, without yaml.
+"""The classification harness's config tree, without PyYAML.
 
 Counterpart of bem_tpu/classification/config.py (reference
-basicsr/vmamba/config.py): a dict subclass with attribute access, clone
-and ``merge_from_list``, and the default tree field for field
-(bem_tpu/classification/config.py:121-233). ``KEY VALUE`` overrides parse
-with ``ast.literal_eval`` (bem_tpu uses yaml, which the card's machine
-lacks); the command line and ``--cfg`` YAML files are not ported yet.
+basicsr/vmamba/config.py): a dict subclass with attribute access,
+freeze / defrost, clone, ``merge_from_list``, ``merge_from_file`` with
+recursive ``BASE`` files, ``dump``, the default tree field for field
+(bem_tpu/classification/config.py:121-233) and ``update_config`` /
+``get_config(args)``, the command line's table from argument to field.
+YAML is read by :mod:`..utils.yaml_lite` (the card's machine has no
+PyYAML), which resolves scalars as ``yaml.safe_load`` does.
 """
 
 from __future__ import annotations
 
-import ast
 import copy
+import math
+import os
 from typing import Any, List
+
+from ..utils.yaml_lite import load as yaml_load
 
 
 class CfgNode(dict):
-    """yacs.config.CfgNode lookalike: a nested dict with attribute access."""
+    """yacs.config.CfgNode lookalike: a nested dict with attribute access;
+    a frozen node refuses attribute assignment."""
+
+    IMMUTABLE = "__immutable__"
 
     def __init__(self, init_dict=None):
         super().__init__()
+        self.__dict__[CfgNode.IMMUTABLE] = False
         for k, v in (init_dict or {}).items():
             self[k] = CfgNode(v) if isinstance(v, dict) else v
 
@@ -29,13 +38,45 @@ class CfgNode(dict):
         raise AttributeError(name)
 
     def __setattr__(self, name: str, value: Any) -> None:
+        if self.__dict__.get(CfgNode.IMMUTABLE, False):
+            raise AttributeError(f"Attempted to set {name} on an immutable CfgNode (call "
+                                 "defrost() first)")
         self[name] = value
+
+    def freeze(self):
+        self._set_frozen(True)
+
+    def defrost(self):
+        self._set_frozen(False)
+
+    def _set_frozen(self, frozen: bool):
+        self.__dict__[CfgNode.IMMUTABLE] = frozen
+        for v in self.values():
+            if isinstance(v, CfgNode):
+                v._set_frozen(frozen)
+
+    def is_frozen(self) -> bool:
+        return self.__dict__[CfgNode.IMMUTABLE]
 
     def clone(self) -> "CfgNode":
         c = CfgNode()
         for k, v in self.items():
             c[k] = v.clone() if isinstance(v, CfgNode) else copy.deepcopy(v)
         return c
+
+    def _merge_dict(self, other: dict):
+        """Nested dicts merge into existing nodes; other values replace."""
+        for k, v in other.items():
+            if isinstance(v, dict) and isinstance(self.get(k), CfgNode):
+                self[k]._merge_dict(v)
+            elif isinstance(v, dict):
+                self[k] = CfgNode(v)
+            else:
+                self[k] = v
+
+    def merge_from_file(self, cfg_file: str):
+        with open(cfg_file) as f:
+            self._merge_dict(yaml_load(f.read(), cfg_file) or {})
 
     def merge_from_list(self, opts: List[str]):
         """['TRAIN.BASE_LR', '1e-3', ...] pairs (vmamba/main.py --opts)."""
@@ -48,10 +89,49 @@ class CfgNode(dict):
                 node = node[p]
             node[parts[-1]] = _coerce(val, node.get(parts[-1]))
 
+    def dump(self) -> str:
+        """The tree as YAML (block mappings, flow lists, single-quoted
+        strings) that yaml_lite and PyYAML read back to the same values,
+        tuples as lists (as ``yaml.safe_dump`` writes them)."""
+        lines = []
+
+        def walk(node, indent):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    lines.append(f"{' ' * indent}{k}:" + ("" if v else " {}"))
+                    walk(v, indent + 2)
+                else:
+                    lines.append(f"{' ' * indent}{k}: {_yaml_scalar(v)}")
+
+        walk(self, 0)
+        return "\n".join(lines) + "\n"
+
+
+def _yaml_scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        r = repr(v)
+        return r.replace("e", ".0e") if "e" in r and "." not in r else r
+    if isinstance(v, str):
+        return "'" + v.replace("'", "''") + "'"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_yaml_scalar(x) for x in v) + "]"
+    raise TypeError(f"dump: cannot write {type(v).__name__} {v!r}")
+
 
 def _coerce(val: str, like: Any) -> Any:
     """A command-line string as the type of the value it replaces
-    (config.py:93-109, with literal_eval in place of yaml)."""
+    (config.py:99-117): bool, int (float if it does not parse), float;
+    otherwise as YAML reads it, the string itself where YAML refuses it."""
     if isinstance(like, bool):
         return val.lower() in ("1", "true", "yes")
     if isinstance(like, int):
@@ -61,9 +141,11 @@ def _coerce(val: str, like: Any) -> Any:
             return float(val)
     if isinstance(like, float):
         return float(val)
+    if isinstance(like, (list, tuple)):
+        return yaml_load(val)
     try:
-        return ast.literal_eval(val)
-    except (ValueError, SyntaxError):
+        return yaml_load(val)
+    except ValueError:
         return val
 
 
@@ -186,9 +268,60 @@ _C.TRAINCOST_MODE = False
 _C.FUSED_LAYERNORM = False
 
 
-def get_config() -> CfgNode:
-    """A fresh copy of the default tree."""
-    return _C.clone()
+def _update_config_from_file(config: CfgNode, cfg_file: str):
+    """Merge ``cfg_file`` after its ``BASE`` files, each path relative to
+    the file's directory, recursively (config.py:236-244)."""
+    with open(cfg_file) as f:
+        yaml_cfg = yaml_load(f.read(), cfg_file) or {}
+    for base in yaml_cfg.get("BASE", [""]):
+        if base:
+            _update_config_from_file(config, os.path.join(os.path.dirname(cfg_file), base))
+    config.merge_from_file(cfg_file)
+
+
+# command-line argument -> config field, set where the argument is given
+_SIMPLE = {"batch_size": ("DATA", "BATCH_SIZE"), "data_path": ("DATA", "DATA_PATH"),
+           "cache_mode": ("DATA", "CACHE_MODE"), "pretrained": ("MODEL", "PRETRAINED"),
+           "resume": ("MODEL", "RESUME"), "accumulation_steps": ("TRAIN", "ACCUMULATION_STEPS"),
+           "output": ("OUTPUT",), "tag": ("TAG",)}
+_FLAGS = {"zip": ("DATA", "ZIP_MODE", True), "use_checkpoint": ("TRAIN", "USE_CHECKPOINT", True),
+          "disable_amp": ("AMP_ENABLE", False), "eval": ("EVAL_MODE", True),
+          "throughput": ("THROUGHPUT_MODE", True)}
+
+
+def _set(config, path, value):
+    node = config
+    for p in path[:-1]:
+        node = node[p]
+    node[path[-1]] = value
+
+
+def update_config(config: CfgNode, args) -> CfgNode:
+    """The command line on the tree (config.py:247-282): ``--cfg`` with its
+    BASE files, ``--opts``, each given simple argument (a falsy one is
+    skipped, as in bem_tpu), the flags, then OUTPUT joined as
+    <OUTPUT or 'output'>/<MODEL.NAME>/<TAG>."""
+    if getattr(args, "cfg", None):
+        _update_config_from_file(config, args.cfg)
+    if getattr(args, "opts", None):
+        config.merge_from_list(args.opts)
+    for attr, path in _SIMPLE.items():
+        val = getattr(args, attr, None)
+        if val:
+            _set(config, path, val)
+    for attr, spec in _FLAGS.items():
+        if getattr(args, attr, False):
+            _set(config, spec[:-1], spec[-1])
+    config.OUTPUT = os.path.join(config.OUTPUT or "output", config.MODEL.NAME, config.TAG)
+    return config
+
+
+def get_config(args=None) -> CfgNode:
+    """A fresh copy of the default tree, with ``args`` applied when given."""
+    config = _C.clone()
+    if args is not None:
+        update_config(config, args)
+    return config
 
 
 def vmamba_tiny(cfg: CfgNode, forward_type: str = "v05_noz") -> CfgNode:

@@ -1,4 +1,5 @@
-"""The VMamba classification harness: training, evaluation, throughput.
+"""The VMamba classification harness: training, evaluation, throughput,
+and its command line.
 
 Counterpart of bem_tpu/classification/train.py (reference
 basicsr/vmamba/main.py): cross-entropy with label smoothing, the optax chain
@@ -6,17 +7,25 @@ basicsr/vmamba/main.py): cross-entropy with label smoothing, the optax chain
 warmup, total), weight_decay)`` (:class:`..models.base_model.AdamWChain`
 reproduces it), drop-path and SSM dropout drawn from the trainer's generator, top-1 / top-5
 evaluation and the bf16 throughput probe. Data is any iterable of
-``(images NHWC in [0, 1], labels)``; the ImageNet folder loader with its
-mixup / cutmix is not ported, and :func:`synthetic_batch` makes seeded
-batches of the configured shapes.
+``(images NHWC, labels)``: the ImageFolder loader of :mod:`.data` or
+:func:`synthetic_batch`'s seeded batches of the configured shapes. As in
+bem_tpu, the loader reports ``mixup_active`` and nothing applies mixup.
 
-The model lives on ``device`` (the card unless the caller asks for the
-CPU); the trainer updates its parameters in place.
+    python -m bem_tpu_torch.classification.train --cfg MODEL.yaml \
+        --data-path ROOT [--batch-size N] [--opts KEY VALUE ...] \
+        [--eval | --throughput] [--device cuda|cpu]
+
+takes bem_tpu's arguments (``parse_option``) plus ``--device``: the card
+by default (a missing card raises at once), ``cpu`` for the plain
+versions. The model lives on that device; the trainer updates its
+parameters in place.
 """
 
 from __future__ import annotations
 
+import argparse
 import math
+import statistics
 import time
 from dataclasses import dataclass, field
 from typing import Iterable
@@ -28,6 +37,9 @@ import torch.nn.functional as F
 from ..models.base_model import AdamWChain, global_norm
 from ..nn import init
 from ..nn.vssm import VSSM
+from ..utils.logger import get_root_logger
+from .config import get_config
+from .data import build_loader
 
 def cross_entropy(logits, labels, smoothing: float = 0.1):
     """Mean cross-entropy against one-hot labels smoothed by ``smoothing``."""
@@ -69,6 +81,7 @@ class ClsTrainState:
     label_smoothing: float
     step: int = 0
     logs: dict = field(default_factory=dict)
+    timing: dict = field(default_factory=dict)
 
     @property
     def device(self):
@@ -118,12 +131,24 @@ def make_trainer(model: VSSM, total_steps: int, base_lr: float = 1e-3, warmup_st
 
 
 def train_one_epoch(state, train_step, loader: Iterable, log_every: int = 50, log=print):
-    losses = []
-    for i, (images, labels) in enumerate(loader):
-        state, loss = train_step(state, images, labels)
+    """One pass over ``loader``; the mean loss. ``state.timing`` gets each
+    step's seconds waiting on the loader (``data_time``) and in the step
+    up to its loss on the host (``step_time``)."""
+    losses, data_time, step_time = [], [], []
+    it = iter(loader)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(it, None)
+        if batch is None:
+            break
+        t1 = time.perf_counter()
+        state, loss = train_step(state, *batch)
         losses.append(float(loss))
-        if i % log_every == 0:
+        data_time.append(t1 - t0)
+        step_time.append(time.perf_counter() - t1)
+        if (len(losses) - 1) % log_every == 0:
             log(f"step {state.step} loss {losses[-1]:.4f}")
+    state.timing = {"data_time": data_time, "step_time": step_time}
     return state, float(np.mean(losses))
 
 
@@ -177,3 +202,78 @@ def synthetic_batch(config, gen: torch.Generator, batch_size=None):
     images = torch.rand((B, S, S, config.MODEL.VSSM.IN_CHANS), generator=gen, device=gen.device)
     labels = torch.randint(0, config.MODEL.NUM_CLASSES, (B,), generator=gen, device=gen.device)
     return images, labels
+
+
+# ---------------------------------------------------------------------------
+# The command line (train.py:152-217; vmamba/main.py parse_option + main)
+# ---------------------------------------------------------------------------
+
+
+def parse_option(args_list=None):
+    """bem_tpu's fifteen arguments plus ``--device`` -> (args, config)."""
+    p = argparse.ArgumentParser("VMamba classification", add_help=True)
+    p.add_argument("--cfg", type=str, metavar="FILE", help="path to config yaml")
+    p.add_argument("--opts", nargs="+", default=None, help="KEY VALUE override pairs")
+    p.add_argument("--batch-size", dest="batch_size", type=int)
+    p.add_argument("--data-path", dest="data_path", type=str)
+    p.add_argument("--zip", action="store_true")
+    p.add_argument("--cache-mode", dest="cache_mode", type=str)
+    p.add_argument("--pretrained", type=str)
+    p.add_argument("--resume", type=str)
+    p.add_argument("--accumulation-steps", dest="accumulation_steps", type=int)
+    p.add_argument("--use-checkpoint", dest="use_checkpoint", action="store_true")
+    p.add_argument("--disable_amp", action="store_true")
+    p.add_argument("--output", type=str)
+    p.add_argument("--tag", type=str)
+    p.add_argument("--eval", action="store_true")
+    p.add_argument("--throughput", action="store_true")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (the default) or cpu (the kernels' plain versions)")
+    args = p.parse_args(args_list)
+    return args, get_config(args)
+
+
+def main(args_list=None):
+    """bem_tpu's main (train.py:181-217): the model from the config with
+    weights drawn from ``Generator().manual_seed(SEED)``; throughput mode
+    -> images/s; eval mode -> (top1, top5) over the validation folder;
+    else the epochs (train, then validate) -> the state. Each epoch logs
+    its loss, accuracies, median step and data times and, on a card, the
+    peak memory."""
+    args, config = parse_option(args_list)
+    logger = get_root_logger()
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device (--device cpu runs the plain versions)")
+    model = build_model_from_config(config, torch.Generator().manual_seed(config.SEED))
+    if config.THROUGHPUT_MODE:
+        ips = throughput(model, batch=config.DATA.BATCH_SIZE, size=config.DATA.IMG_SIZE,
+                         device=device)
+        logger.info(f"throughput: {ips:.1f} images/s")
+        return ips
+    _, _, loader_train, loader_val, _ = build_loader(config)
+    steps_per_epoch = max(len(loader_train), 1)
+    state, train_step, eval_step = make_trainer(
+        model, total_steps=config.TRAIN.EPOCHS * steps_per_epoch, base_lr=config.TRAIN.BASE_LR,
+        warmup_steps=config.TRAIN.WARMUP_EPOCHS * steps_per_epoch,
+        weight_decay=config.TRAIN.WEIGHT_DECAY, label_smoothing=config.MODEL.LABEL_SMOOTHING,
+        seed=config.SEED, device=device)
+    if config.EVAL_MODE:
+        t1, t5 = validate(state, eval_step, loader_val)
+        logger.info(f"eval top1 {t1:.4f} top5 {t5:.4f}")
+        return t1, t5
+    for epoch in range(config.TRAIN.START_EPOCH, config.TRAIN.EPOCHS):
+        loader_train.set_epoch(epoch)
+        state, loss = train_one_epoch(state, train_step, loader_train, log=logger.info)
+        t1, t5 = validate(state, eval_step, loader_val)
+        logger.info(f"epoch {epoch}: loss {loss:.4f} top1 {t1:.4f} top5 {t5:.4f}")
+        mem = (f", peak memory {torch.cuda.max_memory_allocated(device) / 2 ** 30:.2f} GiB"
+               if device.type == "cuda" else "")
+        logger.info(f"epoch {epoch}: {len(state.timing['step_time'])} steps, median step "
+                    f"{1e3 * statistics.median(state.timing['step_time']):.1f} ms, data_time "
+                    f"{1e3 * statistics.median(state.timing['data_time']):.1f} ms{mem}")
+    return state
+
+
+if __name__ == "__main__":
+    main()

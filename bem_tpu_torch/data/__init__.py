@@ -22,16 +22,21 @@ from .gaussian_denoising_dataset import Dataset_GaussianDenoising, FFHQDataset
 from .paired_image_dataset import (Dataset_DefocusDeblur_DualPixel_16bit, Dataset_PairedImage,
                                    Dataset_PairedImage_Mask, Dataset_PairedImage_Norm,
                                    Dataset_PairedImage_Slide, PairedImageDataset)
+from .realesrgan_dataset import RealESRGANDataset
+from .realesrgan_paired_dataset import RealESRGANPairedDataset
 from .sid_image_dataset import Dataset_SIDImage
 from .single_image_dataset import SingleImageDataset
 
 DATASETS = {cls.__name__: cls for cls in (
     Dataset_PairedImage, Dataset_PairedImage_Mask, Dataset_PairedImage_Slide,
     Dataset_PairedImage_Norm, Dataset_DefocusDeblur_DualPixel_16bit, PairedImageDataset,
-    SingleImageDataset, Dataset_GaussianDenoising, FFHQDataset, Dataset_SIDImage)}
-# bem_tpu's other registered datasets, not ported yet
-_REFUSED = {"RealESRGANDataset": "RealESRGAN's degradations",
-            "RealESRGANPairedDataset": "RealESRGAN's degradations"}
+    SingleImageDataset, Dataset_GaussianDenoising, FFHQDataset, Dataset_SIDImage,
+    RealESRGANDataset, RealESRGANPairedDataset)}
+# bem_tpu's other registered datasets (data/video_datasets.py), not ported yet
+_REFUSED = {name: "a video dataset" for name in (
+    "REDSDataset", "Vimeo90KDataset", "VideoTestDataset", "REDSRecurrentDataset",
+    "Vimeo90KRecurrentDataset", "VideoTestVimeo90KDataset", "VideoTestDUFDataset",
+    "VideoRecurrentTestDataset")}
 
 __all__ = ["build_dataset", "build_dataloader", "EnlargedSampler", "DataLoader",
            "CPUPrefetcher", "DevicePrefetcher", *DATASETS]
@@ -39,7 +44,7 @@ __all__ = ["build_dataset", "build_dataloader", "EnlargedSampler", "DataLoader",
 
 def build_dataset(dataset_opt: Dict[str, Any]):
     if dataset_opt["type"] not in DATASETS:
-        why = _REFUSED.get(dataset_opt["type"], "a video dataset or unknown")
+        why = _REFUSED.get(dataset_opt["type"], "unknown")
         raise NotImplementedError(f"dataset {dataset_opt['type']} is not ported ({why}; "
                                   f"ported: {sorted(DATASETS)})")
     return DATASETS[dataset_opt["type"]](dict(dataset_opt))

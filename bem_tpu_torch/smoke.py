@@ -1623,3 +1623,107 @@ def write_reference_checkpoint(path: str, net) -> str:
     sd = reference_state(state_dict_to_flax(net))
     torch.save({"params": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
     return path
+
+
+# ---------------------------------------------------------------------------
+# The classifier CLI's ImageFolder and the RealESRGAN data (fixtures written
+# with the port's writers: the card's machine has no cv2)
+# ---------------------------------------------------------------------------
+
+# the harness defaults at IMG_SIZE 224, split over a BASE file and the
+# model file that names it
+CLS_BASE_YAML = """# the VMamba harness defaults at 224x224 (classification/config.py)
+DATA:
+  IMG_SIZE: 224
+  INTERPOLATION: bicubic
+TRAIN:
+  BASE_LR: 5.0e-4
+  WARMUP_EPOCHS: 20
+AUG:
+  AUTO_AUGMENT: rand-m9-mstd0.5-inc1
+  REPROB: 0.25
+"""
+CLS_MODEL_YAML = """BASE: ['base.yaml']
+MODEL:
+  TYPE: vssm
+  NAME: vssm_tiny_224
+  VSSM:
+    EMBED_DIM: 96
+    DEPTHS: [2, 2, 9, 2]
+    SSM_D_STATE: 16
+    SSM_RATIO: 2.0
+    SSM_FORWARDTYPE: v2
+"""
+IMAGE_EXTS = (".png", ".jpg", ".JPEG", ".bmp")
+
+# xinntao/Real-ESRGAN options/train_realesrnet_x4plus.yml: the degradation
+# settings of the published x4plus model
+REALESRGAN_X4PLUS = dict(
+    blur_kernel_size=21, kernel_list=["iso", "aniso", "generalized_iso", "generalized_aniso",
+                                      "plateau_iso", "plateau_aniso"],
+    kernel_prob=[0.45, 0.25, 0.12, 0.03, 0.12, 0.03], sinc_prob=0.1, blur_sigma=[0.2, 3],
+    betag_range=[0.5, 4], betap_range=[1, 2],
+    blur_kernel_size2=21, kernel_list2=["iso", "aniso", "generalized_iso", "generalized_aniso",
+                                        "plateau_iso", "plateau_aniso"],
+    kernel_prob2=[0.45, 0.25, 0.12, 0.03, 0.12, 0.03], sinc_prob2=0.1, blur_sigma2=[0.2, 1.5],
+    betag_range2=[0.5, 4], betap_range2=[1, 2], final_sinc_prob=0.8,
+    crop_pad_size=400, use_hflip=True, use_rot=False)
+
+
+def smooth_image(rng, h: int, w: int) -> np.ndarray:
+    """An (h, w, 3) uint8 RGB image: a coarse seeded field resized (linear)
+    to full size, plus fine noise."""
+    from .utils.cv_ops import resize
+
+    coarse = rng.integers(0, 256, (h // 16 + 2, w // 16 + 2, 3), dtype=np.uint8)
+    img = resize(coarse, (w, h)).astype(np.int64) + rng.integers(-6, 7, (h, w, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def encode_image(rgb: np.ndarray, ext: str, quality: int = 90) -> bytes:
+    """RGB uint8 as the file type of ``ext``: PNG, baseline JPEG (the
+    port's encoder, cv2's coefficients) or 24-bit BMP."""
+    from .utils.image_writers import bmp_rows, encode_bmp, encode_jpeg, encode_png_samples
+
+    e = ext.lower()
+    if e == ".png":
+        return encode_png_samples(rgb, 2)
+    if e in (".jpg", ".jpeg"):
+        return encode_jpeg(rgb, quality)
+    if e == ".bmp":
+        h, w = rgb.shape[:2]
+        return encode_bmp(bmp_rows(rgb[::-1, :, ::-1].reshape(h, -1)), w, h, 24)
+    raise ValueError(f"encode_image: {ext}")
+
+
+def write_imagefolder(root: str, classes: int = 3, train: int = 32, val: int = 8,
+                      size_range=((180, 240), (375, 500)), seed: int = 0):
+    """root/{train,val}/n<class>/<i><ext>: ``train`` / ``val`` seeded
+    images a class, sizes uniform between ``size_range``'s corners, the
+    formats cycling through PNG, .jpg, .JPEG and BMP. Returns the paths."""
+    rng = np.random.default_rng(seed)
+    (h0, w0), (h1, w1) = size_range
+    paths = []
+    for split, n in (("train", train), ("val", val)):
+        for c in range(classes):
+            d = os.path.join(root, split, f"n{c:08d}")
+            os.makedirs(d, exist_ok=True)
+            for i in range(n):
+                h, w = int(rng.integers(h0, h1 + 1)), int(rng.integers(w0, w1 + 1))
+                ext = IMAGE_EXTS[(c + i) % len(IMAGE_EXTS)]
+                path = os.path.join(d, f"{i:04d}{ext}")
+                with open(path, "wb") as f:
+                    f.write(encode_image(smooth_image(rng, h, w), ext))
+                paths.append(path)
+    return paths
+
+
+def write_cls_yaml(root: str) -> str:
+    """CLS_BASE_YAML and CLS_MODEL_YAML under ``root``; the model file's path."""
+    os.makedirs(os.path.join(root, "configs"), exist_ok=True)
+    with open(os.path.join(root, "configs", "base.yaml"), "w") as f:
+        f.write(CLS_BASE_YAML)
+    path = os.path.join(root, "configs", "vssm_tiny_224.yaml")
+    with open(path, "w") as f:
+        f.write(CLS_MODEL_YAML)
+    return path

@@ -231,6 +231,31 @@ result line):
      steps): ms/step and peak memory beside the card's name and power
      limit; linear_scan must launch in the v052dc_noz runs, and the m0_noz
      runs launch no kernel of the port (printed);
+ 14c. the classifier's command line at full width: an ImageFolder tree
+     (3 classes x 32 train and 8 val images, 180x240 to 375x500, PNG,
+     baseline JPEG under .jpg and .JPEG and 24-bit BMP, written by the
+     port's writers) and a BASE YAML with the model YAML that names it,
+     which together give the harness defaults (VMamba-T v2, 224x224); the
+     loader's first training batch on the card bit-identical to the same
+     seed's batch on the CPU; the model's logits on two of its images
+     card vs CPU (1e-4 of their largest, TF32 off); then ``python -m
+     bem_tpu_torch.classification.train`` in its own process (through
+     runpy, which then prints the process's launches) to train (batch 32,
+     one epoch of three steps with TRAIN.WARMUP_EPOCHS 0, validation),
+     with --eval, and with --throughput at batch 64, at PyTorch's TF32
+     defaults: finite loss, top-1 / top-5 in [0, 1], ms/step, data_time,
+     peak memory, images/s; rows 8 and 9 must launch;
+ 14d. the RealESRGAN data at full width: RealESRGANDataset at the published
+     x4plus degradation settings (smoke.REALESRGAN_X4PLUS: crop_pad_size
+     400, 21-tap kernels) over 8 seeded files of about 480x640 (PNG and
+     baseline JPEG), RealESRGANPairedDataset over their x4 pairs (gt_size
+     256), each through build_dataloader (batch 4, 2 threads) and
+     DevicePrefetcher: NHWC gt (4, 400, 400, 3) on the card, each kernel
+     21 x 21 summing to 1, the loader's items/s; on the first prefetched
+     batch diff_jpeg at qualities 30 and 90 (1e-4 outside the blocks of
+     coefficients within 1e-3 of a rounding tie) and the device USM (1e-5
+     away from pixels whose sharpening mask flips), card vs CPU, each with
+     its time on the card; no kernel of the port launches;
  15. the microbenchmarks (bem_tpu_torch.tools.microbench_vpu): the lanes /
      npass sweep and the four modes, each line as the tool prints it.
 The kernels' phase also holds the three classifier kernels (the fused core,
@@ -266,6 +291,7 @@ import io
 import json
 import logging
 import os
+import random
 import re
 import shutil
 import statistics
@@ -282,6 +308,8 @@ from bem_tpu_torch.convert import load_flax_params, state_dict_to_flax
 from bem_tpu_torch.classification import build_model_from_config, get_config, make_trainer
 from bem_tpu_torch.classification import synthetic_batch as cls_batch
 from bem_tpu_torch.classification import cross_entropy, throughput, vmamba_tiny
+from bem_tpu_torch.classification.data import build_loader as cls_build_loader
+from bem_tpu_torch.classification.train import parse_option as cls_parse_option
 from bem_tpu_torch.data import CPUPrefetcher, DevicePrefetcher, build_dataloader, build_dataset
 from bem_tpu_torch.nn import BackboneVSSM, VSSBlock, init
 from bem_tpu_torch.nn.ss2d import SS2D
@@ -303,6 +331,9 @@ from bem_tpu_torch.models.base_model import BaseModel
 from bem_tpu_torch.test import test_pipeline
 from bem_tpu_torch.train import synthetic_batch, train_pipeline
 from bem_tpu_torch.utils.checkpoint import load_params, load_state
+from bem_tpu_torch.utils.cv_ops import resize as cv_resize
+from bem_tpu_torch.utils.diffjpeg import diff_jpeg, diff_round
+from bem_tpu_torch.utils.img_process_util import gaussian_blur_torch, usm_sharp_torch
 from bem_tpu_torch.utils.image_writers import (encode_bmp_palette, encode_png_samples,
                                                encode_tiff)
 from bem_tpu_torch.utils.img_util import imdecode, imread, imwrite
@@ -351,6 +382,17 @@ VMUNET_EVAL_IMAGES = ("a_420_q95.jpg", "b_444_dri.jpg")
 # forwards a full-width IE: at 400x600 that takes minutes on the card's host)
 VMUNET_CPU_K = 4
 CPU_CROP = (112, 176)
+CLS_CLI_DIR = os.path.join(REPO, "results", "chip_smoke_cls_cli")  # gitignored, removed at the end
+# ``python -m bem_tpu_torch.classification.train ARGS`` through runpy, then the
+# process's kernel launches on a line of their own
+CLS_CLI_RUN = ("import json, runpy; from bem_tpu_torch import smoke; "
+               "runpy.run_module('bem_tpu_torch.classification.train', run_name='__main__', "
+               "alter_sys=True); print('launches ' + json.dumps(smoke.launch_counts()), "
+               "flush=True)")
+REALESRGAN_DIR = os.path.join(REPO, "results", "chip_smoke_realesrgan")  # removed at the end
+REALESRGAN_FILES = 8  # about 480x640 each
+DIFFJPEG_QUALITIES = (30, 90)
+DIFFJPEG_TIE = 1e-3  # quantized coefficients this close to a rounding tie may round either way
 
 
 def phase(name):
@@ -2303,6 +2345,271 @@ def vmamba_modes_phase(card: str, forward_type: str, kernels=()):
     return counts
 
 
+# phase 14c: the classifier's command line at full width
+
+def _cls_cli(args, label):
+    """One run of the classifier CLI in its own process: its output lines
+    (echoed), its launch counts, its wall seconds."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", CLS_CLI_RUN, *args], capture_output=True,
+                       text=True, timeout=900, cwd=REPO)
+    wall = time.perf_counter() - t0
+    out = r.stdout + r.stderr
+    for line in out.splitlines():
+        if "INFO" in line or "Error" in line or "error" in line or line.startswith("launches"):
+            print(f"  [{label}] {line[-400:]}")
+    if r.returncode != 0:
+        print(out[-6000:])
+        raise AssertionError(f"classifier CLI ({label}) exited with {r.returncode}")
+    m = re.search(r"^launches (\{.*\})$", r.stdout, re.M)
+    return out, json.loads(m.group(1)), wall
+
+
+def _grab(pattern, text, label):
+    m = re.search(pattern, text)
+    if m is None:
+        raise AssertionError(f"classifier CLI ({label}): no line matching {pattern!r}")
+    return [float("nan") if g is None else float(g) for g in m.groups()]
+
+
+def _cls_host_split(cfg, card, n=32):
+    """The loader's host time a training image over the first ``n`` of the
+    tree: the decode by format, then the train transform."""
+    ds = cls_build_loader(cfg)[0]
+    tf, ds.transform = ds.transform, None
+    py_rng, np_rng = random.Random(0), np.random.RandomState(0)
+    decode, transform = {}, []
+    for i in range(n):
+        t0 = time.perf_counter()
+        img, _ = ds.get(i)
+        t1 = time.perf_counter()
+        tf(img, py_rng, np_rng)
+        transform.append(time.perf_counter() - t1)
+        decode.setdefault(os.path.splitext(ds.samples[i][0])[1], []).append(t1 - t0)
+    per = ", ".join(f"{k} {1e3 * statistics.mean(v):.1f}" for k, v in sorted(decode.items()))
+    total = sum(map(sum, decode.values())) + sum(transform)
+    print(f"classifier loader host time over {n} images: decode {per} ms an image, train "
+          f"transform {1e3 * statistics.mean(transform):.1f} ms an image; "
+          f"{1e3 * total / n:.1f} ms an image in all ({card})", flush=True)
+
+
+def cls_cli_phase(card: str):
+    """Phase 14c: ``python -m bem_tpu_torch.classification.train`` on an
+    ImageFolder tree (3 classes x 32 train / 8 val images, 180x240 to
+    375x500, PNG / baseline JPEG (.jpg, .JPEG) / BMP written by the port's
+    writers) with a BASE YAML and a model YAML that give the harness
+    defaults (VMamba-T v2, 224x224): train (batch 32, one epoch of three
+    steps, then validation), --eval, --throughput at batch 64. The loader's
+    first batch on the card equal to a second run's on the CPU; the
+    model's logits on two of its images card vs CPU (1e-4 of their
+    largest, TF32 off); finite loss, top-1 / top-5 in [0, 1]; rows 8 and
+    9 must launch."""
+    root = CLS_CLI_DIR
+    tree = os.path.join(root, "imagenet")
+    t0 = time.perf_counter()
+    files = smoke.write_imagefolder(tree, classes=3, train=32, val=8, seed=19)
+    cfg_path = smoke.write_cls_yaml(root)
+    kinds = {e: sum(f.endswith(e) for f in files) for e in smoke.IMAGE_EXTS}
+    print(f"wrote {len(files)} images {kinds} and two YAML files in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    args = ["--cfg", cfg_path, "--data-path", tree, "--output", os.path.join(root, "output")]
+    _, cfg = cls_parse_option(args + ["--batch-size", "32"])
+    ref = get_config()
+    ref.BASE, ref.OUTPUT, ref.DATA.DATA_PATH, ref.DATA.BATCH_SIZE = cfg.BASE, cfg.OUTPUT, tree, 32
+    if cfg != ref:
+        raise AssertionError("the two YAML files do not give the harness defaults")
+    t0 = time.perf_counter()
+    images, labels = next(iter(cls_build_loader(cfg)[2]))
+    first_batch_s = time.perf_counter() - t0
+    on_card = torch.from_numpy(images).to("cuda")
+    again, again_labels = next(iter(cls_build_loader(cfg)[2]))
+    same = torch.equal(on_card.cpu(), torch.from_numpy(again)) and np.array_equal(labels,
+                                                                                  again_labels)
+    print(f"first training batch {tuple(images.shape)} {images.dtype} (host {first_batch_s:.2f} "
+          f"s): on the card bit-identical to the same seed's batch on the CPU: {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("the classifier loader's first batch differs between two runs")
+    _cls_host_split(cfg, card)
+    model = build_model_from_config(cfg, torch.Generator().manual_seed(cfg.SEED)).eval()
+    x = torch.from_numpy(images[:2])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lc = model(x)
+        cpu_s = time.perf_counter() - t0
+        lg = copy.deepcopy(model).to("cuda")(x.to("cuda")).cpu()
+    err = (lg - lc).abs().max().item() / lc.abs().max().item()
+    print(f"VMamba-T v2 logits of the batch's first 2 images, card vs CPU: err / max {err:.2e} "
+          f"(tol 1e-4; CPU forward {cpu_s:.1f} s)", flush=True)
+    if not err <= 1e-4:
+        raise AssertionError("classifier CLI: the card's logits disagree with the CPU's")
+    del model
+    train_out, train_counts, train_wall = _cls_cli(
+        args + ["--batch-size", "32", "--opts", "TRAIN.EPOCHS", "1", "TRAIN.WARMUP_EPOCHS", "0"],
+        "train")
+    loss, t1, t5 = _grab(r"epoch 0: loss (\S+) top1 (\S+) top5 (\S+)", train_out, "train")
+    steps, step_ms, data_ms, mem = _grab(
+        r"epoch 0: (\d+) steps, median step (\S+) ms, data_time (\S+) ms(?:, peak memory (\S+) GiB)?",
+        train_out, "train")
+    eval_out, eval_counts, eval_wall = _cls_cli(args + ["--batch-size", "32", "--eval"], "eval")
+    e1, e5 = _grab(r"eval top1 (\S+) top5 (\S+)", eval_out, "eval")
+    tp_out, tp_counts, tp_wall = _cls_cli(args + ["--batch-size", "64", "--throughput"],
+                                          "throughput")
+    (ips,) = _grab(r"throughput: (\S+) images/s", tp_out, "throughput")
+    print(f"classifier CLI VMamba-T v2 224x224: train batch 32 {int(steps)} steps, loss {loss}, "
+          f"top1 {t1} top5 {t5}, median {step_ms} ms/step, data_time {data_ms} ms, peak memory "
+          f"{mem} GiB ({train_wall:.1f} s the process); eval top1 {e1} top5 {e5} "
+          f"({eval_wall:.1f} s); throughput batch 64 bf16 {ips} images/s ({tp_wall:.1f} s) "
+          f"({card})", flush=True)
+    ok = (np.isfinite(loss) and int(steps) == 3
+          and all(0.0 <= v <= 1.0 for v in (t1, t5, e1, e5)) and ips > 0)
+    if not ok:
+        raise AssertionError("classifier CLI: a non-finite loss or an accuracy outside [0, 1]")
+    for label, c, need in (("train", train_counts, ("ss2d_dir_fused", "ss2d_dir_fused_bwd")),
+                           ("eval", eval_counts, ("ss2d_dir_fused",)),
+                           ("throughput", tp_counts, ("ss2d_dir_fused",))):
+        print(f"classifier CLI {label} launches: { {k: v for k, v in c.items() if v} }")
+        if min(c[k] for k in need) <= 0:
+            raise AssertionError(f"classifier CLI {label}: a kernel never launched: {c}")
+    return {k: train_counts[k] + eval_counts[k] + tp_counts[k] for k in train_counts}
+
+
+# phase 14d: the RealESRGAN data path at full width
+
+def _tie_blocks(ycc_vals, shape):
+    """(B, H, W, 1) mask of the 8 x 8 luma (16 x 16 chroma) blocks with a
+    quantized coefficient within DIFFJPEG_TIE of a rounding tie."""
+    B, H, W = shape[:3]
+    mask = torch.zeros((B, H, W), dtype=torch.bool)
+    for ci, v in enumerate(ycc_vals):
+        s = 1 if ci == 0 else 2
+        near = ((v - v.floor()).sub(0.5).abs() < DIFFJPEG_TIE).flatten(2).any(-1)
+        nbw = W // (8 * s)
+        for b, n in zip(*torch.nonzero(near, as_tuple=True)):
+            r, c = divmod(int(n), nbw)
+            mask[b, r * 8 * s:(r + 1) * 8 * s, c * 8 * s:(c + 1) * 8 * s] = True
+    return mask[..., None]
+
+
+def _diff_jpeg_check(gt, card):
+    """diff_jpeg of a prefetched batch on the card vs the CPU: within 1e-4
+    outside the blocks of near-tie coefficients (located on the CPU's
+    values, printed as a share of the pixels), and its time on the card."""
+    x_cpu = gt.cpu()
+    for q in DIFFJPEG_QUALITIES:
+        seen = []
+
+        def capture(v):
+            seen.append(v.detach())
+            return diff_round(v)
+
+        want = diff_jpeg(x_cpu, q, rounding=capture)
+        got = diff_jpeg(gt, q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            diff_jpeg(gt, q)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / 5
+        mask = _tie_blocks(seen, x_cpu.shape)
+        err = torch.where(mask, 0, got.cpu() - want).abs().max().item()
+        print(f"diff_jpeg q{q} {tuple(gt.shape)} card vs CPU: max abs err {err:.2e} (tol 1e-4) "
+              f"outside near-tie blocks ({100 * mask.float().mean().item():.2f} % of the "
+              f"pixels); all pixels {(got.cpu() - want).abs().max().item():.2e}; "
+              f"{ms:.2f} ms on the card ({card})", flush=True)
+        if not (err <= 1e-4 and mask.float().mean().item() <= 0.2):
+            raise AssertionError(f"diff_jpeg q{q}: the card disagrees with the CPU")
+
+
+def _usm_check(gt, card):
+    """usm_sharp_torch of a prefetched batch on the card vs the CPU: within
+    1e-5 away (51 px, the blur's reach) from any pixel whose sharpening
+    mask differs between the two; the flips printed."""
+    x_cpu = gt.cpu()
+    want = usm_sharp_torch(x_cpu)
+    got = usm_sharp_torch(gt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        usm_sharp_torch(gt)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 5
+    masks = [((x - gaussian_blur_torch(x)).abs() * 255 > 10).cpu() for x in (gt, x_cpu)]
+    flips = (masks[0] != masks[1]).float().permute(0, 3, 1, 2)
+    near = torch.nn.functional.max_pool2d(flips, 51, 1, 25).permute(0, 2, 3, 1) > 0
+    d = (got.cpu() - want).abs()
+    err = torch.where(near, 0, d).max().item()
+    print(f"usm_sharp_torch {tuple(gt.shape)} card vs CPU: max abs err {err:.2e} (tol 1e-5) "
+          f"away from {int(flips.sum())} mask flips; all pixels {d.max().item():.2e}; "
+          f"{ms:.2f} ms on the card ({card})", flush=True)
+    if not err <= 1e-5:
+        raise AssertionError("usm_sharp_torch: the card disagrees with the CPU")
+
+
+def realesrgan_phase(card: str):
+    """Phase 14d: RealESRGANDataset at the published x4plus degradation
+    settings (smoke.REALESRGAN_X4PLUS) over 8 seeded files of about
+    480x640 (PNG and baseline JPEG), and RealESRGANPairedDataset over
+    their x4 pairs (gt_size 256), each through build_dataloader (batch 4,
+    2 threads) and DevicePrefetcher: the batches' shapes on the card,
+    every kernel 21 x 21 summing to 1; the loader's items/s; diff_jpeg at
+    qualities 30 and 90 and the device USM on the first prefetched batch,
+    card vs CPU. It launches no kernel of the port."""
+    rng = np.random.default_rng(23)
+    gt_dir, lq_dir = (os.path.join(REALESRGAN_DIR, d) for d in ("gt", "lq"))
+    os.makedirs(gt_dir, exist_ok=True)
+    os.makedirs(lq_dir, exist_ok=True)
+    for i in range(REALESRGAN_FILES):
+        h, w = 480 + 4 * int(rng.integers(-4, 5)), 640 + 4 * int(rng.integers(-4, 5))
+        img = smoke.smooth_image(rng, h, w)
+        ext = (".png", ".jpg")[i % 2]
+        for d, a in ((gt_dir, img), (lq_dir, cv_resize(img, (w // 4, h // 4)))):
+            with open(os.path.join(d, f"{i:04d}{ext}"), "wb") as f:
+                f.write(smoke.encode_image(a, ext, quality=95))
+    loader_opt = dict(phase="train", batch_size_per_gpu=4, num_worker_per_gpu=2,
+                      io_backend={"type": "disk"}, seed=0)
+    smoke.reset_launch_counts()
+    runs = {}
+    for name, opt in (("RealESRGANDataset", dict(smoke.REALESRGAN_X4PLUS, dataroot_gt=gt_dir)),
+                      ("RealESRGANPairedDataset", dict(dataroot_gt=gt_dir, dataroot_lq=lq_dir,
+                                                       gt_size=256, scale=4))):
+        opt = dict(loader_opt, type=name, **opt)
+        loader = build_dataloader(build_dataset(opt), opt, seed=0)
+        t0 = time.perf_counter()
+        pre = DevicePrefetcher(loader, "cuda")
+        batches = []
+        b = pre.next()
+        while b is not None:
+            batches.append(b)
+            b = pre.next()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = sum(len(b["gt_path"]) for b in batches)
+        shapes = {k: tuple(v.shape) for k, v in batches[0].items() if isinstance(v, torch.Tensor)}
+        print(f"{name}: {len(batches)} batches, {n} items in {dt:.2f} s, {n / dt:.2f} items/s "
+              f"through build_dataloader + DevicePrefetcher; {shapes} ({card})", flush=True)
+        runs[name] = batches
+    for b in runs["RealESRGANDataset"]:
+        if tuple(b["gt"].shape) != (4, 400, 400, 3) or b["gt"].device.type != "cuda":
+            raise AssertionError(f"RealESRGANDataset: gt {tuple(b['gt'].shape)}")
+        for k in ("kernel1", "kernel2", "sinc_kernel"):
+            sums = b[k].sum(dim=(1, 2))
+            if tuple(b[k].shape) != (4, 21, 21) or (sums - 1).abs().max().item() > 1e-5:
+                raise AssertionError(f"RealESRGANDataset: {k} {tuple(b[k].shape)} sums {sums}")
+    for b in runs["RealESRGANPairedDataset"]:
+        if (tuple(b["gt"].shape), tuple(b["lq"].shape)) != ((4, 256, 256, 3), (4, 64, 64, 3)):
+            raise AssertionError(f"RealESRGANPairedDataset: {tuple(b['gt'].shape)}")
+    gt = runs["RealESRGANDataset"][0]["gt"]
+    _diff_jpeg_check(gt, card)
+    _usm_check(gt, card)
+    counts = smoke.launch_counts()
+    if sum(counts.values()):
+        raise AssertionError(f"the RealESRGAN data path launched a kernel of the port: {counts}")
+    print("the RealESRGAN data path runs no kernel of the port (diff_jpeg and USM are plain "
+          "tensor code)")
+    return counts
+
+
 def microbench_phase():
     """The tool's two sweeps, each line as it prints it; both kernels must launch."""
     smoke.reset_launch_counts()
@@ -2406,6 +2713,16 @@ def main() -> int:
     phase("VMamba-T v052dc_noz and m0_noz at full width")
     cascade_counts = vmamba_modes_phase(card, "v052dc_noz", ("linear_scan",))
     vmamba_modes_phase(card, "m0_noz")
+    phase("classifier CLI at full width")
+    try:
+        cls_cli_counts = cls_cli_phase(card)
+    finally:
+        shutil.rmtree(CLS_CLI_DIR, ignore_errors=True)
+    phase("RealESRGAN data at full width")
+    try:
+        realesrgan_phase(card)
+    finally:
+        shutil.rmtree(REALESRGAN_DIR, ignore_errors=True)
     phase("microbenchmarks")
     mb_counts = microbench_phase()
     # each kernel's launches over the runs of its own paths: the BEM kernels
@@ -2413,15 +2730,17 @@ def main() -> int:
     # training, VMUNet family, image formats, speed test and option-set runs, the fused core and its backward over VMamba-T's, the
     # clamped form over the narrow reference runs, selective_scan_fused over
     # VMamba-T v052d's, the SS2D modes' over their checks and VMamba-T
-    # v052dc_noz's, the microbenchmarks over their sweeps
+    # v052dc_noz's, the classifier CLI's over its three runs, the
+    # microbenchmarks over their sweeps
     paths = {name: (train_counts, cli_counts, serve_counts, eval_counts, flagship_counts,
                     flagship_train_counts, vmunet_counts, formats_counts, speed_counts,
                     options_counts)
              for name in smoke.BEM_KERNELS}
-    paths["linear_scan"] += (modes_counts, cascade_counts)
-    paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts, modes_counts),
-                 ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts, modes_counts),
-                 ss2d_dir_fused_g=(cls_ref_counts, modes_counts),
+    paths["linear_scan"] += (modes_counts, cascade_counts, cls_cli_counts)
+    paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts, modes_counts, cls_cli_counts),
+                 ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts, modes_counts,
+                                     cls_cli_counts),
+                 ss2d_dir_fused_g=(cls_ref_counts, modes_counts, cls_cli_counts),
                  selective_scan_fused=(scan_train_counts, scan_tp_counts),
                  vpu_scan_step=(mb_counts,), vpu_op_rounds=(mb_counts,))
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,

@@ -17,8 +17,8 @@ bit), item by item.
   from its ``rng``; the test hands both the same draws. Its PNG frames
   resize in float32, where cv2's IPP build differs by float32 ulps, so
   bem_tpu runs with IPP off for them (the port follows OpenCV's own code).
-- The registry knows every ported dataset; lmdb and the unported ones
-  raise.
+- The registry knows every ported dataset (the two RealESRGAN ones
+  since they were ported); lmdb and the unported ones raise.
 
 Each bem_tpu dataset and its port get the same ``seed``: both draw from
 ``np.random.default_rng(seed)`` in the same order.
@@ -227,9 +227,9 @@ def test_registry():
     ported = {"Dataset_PairedImage", "Dataset_PairedImage_Mask", "Dataset_PairedImage_Slide",
               "Dataset_PairedImage_Norm", "Dataset_DefocusDeblur_DualPixel_16bit",
               "PairedImageDataset", "SingleImageDataset", "Dataset_GaussianDenoising",
-              "FFHQDataset", "Dataset_SIDImage"}
+              "FFHQDataset", "Dataset_SIDImage", "RealESRGANDataset", "RealESRGANPairedDataset"}
     assert set(DATASETS) == ported
-    for name in ("RealESRGANDataset", "REDSDataset"):
+    for name in ("Vimeo90KDataset", "REDSDataset"):
         with pytest.raises(NotImplementedError, match=f"dataset {name} is not ported"):
             build_dataset({"type": name})
     with pytest.raises(NotImplementedError, match="lmdb"):
