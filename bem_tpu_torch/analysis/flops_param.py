@@ -5,7 +5,13 @@ which counts elementwise work too. The port counts with
 ``torch.utils.flop_counter.FlopCounterMode``, which counts matmuls and
 convolutions only (two FLOPs a multiply-add), so the two counts of one
 net differ; ``flops_selective_scan`` is the same analytical estimate in
-both.
+both. FlopCounterMode cannot see into a kernel, so the wrappers of the
+SS2D 4-direction core (``ops.ss2d_fused.ss2d_dir_fused``) and of the
+selective scan (``ops.scan.selective_scan``) state their work instead
+(``ops._common.counted_as``: the projections and ``flops_selective_scan``):
+a net's count is then the same on the card and on the CPU. The other
+kernels' wrappers (the BEM nets' serving rows) state nothing, and their
+nets' counts still differ between the two.
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from typing import Any, Callable, Dict
 
 import torch
 from torch.utils.flop_counter import FlopCounterMode
+
+from ..ops._common import FLOP_TALLIES, FlopTally
 
 
 def count_params(params: Any) -> int:
@@ -38,11 +46,18 @@ def flops_selective_scan(B=1, L=256, D=768, N=16, with_D=True, with_Z=False) -> 
 @torch.no_grad()
 def count_flops(fn: Callable, *example_args) -> Dict[str, float]:
     """FLOPs of one call of ``fn`` (matmuls and convolutions, as
-    FlopCounterMode counts them); bytes accessed are not counted (-1, as
-    bem_tpu reports a figure its cost analysis lacks)."""
+    FlopCounterMode counts them, and what the scan wrappers state for
+    theirs); bytes accessed are not counted (-1, as bem_tpu reports a
+    figure its cost analysis lacks)."""
     with FlopCounterMode(display=False) as counter:
-        fn(*example_args)
-    return {"flops": float(counter.get_total_flops()), "bytes_accessed": -1.0}
+        tally = FlopTally(counter)
+        FLOP_TALLIES.append(tally)
+        try:
+            fn(*example_args)
+        finally:
+            FLOP_TALLIES.remove(tally)
+    flops = counter.get_total_flops() - tally.seen + tally.stated
+    return {"flops": float(flops), "bytes_accessed": -1.0}
 
 
 @torch.no_grad()

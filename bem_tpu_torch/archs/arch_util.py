@@ -1,8 +1,11 @@
 """U-Net building blocks, NCHW: counterpart of bem_tpu/archs/arch_util.py
 (PatchMerging, DualUpSample, ConvDown, DeconvUp, SAM with its DB and CSAF;
-the Decomp family's CrossFusionBlock, SEBlock, SpatialAttention)."""
+the Decomp family's CrossFusionBlock, SEBlock, SpatialAttention; the model
+zoo's ResidualBlockNoBN and Upsample; LN2DLinear)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -232,3 +235,50 @@ class SpatialAttention(nn.Module):
     def forward(self, x):
         pooled = torch.cat([x.mean(dim=1, keepdim=True), x.amax(dim=1, keepdim=True)], dim=1)
         return x * torch.sigmoid(self.conv(pooled))
+
+
+class LN2DLinear(nn.Module):
+    """LayerNorm + zero-init 1x1 conv (arch_util.py:212-222)."""
+
+    def __init__(self, in_channels: int, out_channels: int, use_bias: bool = False):
+        super().__init__()
+        self.norm = LayerNorm2d(in_channels)
+        self.linear = Conv2d(in_channels, out_channels, 1, bias=use_bias, weight_init="zeros")
+
+    def forward(self, x):
+        return self.linear(self.norm(x))
+
+
+class ResidualBlockNoBN(nn.Module):
+    """x + conv2(relu(conv1(x))) * res_scale, 3x3 convs (arch_util.py:277-289)."""
+
+    def __init__(self, num_feat: int = 64, res_scale: float = 1.0):
+        super().__init__()
+        self.res_scale = res_scale
+        self.conv1 = Conv2d(num_feat, num_feat, 3, padding=1)
+        self.conv2 = Conv2d(num_feat, num_feat, 3, padding=1)
+
+    def forward(self, x):
+        return x + self.conv2(F.relu(self.conv1(x))) * self.res_scale
+
+
+class Upsample(nn.Module):
+    """Pixel-shuffle upsampler for scale 2^n (n steps of a 3x3 conv to 4C
+    and a x2 shuffle) or 3 (arch_util.py:292-311); the convs are
+    ``conv_<i>``."""
+
+    def __init__(self, scale: int, num_feat: int):
+        super().__init__()
+        if scale & (scale - 1) == 0:
+            self.factors = [2] * int(math.log2(scale))
+        elif scale == 3:
+            self.factors = [3]
+        else:
+            raise ValueError(f"scale {scale} is not supported")
+        for i, r in enumerate(self.factors):
+            self.add_module(f"conv_{i}", Conv2d(num_feat, r * r * num_feat, 3, padding=1))
+
+    def forward(self, x):
+        for i, r in enumerate(self.factors):
+            x = pixel_shuffle_cf(getattr(self, f"conv_{i}")(x), r)
+        return x

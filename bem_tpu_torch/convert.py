@@ -17,7 +17,15 @@ bem_tpu/archs/convert_network.py applied in reverse:
   -> (1,C,H,W); everything else as it is (e.g. CrossFusionBlock's (C,)
   ``gate``);
 - the ``ssm_state`` collection (m0's ``initial_state``) <-> the SS2D's
-  ``initial_state`` buffer, as it is.
+  ``initial_state`` buffer, as it is;
+- the ``batch_stats`` collection's ``mean`` / ``var`` (flax BatchNorm,
+  the model zoo's UVMNet) <-> the ``running_mean`` / ``running_var``
+  buffers;
+- a module class with a ``flax_leaf_names`` mapping (the model zoo's
+  LayerNormLast, MeanShift, BatchNormInference) keeps its leaves in
+  bem_tpu's layout: each is renamed by the mapping, else left as it is
+  (e.g. MeanShift's HWIO ``weight``, LayerNormLast's ``weight`` /
+  ``bias``).
 
 Reference PyTorch checkpoints reach the port by composing with
 ``bem_tpu.archs.convert_network.convert_network_state`` (torch -> flax).
@@ -64,16 +72,21 @@ def _flatten(tree, prefix=()):
 
 
 _NHWC = ("mask_token", "pos_embed")  # 4-D leaves kept channels-last in flax
+_BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
+_COLLECTIONS = {"params", "ssm_state", "batch_stats"}
 
 
 def flax_to_state_dict(params) -> dict:
     """flax ``params`` (nested dict of arrays) or variables (``{"params":
-    ..., "ssm_state": ...}``) -> {torch name: numpy array} in the port's
-    layouts; the ``ssm_state`` leaves become buffers of the same path."""
+    ..., "ssm_state": ..., "batch_stats": ...}``) -> {torch name: numpy
+    array} in the port's layouts; the ``ssm_state`` leaves become buffers
+    of the same path, the ``batch_stats`` ones the running buffers."""
     sd = {}
-    if "params" in params and set(params) <= {"params", "ssm_state"}:
+    if "params" in params and set(params) <= _COLLECTIONS:
         for path, a in _flatten(params.get("ssm_state", {})):
             sd[".".join(path)] = np.ascontiguousarray(np.asarray(a, np.float32))
+        for (*mods, leaf), a in _flatten(params.get("batch_stats", {})):
+            sd[".".join(mods + [_BATCH_STATS[leaf]])] = np.asarray(a, np.float32).copy()
         params = params["params"]
     for path, a in _flatten(params):
         *mods, leaf = path
@@ -102,7 +115,9 @@ def state_dict_to_flax(module: nn.Module, state=None, subset: bool = False) -> d
         a = t.detach().float().cpu().numpy()
         head, _, leaf = name.rpartition(".")
         kind = kinds.get(head)
-        if leaf in ("weight", "mu_weight", "rho_weight") and kind is LayerNorm2d:
+        if hasattr(kind, "flax_leaf_names"):
+            leaf = kind.flax_leaf_names.get(leaf, leaf)
+        elif leaf in ("weight", "mu_weight", "rho_weight") and kind is LayerNorm2d:
             leaf = "scale"
         elif leaf == "weight" and kind is PReLU:
             leaf = "slope"
@@ -134,10 +149,26 @@ def ssm_state_to_flax(module: nn.Module) -> dict:
     return tree
 
 
+def batch_stats_to_flax(module: nn.Module) -> dict:
+    """The port's BatchNorm running buffers -> flax's ``batch_stats``
+    collection (nested dict of numpy arrays; empty when there are none)."""
+    names = {v: k for k, v in _BATCH_STATS.items()}
+    tree: dict = {}
+    for name, t in module.named_buffers():
+        head, _, leaf = name.rpartition(".")
+        if leaf not in names:
+            continue
+        node = tree
+        for part in head.split(".") if head else []:
+            node = node.setdefault(part, {})
+        node[names[leaf]] = t.detach().float().cpu().numpy().copy()
+    return tree
+
+
 def load_flax_params(module: nn.Module, params) -> nn.Module:
     """Load a JAX module's params (numpy arrays), or its variables with an
-    ``ssm_state`` collection, into the port's module, in place; every
-    parameter and buffer must be matched."""
+    ``ssm_state`` or ``batch_stats`` collection, into the port's module, in
+    place; every parameter and persistent buffer must be matched."""
     sd = {k: torch.tensor(v) for k, v in flax_to_state_dict(params).items()}
     module.load_state_dict(sd, strict=True)
     return module

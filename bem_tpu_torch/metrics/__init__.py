@@ -3,10 +3,12 @@ dispatches a ``val.metrics`` entry by its ``type``."""
 
 from copy import deepcopy
 
+from .niqe import calculate_niqe
 from .psnr_ssim import calculate_psnr, calculate_ssim
 from .uciqe_uiqm import calculate_uciqe, calculate_uiqm, getUCIQE, getUIQM
 
-METRICS = {"calculate_psnr": calculate_psnr, "calculate_ssim": calculate_ssim,
+METRICS = {"calculate_niqe": calculate_niqe,
+           "calculate_psnr": calculate_psnr, "calculate_ssim": calculate_ssim,
            "calculate_uciqe": calculate_uciqe, "calculate_uiqm": calculate_uiqm}
 
 

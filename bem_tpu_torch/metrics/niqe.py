@@ -1,11 +1,14 @@
-"""Batched on-device NIQE for candidate selection.
+"""NIQE: batched on the device for candidate selection, and on the host.
 
-Counterpart of bem_tpu/metrics/niqe_jax.py::niqe_batch_rgb (same algorithm:
-MSCN at two scales, per-block AGGD features, Mahalanobis distance to the
-pristine model in ``niqe_pris_params.npz``, a copy of bem_tpu's model
-data), batched over the candidates with plain PyTorch ops. The 7x7
-Gaussian filter is 49 shifted fp32 multiply-adds rather than a
-convolution, so no TF32 path can touch the score.
+:func:`niqe_batch_rgb` is the counterpart of
+bem_tpu/metrics/niqe_jax.py::niqe_batch_rgb (same algorithm: MSCN at two
+scales, per-block AGGD features, Mahalanobis distance to the pristine
+model in ``niqe_pris_params.npz``, a copy of bem_tpu's model data),
+batched over the candidates with plain PyTorch ops in fp32. The 7x7
+Gaussian filter is 49 shifted multiply-adds rather than a convolution, so
+no TF32 path can touch the score. :func:`calculate_niqe` is the
+``val.metrics`` entry of bem_tpu/metrics/niqe.py: the same core in fp64 on
+the CPU, as that module's numpy core computes it.
 """
 
 from __future__ import annotations
@@ -15,6 +18,9 @@ import os
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.cv_ops import bgr2gray
+from .metric_util import reorder_image, to_y_channel
 
 _GAM = np.arange(0.2, 10.001, 0.001)
 BLOCK = 96  # NIQE block size in pixels
@@ -53,9 +59,9 @@ def _contributions(in_length: int, out_length: int, scale: float):
     return weights, aux[np.mod(indices.astype(np.int64), 2 * in_length)]
 
 
-def _resize_half_mat(n: int) -> np.ndarray:
+def _resize_half_mat(n: int, dtype=np.float32) -> np.ndarray:
     wts, idx = _contributions(n, int(np.ceil(n * 0.5)), 0.5)
-    M = np.zeros((wts.shape[0], n), np.float32)
+    M = np.zeros((wts.shape[0], n), dtype)
     np.add.at(M, (np.arange(wts.shape[0])[:, None], idx), wts)
     return M
 
@@ -112,22 +118,26 @@ def _mscn(img, window):
 
 
 class _Niqe:
-    """NIQE of (K, h, w) Y images in [0, 255] at a fixed size."""
+    """NIQE of (K, h, w) Y images in [0, 255] at a fixed size, in ``dtype``;
+    ``np_cov`` takes np.cov's reading of an image with one good block (the
+    host metric's), else its covariance is 0 (niqe_jax's)."""
 
-    def __init__(self, h: int, w: int, device):
+    def __init__(self, h: int, w: int, device, dtype=torch.float32, np_cov: bool = False):
         p = np.load(os.path.join(os.path.dirname(__file__), "niqe_pris_params.npz"))
-        t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        self.dtype, self.np_cov = dtype, np_cov
+        t = lambda a: torch.as_tensor(np.asarray(a, np_dtype), device=device)  # noqa: E731
         self.mu_pris = t(np.squeeze(p["mu_pris_param"]))
         self.cov_pris = t(p["cov_pris_param"])
         self.window = t(p["gaussian_window"])
         self.nbh, self.nbw = h // BLOCK, w // BLOCK
         self.hc, self.wc = self.nbh * BLOCK, self.nbw * BLOCK
-        self.Mh = t(_resize_half_mat(self.hc))
-        self.Mw = t(_resize_half_mat(self.wc))
+        self.Mh = t(_resize_half_mat(self.hc, np_dtype))
+        self.Mw = t(_resize_half_mat(self.wc, np_dtype))
         self.r_gam, self.gam = t(_r_gam()), t(_GAM)
 
     def __call__(self, img):
-        img = img[:, :self.hc, :self.wc].float()
+        img = img[:, :self.hc, :self.wc].to(self.dtype)
         K = img.shape[0]
         feats, valids = [], []
         for scale in (1, 2):
@@ -152,6 +162,11 @@ class _Niqe:
         mu_good = (dist * row_ok).sum(1) / n_good
         dmu = (mu_good - mu_dist)[..., None]
         cov = cov - (n_good / (n_good - 1.0))[..., None] * (dmu @ dmu.transpose(1, 2))
+        if self.np_cov:
+            # np.cov reads a single good row as one variable of 36
+            # observations: a scalar variance added to every entry
+            for k in torch.nonzero(row_ok.sum((1, 2)) == 1).flatten().tolist():
+                cov[k] = dist[k][row_ok[k, :, 0] > 0][0].var()
         diff = self.mu_pris - mu_dist
         sol = torch.linalg.solve((self.cov_pris + cov) / 2, diff[..., None])
         return torch.sqrt(torch.clamp((diff[:, None, :] @ sol)[:, 0, 0], min=0.0))
@@ -178,3 +193,22 @@ def niqe_batch_rgb(h: int, w: int):
         return core(rgb_to_y_255(imgs))
 
     return fn
+
+
+def calculate_niqe(img, crop_border, input_order="HWC", convert_to="y", **kwargs):
+    """NIQE of a [0, 255] BGR (or grey) image on the host (bem_tpu
+    niqe.py:99-120): its Y channel (``convert_to="y"``) or its grey
+    conversion (``"gray"``, cv2's BGR2GRAY on [0, 1]), cropped, rounded,
+    then the core in fp64; ``input_order="HW"`` takes a 2-D image as it is."""
+    img = np.asarray(img).astype(np.float32)
+    if input_order != "HW":
+        img = reorder_image(img, input_order=input_order)
+        if convert_to == "y":
+            img = to_y_channel(img)
+        elif convert_to == "gray":
+            img = bgr2gray(img / 255.0) * 255.0
+        img = np.squeeze(img)
+    if crop_border != 0:
+        img = img[crop_border:-crop_border, crop_border:-crop_border]
+    img = torch.from_numpy(np.ascontiguousarray(img.round(), np.float64))
+    return float(_Niqe(*img.shape, "cpu", torch.float64, np_cov=True)(img[None])[0])

@@ -107,6 +107,8 @@ class Conv2d(BayesLayer):
             self._init("weight", lambda t: init.kaiming_normal_(t, self.fan_in, 1.0, gen))
         elif self.weight_init == "kaiming_uniform_relu":
             self._init("weight", lambda t: init.uniform_(t, math.sqrt(6.0 / self.fan_in), gen))
+        elif self.weight_init == "zeros":
+            self._init("weight", lambda t: t.zero_())
         elif self.weight_init == "laplacian":
             # the QD sharpening conv: the Laplacian on every channel pair / C
             lap = torch.tensor([[0., -1., 0.], [-1., 4., -1.], [0., -1., 0.]])

@@ -38,6 +38,14 @@ bem_tpu runs NHWC (the same math):
   activation ``act_layer`` ("gelu" is the tanh approximation, as
   jax.nn.gelu's default), an optional initial-state buffer.
 
+``scan_backend`` is bem_tpu's field (ss2d.py:136, read at :210). ``None``
+and ``"pallas"`` take the dispatch above. ``"xla"`` and ``"ref"`` take
+bem_tpu's XLA composition (ss2d.py:483 onwards), which neither fuses the
+serving core nor clamps: scans 0 run the 4-direction core unclamped (row 8
+with ``clamp=False`` on the card) at every batch, whatever the input's
+forward-type flags; the other scan modes keep their routes, which do not
+clamp either.
+
 Then the out-norm (``ln``, ``none``, ``dwconv3``, ``cnorm``, ``softmax``
 over each channel's positions, ``sigmoid``; ss2d.py:573-598), the cast to
 the input dtype, ``_oact``'s exact GELU, ``y * z`` and out_proj, then
@@ -76,6 +84,9 @@ DT_MIN, DT_MAX, DT_INIT_FLOOR = 0.001, 0.1, 1e-4
 SCAN_MODES = {"v01": 0, "v02": 0, "v03": 0, "v04": 0, "v05": 0, "v2": 0, "v0": 0, "v0seq": 0,
               "v051d": 1, "v052d": 2, "v052dc": 3}
 OUT_NORMS = ("ln", "none", "dwconv3", "cnorm", "softmax", "sigmoid")
+# bem_tpu's scan backends (ops/scan.py:61): None is its default, Pallas on
+# the TPU; the port's kernels take the Pallas routes
+SCAN_BACKENDS = (None, "pallas", "xla", "ref")
 ACTS = {"silu": F.silu, "gelu": functools.partial(F.gelu, approximate="tanh")}
 
 
@@ -118,15 +129,19 @@ class SS2D(nn.Module):
     """SS2D with the parameter tree of bem_tpu's SS2D (see the module
     docstring). ``dropout`` is the rate after out_proj, ``initialize`` the
     SSM init ("v0", "v1", "v2"); ``chunk_size``, ``with_initial_state`` and
-    ``act_layer`` are m0's."""
+    ``act_layer`` are m0's; ``scan_backend`` selects bem_tpu's route (None,
+    "pallas", "xla" or "ref")."""
 
     def __init__(self, d_model: int, d_state: int = 1, ssm_ratio: float = 1.0,
                  forward_type: str = "v05_noz", bayesian: bool = False,
                  sigma_init: float = 0.05, dt_rank="auto", d_conv: int = 3,
                  conv_bias: bool = False, bias: bool = False, dropout: float = 0.0,
                  initialize: str = "v0", chunk_size: int = 64,
-                 with_initial_state: bool = False, act_layer: str = "silu"):
+                 with_initial_state: bool = False, act_layer: str = "silu",
+                 scan_backend=None):
         super().__init__()
+        if scan_backend not in SCAN_BACKENDS:
+            raise ValueError(f"SS2D: scan_backend {scan_backend!r} ({SCAN_BACKENDS})")
         base, flags = parse_forward_type(forward_type)
         self.m0 = base.startswith("m")
         if base not in SCAN_MODES and base != "m0":
@@ -136,13 +151,15 @@ class SS2D(nn.Module):
         if act_layer not in ACTS:
             raise ValueError(f"SS2D: act_layer {act_layer!r} ({tuple(ACTS)})")
         self.flags, self.dropout, self.initialize = flags, dropout, initialize
+        # the XLA composition neither fuses the core nor clamps (ss2d.py:213-218)
+        self.xla = scan_backend in ("xla", "ref")
         self.chunk_size, self.act_layer = chunk_size, act_layer
         self.scans = None if self.m0 else SCAN_MODES[base]
         # bem_tpu takes the fused serving core only for the cross2d scan with
         # the LayerNorm out-norm (ss2d.py:217-220), and the 4-direction core
         # for the cross2d scan otherwise (ss2d.py:440)
         self.fused_core = (self.scans == 0 and flags["noz"] and not flags["oact"]
-                           and flags["out_norm"] == "ln")
+                           and flags["out_norm"] == "ln" and not self.xla)
         self.d_inner = d_inner = int(ssm_ratio * d_model)
         self.R = R = math.ceil(d_model / 16) if dt_rank == "auto" else int(dt_rank)
         self.N = N = d_state
@@ -365,7 +382,7 @@ class SS2D(nn.Module):
             if self.scans == 0:  # the 4-direction fused core (ss2d.py:440-482)
                 xs2 = torch.stack([xs.reshape(B, C, L), xs.transpose(2, 3).reshape(B, C, L)], 1)
                 y2 = ss2d_dir_fused(xs2.contiguous(), *self._scan_weights(),
-                                    clamp=pick_group(B, C) > 1)
+                                    clamp=not self.xla and pick_group(B, C) > 1)
                 y = (y2[:, 0].reshape(B, C, H, W)
                      + y2[:, 1].reshape(B, C, W, H).transpose(2, 3)).float()
             elif self.scans == 3:

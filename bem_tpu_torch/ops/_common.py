@@ -6,6 +6,8 @@ CPU; for CUDA tensors it launches the kernel or raises. Nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
@@ -71,3 +73,31 @@ def ref_grads(need, fn, g, inputs):
         wrt = [t for t, n in zip(ins, need) if t is not None and n]
         grads = iter(torch.autograd.grad(fn(*ins), wrt, g) if wrt else ())
     return [next(grads) if t is not None and n else None for t, n in zip(ins, need)]
+
+
+class FlopTally:
+    """What ``analysis.count_flops`` counts of the kernel wrappers' work:
+    ``seen``, the FLOPs its FlopCounterMode ``counter`` saw inside them
+    (their plain versions' matmuls on the CPU, none where a kernel runs),
+    and ``stated``, the FLOPs the wrappers state for the same work."""
+
+    def __init__(self, counter):
+        self.counter, self.seen, self.stated = counter, 0, 0
+
+
+FLOP_TALLIES: list = []  # the open tallies, innermost last
+
+
+@contextlib.contextmanager
+def counted_as(flops: int):
+    """Count the enclosed work as ``flops`` in the open tally, if any, in
+    place of what FlopCounterMode sees of it: the count then does not
+    depend on whether a kernel or its plain version ran."""
+    if not FLOP_TALLIES:
+        yield
+        return
+    tally = FLOP_TALLIES[-1]
+    before = tally.counter.get_total_flops()
+    yield
+    tally.seen += tally.counter.get_total_flops() - before
+    tally.stated += flops

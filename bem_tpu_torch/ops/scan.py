@@ -32,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from ._common import on_cuda, ptr, softplus
+from ._common import counted_as, on_cuda, ptr, softplus
 
 SCAN_THREADS = 256  # threads of a block of either form
 SCAN_SEG = 16       # positions a thread of the look-back form holds (kScanSeg)
@@ -174,7 +174,10 @@ def selective_scan(u, delta, A, B, C, D=None, delta_bias=None, delta_softplus: b
     (KD, N); B, C (Bt, L, K, N), shared over the KD / K channels of each
     group; D, delta_bias (KD,). Everything in fp32, the recurrence on
     :func:`linear_scan` (the kernel for CUDA tensors); returns y (Bt, L,
-    KD) fp32 whatever the inputs' dtype."""
+    KD) fp32 whatever the inputs' dtype. ``analysis.count_flops`` counts it
+    as the reference's estimate (``flops_selective_scan``)."""
+    from ..analysis.flops_param import flops_selective_scan
+
     Bt, L, KD = u.shape
     K, N = B.shape[-2:]
     u, delta, A, B, C = (t.float() for t in (u, delta, A, B, C))
@@ -182,11 +185,12 @@ def selective_scan(u, delta, A, B, C, D=None, delta_bias=None, delta_softplus: b
         delta = delta + delta_bias.float()
     if delta_softplus:
         delta = softplus(delta)
-    a = torch.exp(delta[..., None] * A)                              # (Bt, L, KD, N)
-    # B and C broadcast over each group's KD / K channels (bem_tpu repeats them)
-    b = (delta * u).reshape(Bt, L, K, KD // K, 1) * B[:, :, :, None]
-    h = linear_scan(a.reshape(Bt, L, KD * N), b.reshape(Bt, L, KD * N))
-    y = (h.reshape(Bt, L, K, KD // K, N) * C[:, :, :, None]).sum(-1).reshape(Bt, L, KD)
+    with counted_as(flops_selective_scan(Bt, L, KD, N, with_D=D is not None)):
+        a = torch.exp(delta[..., None] * A)                          # (Bt, L, KD, N)
+        # B and C broadcast over each group's KD / K channels (bem_tpu repeats them)
+        b = (delta * u).reshape(Bt, L, K, KD // K, 1) * B[:, :, :, None]
+        h = linear_scan(a.reshape(Bt, L, KD * N), b.reshape(Bt, L, KD * N))
+        y = (h.reshape(Bt, L, K, KD // K, N) * C[:, :, :, None]).sum(-1).reshape(Bt, L, KD)
     if D is not None:
         y = y + u * D.float()
     return y

@@ -49,7 +49,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._common import check_stream, on_cuda, ptr, weight
+from ._common import check_stream, counted_as, on_cuda, ptr, weight
 from ._common import softplus as _softplus
 from .scan import linear_scan, scan_plain
 
@@ -317,12 +317,23 @@ class _DirFused(torch.autograd.Function):
         return (*(d if n else None for d, n in zip(grads, ctx.needs_input_grad)), None)
 
 
+def dir_fused_flops(B: int, C: int, L: int, P: int, R: int, N: int) -> int:
+    """The FLOPs ``analysis.count_flops`` counts for one forward: the four
+    directions' x and dt projections (two a multiply-add) and the
+    reference's selective-scan estimate over their 4 C channels."""
+    from ..analysis.flops_param import flops_selective_scan
+
+    return 4 * 2 * B * L * C * (P + R) + flops_selective_scan(B, L, 4 * C, N)
+
+
 def ss2d_dir_fused(xs2, Wx, Wdt, bias, A, D, clamp: bool = False):
     """Fused SS2D directional core (see the module docstring). Returns y2
     (B, 2, C, L) in xs2.dtype; with ``clamp`` the -10 log-decay clamp of
     ss2d_dir_fused_g (its launches count on :func:`ss2d_dir_fused_g`).
     Differentiable; the gradient is of the unclamped function."""
-    return _DirFused.apply(xs2, Wx, Wdt, bias, A, D, bool(clamp))
+    B, _, C, L = xs2.shape
+    with counted_as(dir_fused_flops(B, C, L, Wx.shape[1], Wdt.shape[-1], A.shape[-1])):
+        return _DirFused.apply(xs2, Wx, Wdt, bias, A, D, bool(clamp))
 
 
 def ss2d_dir_fused_g(xs2, Wx, Wdt, bias, A, D):

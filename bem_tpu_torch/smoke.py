@@ -168,6 +168,17 @@ CASCADE_BATCHES = (2, 128)
 CLS_TRAIN_BATCH = 128
 CLS_BATCH_STAGES = (0, 2)
 SMALL_CLS_SHAPES = [("small 6x10 C24", 2, 24, 6, 10, 2, 16), ("small 5x7 C70", 1, 70, 5, 7, 3, 4)]
+# the model zoo at 256x256, B=1, fp32 (analysis/model_zoo): MambaIR's 36
+# SS2D cores, all one shape (B, d_inner, H, W, dt rank, d_state), on row 8
+# unclamped; and UVMNet's Mamba1D recurrences on row 7, (label, M, L, D):
+# in a DoubleConv of c channels, the pixel sequence's (1, 4096, 2c * 16) of
+# model1 / model2 and the channel sequence's (1, c, 8192 * 16) of model3
+# (d_model 4096), at its widest level (c = 1024) and a narrow one (c = 64)
+ZOO_DIR_SHAPES = [("MambaIR 256x256 C360", 1, 360, 256, 256, 12, 16)]
+ZOO_SCAN_SHAPES = [("UVMNet pixel seq c=1024", 1, 4096, 2 * 1024 * 16),
+                   ("UVMNet channel seq c=1024", 1, 1024, 8192 * 16),
+                   ("UVMNet pixel seq c=64", 1, 4096, 2 * 64 * 16),
+                   ("UVMNet channel seq c=64", 1, 64, 8192 * 16)]
 # the case whose numbers the summary reports: (label, dtype) per kernel
 HEADLINE = {name: ("IE-L0 448x640 C40", "bfloat16") for name in KERNELS}
 HEADLINE["linear_scan"] = ("train IE-L0 128x128 C40 bwd", "float32")
@@ -553,6 +564,25 @@ def _cascade_cases(device, seed=810):
                 yield Case("linear_scan", f"{label} B={B}" + (" rev" if rev else ""),
                            torch.float32, (a, b, rev), report=True)
             del a, b
+
+
+def _zoo_cases(device, seed=960):
+    """Row 8 at ZOO_DIR_SHAPES (fp32, on _cls_stream's inputs with the clamp
+    probe: it must fail against the clamped function) and linear_scan at
+    ZOO_SCAN_SHAPES (decays of the selective scan's range, forward only,
+    as Mamba1D runs it), each a path shape with its bound."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    for label, B, C, H, W, R, N in ZOO_DIR_SHAPES:
+        xs2, probe = _cls_stream(rng, B, C, H, W, device)
+        yield Case("ss2d_dir_fused", label, torch.float32,
+                   (t(xs2), *_fused_weights(rng, C, R, N, t)), probe, report=True)
+        del xs2, probe
+    for label, M, L, D in ZOO_SCAN_SHAPES:
+        a = t(_scan_decays(rng, (M, L, D), 0.0, 11.0))
+        b = t(rng.standard_normal((M, L, D), dtype=np.float32))
+        yield Case("linear_scan", label, torch.float32, (a, b, False), report=True)
+        del a, b
 
 
 def _train_carry_cases(device, seed=770, shapes=FLAGSHIP_TRAIN_SHAPES):
@@ -1029,7 +1059,8 @@ def kernel_cases(small: bool = False, device="cuda"):
     shapes (fp32) and at the speed test's 2048x2048 levels (fp32 and bf16),
     linear_scan at the serving, eval, flagship and speed-test carries, at
     the flagship training's backward recompute shape and at the cascade
-    SS2D's shapes (CASCADE_SHAPES), and the microbenchmarks
+    SS2D's shapes (CASCADE_SHAPES), rows 7 and 8 at the model zoo's
+    (ZOO_DIR_SHAPES, ZOO_SCAN_SHAPES), and the microbenchmarks
     at the tool's shapes; or at tiny shapes (``small``). Yields them a shape
     at a time, so the card holds one shape's inputs at once."""
     shapes = SMALL_SHAPES if small else PATH_SHAPES + TRAIN_SHAPES
@@ -1058,6 +1089,7 @@ def kernel_cases(small: bool = False, device="cuda"):
         yield from _train_carry_cases(device)
         yield from _train_carry_cases(device, 790, SPEED_SHAPES[:1])
         yield from _cascade_cases(device)
+        yield from _zoo_cases(device)
     for i, shape in enumerate(SMALL_CLS_SHAPES if small else CLS_SHAPES):
         yield from _cls_cases(*shape, device, seed=300 + i)
         yield from _scan_fused_cases(*shape, device, seed=500 + 4 * i)

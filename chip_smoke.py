@@ -256,6 +256,19 @@ result line):
      coefficients within 1e-3 of a rounding tie) and the device USM (1e-5
      away from pixels whose sharpening mask flips), card vs CPU, each with
      its time on the card; no kernel of the port launches;
+ 14e. the model zoo (bem_tpu_torch.analysis.model_zoo) at full width, the
+     nine baselines from their builders (seeded, the reference's comparison
+     configs: EDSR, RCAN, HWMNet, LLFormer, RetinexFormer, UVMNet, MambaIR,
+     SwinIR, HAT), fp32 with TF32 off: each net's output on the card
+     against the port on the CPU at 32x32 (UVMNet at its fixed 64x64
+     working size), within 2e-4 of max(1, |CPU|), and count_flops equal on
+     both devices; then at 256x256, B=1, no gradient: the parameters,
+     FLOPs, images/s through analysis.throughput (1 warm-up + 5 timed
+     forwards) and peak memory, with that run's launches: row 8 must
+     launch for MambaIR (its SS2D with scan_backend "xla", never clamped)
+     and row 7 for UVMNet (Mamba1D's selective scan); rows 7 and 8 are
+     also held against their plain versions at these nets' shapes in the
+     kernels' phase (smoke.ZOO_DIR_SHAPES, smoke.ZOO_SCAN_SHAPES);
  15. the microbenchmarks (bem_tpu_torch.tools.microbench_vpu): the lanes /
      npass sweep and the four modes, each line as the tool prints it.
 The kernels' phase also holds the three classifier kernels (the fused core,
@@ -302,7 +315,8 @@ import time
 import numpy as np
 import torch
 
-from bem_tpu_torch import _build, smoke
+from bem_tpu_torch import _build, analysis, smoke
+from bem_tpu_torch.analysis import model_zoo
 from bem_tpu_torch.archs import build_network
 from bem_tpu_torch.convert import load_flax_params, state_dict_to_flax
 from bem_tpu_torch.classification import build_model_from_config, get_config, make_trainer
@@ -2546,6 +2560,70 @@ def _usm_check(gt, card):
         raise AssertionError("usm_sharp_torch: the card disagrees with the CPU")
 
 
+# phase 14e: the model zoo (analysis/model_zoo) at full width: card vs CPU
+# at ZOO_CPU_SIZE (UVMNet at its fixed 64x64 working size), then each net at
+# ZOO_SIZE, B = 1, fp32, TF32 off, no gradient
+ZOO_SIZE = 256
+ZOO_CPU_SIZE = 32
+ZOO_ITERS = 5  # throughput(): timed forwards after one warm-up
+ZOO_TOL = 2e-4  # of max(1, |CPU|)
+ZOO_KERNELS = {"MambaIR": ("ss2d_dir_fused",), "UVMNet": ("linear_scan",)}
+
+
+def zoo_phase(card: str):
+    """Each of the nine baselines from its builder (seeded, the reference's
+    comparison config): its output on the card against the port on the CPU
+    at ZOO_CPU_SIZE (UVMNet 64x64), and count_flops equal on both devices;
+    then at ZOO_SIZE the parameters, FLOPs (count_flops), images/s
+    (analysis.throughput) and peak memory, with the launches of that run:
+    rows 8 (MambaIR) and 7 (UVMNet) must launch. Returns the launches of
+    the full-width runs."""
+    totals = dict.fromkeys(smoke.KERNELS, 0)
+    for name, build in model_zoo.BUILDERS.items():
+        t0 = time.perf_counter()
+        net = build(device="cpu")
+        size = 64 if name == "UVMNet" else ZOO_CPU_SIZE
+        gen = torch.Generator().manual_seed(0)
+        x = torch.rand(1, 3, size, size, generator=gen)
+        outs = []
+        cpu_flops = analysis.count_flops(lambda t: outs.append(net(t)), x)["flops"]
+        t_cpu = time.perf_counter() - t0
+        net.to("cuda")
+        card_flops = analysis.count_flops(lambda t: outs.append(net(t)), x.to("cuda"))["flops"]
+        ref, got = outs[0], outs[1].cpu()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: card output {tuple(got.shape)} vs {tuple(ref.shape)}")
+        err = (got - ref).abs().max().item()
+        tol = ZOO_TOL * max(1.0, ref.abs().max().item())
+        print(f"zoo {name:13s} card vs CPU at {size}x{size}: max_abs_err {err:.3e} tol {tol:.3e} "
+              f"{'ok' if err <= tol else 'FAIL'}; count_flops card {card_flops:.6e} CPU "
+              f"{cpu_flops:.6e} (CPU forward {t_cpu:.1f} s)", flush=True)
+        if err > tol or card_flops != cpu_flops:
+            raise AssertionError(f"{name}: card vs CPU {err} > {tol} or FLOPs "
+                                 f"{card_flops} != {cpu_flops}")
+        del outs, ref, got
+        x = torch.rand(1, 3, ZOO_SIZE, ZOO_SIZE, generator=gen).to("cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        smoke.reset_launch_counts()
+        ips = analysis.throughput(net, x, iters=ZOO_ITERS, warmup=1)
+        flops = analysis.count_flops(net, x)["flops"]
+        counts = smoke.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"zoo {name:13s} {ZOO_SIZE}x{ZOO_SIZE} B=1 fp32 TF32 off: params "
+              f"{analysis.count_params(net)}, FLOPs {flops:.6e}, {ips:.3f} images/s, peak "
+              f"{peak:.2f} GiB; launches {launched} ({card}; {time.perf_counter() - t0:.1f} s)",
+              flush=True)
+        if any(counts[k] <= 0 for k in ZOO_KERNELS.get(name, ())):
+            raise AssertionError(f"{name}: a kernel of its path never launched: {counts}")
+        for k, v in counts.items():
+            totals[k] += v
+        del net, x
+        torch.cuda.empty_cache()
+    return totals
+
+
 def realesrgan_phase(card: str):
     """Phase 14d: RealESRGANDataset at the published x4plus degradation
     settings (smoke.REALESRGAN_X4PLUS) over 8 seeded files of about
@@ -2723,6 +2801,10 @@ def main() -> int:
         realesrgan_phase(card)
     finally:
         shutil.rmtree(REALESRGAN_DIR, ignore_errors=True)
+    phase("model zoo at full width")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the zoo's comparisons run with TF32 off")
+    zoo_counts = zoo_phase(card)
     phase("microbenchmarks")
     mb_counts = microbench_phase()
     # each kernel's launches over the runs of its own paths: the BEM kernels
@@ -2730,14 +2812,16 @@ def main() -> int:
     # training, VMUNet family, image formats, speed test and option-set runs, the fused core and its backward over VMamba-T's, the
     # clamped form over the narrow reference runs, selective_scan_fused over
     # VMamba-T v052d's, the SS2D modes' over their checks and VMamba-T
-    # v052dc_noz's, the classifier CLI's over its three runs, the
-    # microbenchmarks over their sweeps
+    # v052dc_noz's, the classifier CLI's over its three runs, rows 7 and 8
+    # also over the model zoo's full-width runs, the microbenchmarks over
+    # their sweeps
     paths = {name: (train_counts, cli_counts, serve_counts, eval_counts, flagship_counts,
                     flagship_train_counts, vmunet_counts, formats_counts, speed_counts,
                     options_counts)
              for name in smoke.BEM_KERNELS}
-    paths["linear_scan"] += (modes_counts, cascade_counts, cls_cli_counts)
-    paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts, modes_counts, cls_cli_counts),
+    paths["linear_scan"] += (modes_counts, cascade_counts, cls_cli_counts, zoo_counts)
+    paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts, modes_counts, cls_cli_counts,
+                                 zoo_counts),
                  ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts, modes_counts,
                                      cls_cli_counts),
                  ss2d_dir_fused_g=(cls_ref_counts, modes_counts, cls_cli_counts),
