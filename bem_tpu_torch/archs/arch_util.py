@@ -1,7 +1,8 @@
 """U-Net building blocks, NCHW: counterpart of bem_tpu/archs/arch_util.py
 (PatchMerging, DualUpSample, ConvDown, DeconvUp, SAM with its DB and CSAF;
 the Decomp family's CrossFusionBlock, SEBlock, SpatialAttention; the model
-zoo's ResidualBlockNoBN and Upsample; LN2DLinear)."""
+zoo's ResidualBlockNoBN and Upsample; LN2DLinear; BasicSR's EDVR-era
+``flow_warp`` and ``DCNv2Pack``)."""
 
 from __future__ import annotations
 
@@ -282,3 +283,52 @@ class Upsample(nn.Module):
         for i, r in enumerate(self.factors):
             x = pixel_shuffle_cf(getattr(self, f"conv_{i}")(x), r)
         return x
+
+
+def flow_warp(x: torch.Tensor, flow: torch.Tensor, padding_mode: str = "zeros") -> torch.Tensor:
+    """x (B, C, H, W) warped by ``flow`` (B, H, W, 2), (dx, dy) in pixels:
+    each output pixel the bilinear sample of x at its position plus its
+    flow, zero outside (bem_tpu arch_util.py:314). ``padding_mode`` is
+    accepted and ignored, as in bem_tpu."""
+    from ..ops.legacy import bilinear_gather
+
+    B, C, H, W = x.shape
+    gy, gx = torch.meshgrid(torch.arange(H, dtype=flow.dtype, device=flow.device),
+                            torch.arange(W, dtype=flow.dtype, device=flow.device),
+                            indexing="ij")
+    ys = (gy[None] + flow[..., 1]).reshape(B, H * W)
+    xs = (gx[None] + flow[..., 0]).reshape(B, H * W)
+    return bilinear_gather(x, ys, xs).reshape(B, C, H, W)
+
+
+class DCNv2Pack(nn.Module):
+    """Modulated deformable conv whose offsets and mask a zero-initialized
+    conv computes from ``feat`` (bem_tpu arch_util.py:327): its output
+    splits in three, the first two interleaved into (dy, dx) pairs, the
+    third through a sigmoid. ``weight`` (out, in, k, k) is bem_tpu's HWIO
+    ``kernel``, ``bias`` its bias."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 deform_groups: int = 1, feat_channels: int = None):
+        super().__init__()
+        k = kernel_size
+        self.kernel_size, self.deform_groups = k, deform_groups
+        self.conv_offset = Conv2d(feat_channels or in_channels, deform_groups * 3 * k * k, k,
+                                  padding=k // 2, weight_init="zeros", zero_bias=True)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, k, k))
+        self.bias = nn.Parameter(torch.empty(out_channels))
+
+    @torch.no_grad()
+    def reset_parameters(self, gen):
+        fan_in = self.weight.shape[1] * self.kernel_size ** 2
+        init.torch_default_(self.weight, fan_in, gen)
+        init.torch_default_(self.bias, fan_in, gen)
+
+    def forward(self, x, feat):
+        from ..ops.legacy import modulated_deform_conv2d
+
+        o1, o2, mask = self.conv_offset(feat).chunk(3, dim=1)
+        offset = torch.stack([o1, o2], 2).flatten(1, 2)
+        return modulated_deform_conv2d(x, offset, torch.sigmoid(mask), self.weight, self.bias,
+                                       stride=1, padding=self.kernel_size // 2,
+                                       deform_groups=self.deform_groups)

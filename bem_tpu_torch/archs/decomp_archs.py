@@ -51,13 +51,13 @@ class VSSLevel(nn.Module):
     """num_blocks VSSBlocks at one scale (children ``block_{i}``)."""
 
     def __init__(self, dim: int, num_blocks: int, d_state: int = 1, ssm_ratio: float = 1,
-                 mlp_ratio: float = 4, mlp_type: str = "gdmlp"):
+                 mlp_ratio: float = 4, mlp_type: str = "gdmlp", scan_backend=None):
         super().__init__()
         self.num_blocks = num_blocks
         for i in range(num_blocks):
             self.add_module(f"block_{i}", VSSBlock(
                 dim, ssm_d_state=d_state, ssm_ratio=ssm_ratio, mlp_ratio=mlp_ratio,
-                forward_type="v05_noz", mlp_type=mlp_type))
+                forward_type="v05_noz", mlp_type=mlp_type, scan_backend=scan_backend))
 
     def forward(self, x):
         for i in range(self.num_blocks):
@@ -73,12 +73,13 @@ class _UNetParts:
     "_Q2" for the dual branch, "" / "2" for DecompDualBranch."""
 
     def _setup_unet(self, n_feat=40, num_blocks=(2, 2, 2), d_state=1, ssm_ratio=1,
-                    mlp_ratio=4, mlp_type="gdmlp", last_act=None):
+                    mlp_ratio=4, mlp_type="gdmlp", last_act=None, scan_backend=None):
         self.n_feat, self.num_blocks = n_feat, tuple(num_blocks)
         self.levels = len(self.num_blocks)
         self.d_state = _d_state_list(d_state, self.levels)
         self.last_act = last_act
-        self.common = dict(ssm_ratio=ssm_ratio, mlp_ratio=mlp_ratio, mlp_type=mlp_type)
+        self.common = dict(ssm_ratio=ssm_ratio, mlp_ratio=mlp_ratio, mlp_type=mlp_type,
+                           scan_backend=scan_backend)
 
     def _level(self, dim, i):
         return VSSLevel(dim, self.num_blocks[i], self.d_state[i], **self.common)
@@ -169,14 +170,15 @@ class _DecompArchBase(nn.Module):
                  d_state: Union[int, Sequence[int]] = 1, ssm_ratio: float = 1,
                  mlp_ratio: float = 4, mlp_type: str = "gdmlp", use_pixelshuffle: bool = False,
                  drop_path: float = 0.0, use_illu: bool = False, sam: bool = False,
-                 last_act: Optional[str] = None, decomp_model: str = "model1"):
+                 last_act: Optional[str] = None, decomp_model: str = "model1",
+                 scan_backend=None):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
         self.decomp_model = decomp_model
         self.decomp = Decomp(decomp_model, smooth=self.post_smooth)
         self.unet_kwargs = dict(n_feat=n_feat, num_blocks=num_blocks, d_state=d_state,
                                 ssm_ratio=ssm_ratio, mlp_ratio=mlp_ratio, mlp_type=mlp_type,
-                                last_act=last_act)
+                                last_act=last_act, scan_backend=scan_backend)
 
     @torch.no_grad()
     def load_frozen(self):

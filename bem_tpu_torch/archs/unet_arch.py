@@ -34,13 +34,15 @@ class BasicBlock(nn.Module):
 
     def __init__(self, dim: int, num_blocks: int = 2, d_state: int = 1,
                  ssm_ratio: float = 1, mlp_ratio: float = 4, mlp_type: str = "gdmlp",
-                 sam: bool = False, bayesian: bool = False, sigma_init: float = 0.05):
+                 sam: bool = False, bayesian: bool = False, sigma_init: float = 0.05,
+                 scan_backend=None):
         super().__init__()
         self.num_blocks, self.sam = num_blocks, sam
         for i in range(num_blocks):
             self.add_module(f"blocks_{i}", VSSBlock(
                 dim, ssm_d_state=d_state, ssm_ratio=ssm_ratio, mlp_ratio=mlp_ratio,
-                bayesian=bayesian, sigma_init=sigma_init, mlp_type=mlp_type))
+                bayesian=bayesian, sigma_init=sigma_init, mlp_type=mlp_type,
+                scan_backend=scan_backend))
             if sam:
                 self.add_module(f"sam_blocks_{i}", SAM(dim))
 
@@ -59,14 +61,15 @@ class SubNetwork(nn.Module):
                  d_state: Union[int, Sequence[int]] = 1, ssm_ratio: float = 1,
                  mlp_ratio: float = 4, bayesian: bool = False,
                  sigma_init: float = 0.05, mlp_type: str = "gdmlp",
-                 use_pixelshuffle: bool = False, drop_path: float = 0.0, sam: bool = False):
+                 use_pixelshuffle: bool = False, drop_path: float = 0.0, sam: bool = False,
+                 scan_backend=None):
         super().__init__()
         self.level = level = len(num_blocks) - 1
         self.use_pixelshuffle = use_pixelshuffle
         if isinstance(d_state, int):
             d_state = [d_state] * len(num_blocks)
         common = dict(ssm_ratio=ssm_ratio, mlp_ratio=mlp_ratio, mlp_type=mlp_type, sam=sam,
-                      bayesian=bayesian, sigma_init=sigma_init)
+                      bayesian=bayesian, sigma_init=sigma_init, scan_backend=scan_backend)
         curr = dim
         for i in range(level):
             self.add_module(f"enc_{i}", BasicBlock(curr, num_blocks[i], d_state[i], **common))
@@ -116,7 +119,8 @@ class Network(nn.Module):
     forward(x NHWC) -> [x, out NHWC], like the reference's out_list.
     ``last_act`` "relu" or "softmax" (over the channels) ends each stage;
     any other value adds nothing, and ``use_illu`` is read and ignored, as
-    in bem_tpu.
+    in bem_tpu. ``scan_backend`` "xla" / "ref" takes bem_tpu's unfused
+    route in every VSSBlock (see :class:`~bem_tpu_torch.nn.vss.VSSBlock`).
     """
 
     def __init__(self, in_channels: int = 3, out_channels: int = 3, n_feat: int = 40,
@@ -125,7 +129,7 @@ class Network(nn.Module):
                  mlp_ratio: float = 4, mlp_type: str = "gdmlp",
                  use_pixelshuffle: bool = False, bayesian: bool = False,
                  sigma_init: float = 0.05, last_act=None, drop_path: float = 0.0,
-                 sam: bool = False, use_illu: bool = False):
+                 sam: bool = False, use_illu: bool = False, scan_backend=None):
         super().__init__()
         self.stage, self.last_act = stage, last_act
         self.first_conv = Conv2d(in_channels, n_feat, 3, padding=1,
@@ -134,7 +138,7 @@ class Network(nn.Module):
         for i in range(stage):
             self.add_module(f"subnets_{i}", SubNetwork(
                 n_feat, num_blocks, d_state, ssm_ratio, mlp_ratio, bayesian, sigma_init,
-                mlp_type, use_pixelshuffle, drop_path, sam))
+                mlp_type, use_pixelshuffle, drop_path, sam, scan_backend))
         self.proj = Conv2d(n_feat, out_channels, 3, padding=1, zero_bias=True)
 
     def reset_parameters(self, gen):

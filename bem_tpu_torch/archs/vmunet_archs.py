@@ -42,11 +42,11 @@ class _BranchNet(_UNetParts, nn.Module):
                  d_state: Union[int, Sequence[int]] = 1, ssm_ratio: float = 1,
                  mlp_ratio: float = 4, mlp_type: str = "gdmlp", use_pixelshuffle: bool = False,
                  drop_path: float = 0.0, use_illu: bool = False, sam: bool = False,
-                 last_act: Optional[str] = None):
+                 last_act: Optional[str] = None, scan_backend=None):
         super().__init__()
         self._setup_unet(n_feat=n_feat, num_blocks=num_blocks, d_state=d_state,
                          ssm_ratio=ssm_ratio, mlp_ratio=mlp_ratio, mlp_type=mlp_type,
-                         last_act=last_act)
+                         last_act=last_act, scan_backend=scan_backend)
         self.out_channels = out_channels
         for tag in self.branches:
             self.dim = self._add_encoder(in_channels, tag)

@@ -21,6 +21,8 @@ bem_tpu/archs/convert_network.py applied in reverse:
 - the ``batch_stats`` collection's ``mean`` / ``var`` (flax BatchNorm,
   the model zoo's UVMNet) <-> the ``running_mean`` / ``running_var``
   buffers;
+- ``DCNv2Pack``'s own HWIO ``kernel`` and ``bias`` (beside its
+  ``conv_offset`` conv) by the same rules as a conv's;
 - a module class with a ``flax_leaf_names`` mapping (the model zoo's
   LayerNormLast, MeanShift, BatchNormInference) keeps its leaves in
   bem_tpu's layout: each is renamed by the mapping, else left as it is

@@ -26,17 +26,13 @@ from .realesrgan_dataset import RealESRGANDataset
 from .realesrgan_paired_dataset import RealESRGANPairedDataset
 from .sid_image_dataset import Dataset_SIDImage
 from .single_image_dataset import SingleImageDataset
+from .video_datasets import VIDEO_DATASETS
 
-DATASETS = {cls.__name__: cls for cls in (
+DATASETS = {**{cls.__name__: cls for cls in (
     Dataset_PairedImage, Dataset_PairedImage_Mask, Dataset_PairedImage_Slide,
     Dataset_PairedImage_Norm, Dataset_DefocusDeblur_DualPixel_16bit, PairedImageDataset,
     SingleImageDataset, Dataset_GaussianDenoising, FFHQDataset, Dataset_SIDImage,
-    RealESRGANDataset, RealESRGANPairedDataset)}
-# bem_tpu's other registered datasets (data/video_datasets.py), not ported yet
-_REFUSED = {name: "a video dataset" for name in (
-    "REDSDataset", "Vimeo90KDataset", "VideoTestDataset", "REDSRecurrentDataset",
-    "Vimeo90KRecurrentDataset", "VideoTestVimeo90KDataset", "VideoTestDUFDataset",
-    "VideoRecurrentTestDataset")}
+    RealESRGANDataset, RealESRGANPairedDataset)}, **VIDEO_DATASETS}
 
 __all__ = ["build_dataset", "build_dataloader", "EnlargedSampler", "DataLoader",
            "CPUPrefetcher", "DevicePrefetcher", *DATASETS]
@@ -44,8 +40,7 @@ __all__ = ["build_dataset", "build_dataloader", "EnlargedSampler", "DataLoader",
 
 def build_dataset(dataset_opt: Dict[str, Any]):
     if dataset_opt["type"] not in DATASETS:
-        why = _REFUSED.get(dataset_opt["type"], "unknown")
-        raise NotImplementedError(f"dataset {dataset_opt['type']} is not ported ({why}; "
+        raise NotImplementedError(f"dataset {dataset_opt['type']} is not ported (unknown; "
                                   f"ported: {sorted(DATASETS)})")
     return DATASETS[dataset_opt["type"]](dict(dataset_opt))
 

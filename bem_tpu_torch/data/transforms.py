@@ -43,10 +43,14 @@ def paired_random_crop(img_gts, img_lqs, gt_patch_size: int, scale: int, gt_path
     return (img_gts[0] if squeeze_gt else img_gts), (img_lqs[0] if squeeze_lq else img_lqs)
 
 
-def augment(imgs, hflip: bool = True, rotation: bool = True, rng: np.random.Generator = None):
+def augment(imgs, hflip: bool = True, rotation: bool = True, flows=None,
+            return_status: bool = False, rng: np.random.Generator = None):
     """hflip, vflip and a transpose, each with p = 0.5 and drawn in that
-    order, applied alike to every image (transforms.py:57; flow maps are
-    not ported)."""
+    order, applied alike to every image and to every (H, W, 2) flow map in
+    ``flows`` (transforms.py:57): flipping a flow negates the flipped
+    component, the transpose swaps dx and dy. Returns the images, then the
+    flows where given, else the (hflip, vflip, rot90) status where
+    ``return_status``."""
     rng = rng or np.random.default_rng()
     hflip = hflip and rng.random() < 0.5
     vflip = rotation and rng.random() < 0.5
@@ -61,9 +65,27 @@ def augment(imgs, hflip: bool = True, rotation: bool = True, rng: np.random.Gene
             img = img.transpose(1, 0, 2) if img.ndim == 3 else img.T
         return np.ascontiguousarray(img)
 
-    squeeze = not isinstance(imgs, list)
-    out = [_augment(i) for i in ([imgs] if squeeze else imgs)]
-    return out[0] if squeeze else out
+    def _augment_flow(flow):
+        flow = np.array(flow, copy=True)
+        if hflip:
+            flow = flow[:, ::-1]
+            flow[:, :, 0] = -flow[:, :, 0]
+        if vflip:
+            flow = flow[::-1, :]
+            flow[:, :, 1] = -flow[:, :, 1]
+        if rot90:
+            flow = flow.transpose(1, 0, 2)[:, :, [1, 0]]
+        return np.ascontiguousarray(flow)
+
+    def _each(fn, xs):
+        return fn(xs) if not isinstance(xs, list) else [fn(x) for x in xs]
+
+    imgs = _each(_augment, imgs)
+    if flows is not None:
+        return imgs, _each(_augment_flow, flows)
+    if return_status:
+        return imgs, (hflip, vflip, rot90)
+    return imgs
 
 
 def data_augmentation(image: np.ndarray, mode: int) -> np.ndarray:

@@ -109,6 +109,19 @@ class AdamWChain:
         return lr
 
 
+def grad_logs(tree: dict, path: tuple = ()) -> Dict[str, float]:
+    """``grads/<k1|k2|...>``: the mean |g| of each leaf of a flax-layout
+    gradient tree, in jax's flattening order (sorted keys)."""
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(grad_logs(v, path + (k,)))
+        else:
+            out["grads/" + "|".join(path + (k,))] = float(np.abs(v).mean(dtype=np.float64))
+    return out
+
+
 class BaseModel:
     """Shared trainer skeleton; subclasses define ``train_step``.
 
@@ -186,8 +199,12 @@ class BaseModel:
                 for k, g in zip(names, gs)}
 
     def _apply_updates(self, grads, aux):
-        """One optimizer step (+ EMA of the params); logs grad_norm and lr."""
+        """One optimizer step (+ EMA of the params); logs grad_norm and lr,
+        and with ``logger.record_grad`` a ``grads/<path>`` mean |grad| for
+        each parameter under bem_tpu's path names (base_model.py:202-210)."""
         aux["grad_norm"] = global_norm(grads.values()).detach()
+        if self.opt.get("logger", {}).get("record_grad", False):
+            aux.update(grad_logs(self._flax(grads)))
         aux["lr"] = self.optimizer.step(self.params, grads)
         if self.ema_params is not None:
             d = self.ema_decay

@@ -70,11 +70,14 @@ class FFNv02(nn.Module):
 
 
 class GDMlp(nn.Module):
-    """1x1 -> dw3x3 -> chunk -> GELU(x1)*x2 -> 1x1, as one kernel call."""
+    """1x1 -> dw3x3 -> chunk -> GELU(x1)*x2 -> 1x1, as one kernel call; with
+    ``fused=False`` as three convs, each rounding its output to the stream
+    dtype (bem_tpu's NHWC route, vss.py:96-102)."""
 
     def __init__(self, in_features: int, hidden_features: int, out_features: int,
-                 bayesian: bool = False, sigma_init: float = 0.05):
+                 bayesian: bool = False, sigma_init: float = 0.05, fused: bool = True):
         super().__init__()
+        self.fused = fused
         h = hidden_features
         bayes = dict(bayesian=bayesian, sigma_init=sigma_init)
         self.project_in = Conv2d(in_features, 2 * h, 1, **bayes)
@@ -85,6 +88,9 @@ class GDMlp(nn.Module):
         """x (B, C, H*W) flat channel-first with hw=(H, W) -> (B, out_features,
         H*W); or a (B, C, H, W) map -> (B, out_features, H, W), the unfolded
         block's form (no LN, no residual)."""
+        if not self.fused:
+            x1, x2 = self.dwconv(self.project_in(x)).chunk(2, dim=1)
+            return self.project_out(F.gelu(x1) * x2)
         if x.dim() == 4:
             B, C, H, W = x.shape
             out = self(x.reshape(B, C, H * W).contiguous(), (H, W))
@@ -113,7 +119,10 @@ class VSSBlock(nn.Module):
     branch in the backward (torch.utils.checkpoint). ``ssm_drop_rate`` and
     ``ssm_init`` are the SS2D's dropout and init; ``mlp_drop_rate`` is
     accepted and unused, as in bem_tpu (vss.py:178). ``ssm_ratio`` 0 drops
-    the SS2D branch, ``mlp_ratio`` 0 the MLP's."""
+    the SS2D branch, ``mlp_ratio`` 0 the MLP's. ``scan_backend`` "xla" /
+    "ref" takes bem_tpu's XLA route (vss.py:185): the SS2D's unfused stem
+    and unclamped core, and the gdMlp as three convs, so the block runs
+    unfolded."""
 
     def __init__(self, hidden_dim: int, ssm_d_state: int = 1,
                  ssm_ratio: float = 1.0, mlp_ratio: float = 4.0,
@@ -122,7 +131,7 @@ class VSSBlock(nn.Module):
                  ssm_conv_bias: bool = False, forward_type: str = "v05_noz",
                  mlp_type: str = "gdmlp", ssm_drop_rate: float = 0.0, ssm_init: str = "v0",
                  mlp_drop_rate: float = 0.0, post_norm: bool = False, grid_size=None,
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, scan_backend=None):
         super().__init__()
         bayes = dict(bayesian=bayesian, sigma_init=sigma_init)
         self.post_norm, self.grid_size, self.use_checkpoint = post_norm, grid_size, use_checkpoint
@@ -132,11 +141,13 @@ class VSSBlock(nn.Module):
             self.op = SS2D(hidden_dim, d_state=ssm_d_state, ssm_ratio=ssm_ratio,
                            forward_type=forward_type, dt_rank=ssm_dt_rank, d_conv=ssm_conv,
                            conv_bias=ssm_conv_bias, dropout=ssm_drop_rate, initialize=ssm_init,
-                           **bayes)
+                           scan_backend=scan_backend, **bayes)
             self.fold = (mlp_type == "gdmlp" and not drop_path and self.op.fused_core
                          and ssm_conv == 3 and not post_norm and not grid_size)
         if mlp_ratio > 0:
             self.norm2 = LayerNorm2d(hidden_dim)
+            if mlp_type == "gdmlp":
+                bayes["fused"] = scan_backend not in ("xla", "ref")
             self.mlp = _MLPS[mlp_type](hidden_dim, int(hidden_dim * mlp_ratio), hidden_dim,
                                        **bayes)
         self.drop_path = DropPath(drop_path)

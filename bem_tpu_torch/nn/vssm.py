@@ -53,7 +53,8 @@ class VSSM(nn.Module):
                  ssm_init: str = "v0", forward_type: str = "v05_noz", mlp_ratio: float = 4.0,
                  mlp_drop_rate: float = 0.0, gmlp: bool = False, drop_path_rate: float = 0.1,
                  patch_norm: bool = True, downsample_version: str = "v2",
-                 patchembed_version: str = "v1", posembed: bool = False, imgsize: int = 224):
+                 patchembed_version: str = "v1", posembed: bool = False, imgsize: int = 224,
+                 scan_backend=None):
         super().__init__()
         dims = [dims * 2 ** i for i in range(len(depths))] if isinstance(dims, int) else list(dims)
         self.patchembed_version, self.use_patch_norm = patchembed_version, patch_norm
@@ -86,7 +87,7 @@ class VSSM(nn.Module):
                     mlp_ratio=mlp_ratio, drop_path=dpr[blk], ssm_dt_rank=ssm_dt_rank,
                     ssm_conv=ssm_conv, ssm_conv_bias=ssm_conv_bias, forward_type=forward_type,
                     mlp_type="gmlp" if gmlp else "mlp", ssm_drop_rate=ssm_drop_rate,
-                    ssm_init=ssm_init, mlp_drop_rate=mlp_drop_rate))
+                    ssm_init=ssm_init, mlp_drop_rate=mlp_drop_rate, scan_backend=scan_backend))
                 blk += 1
             if i < len(depths) - 1:
                 self._add_downsample(i, dims[i], dims[i + 1])

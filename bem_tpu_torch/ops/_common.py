@@ -83,6 +83,7 @@ class FlopTally:
 
     def __init__(self, counter):
         self.counter, self.seen, self.stated = counter, 0, 0
+        self.depth = 0  # open statements: only the outermost counts
 
 
 FLOP_TALLIES: list = []  # the open tallies, innermost last
@@ -93,11 +94,15 @@ def counted_as(flops: int):
     """Count the enclosed work as ``flops`` in the open tally, if any, in
     place of what FlopCounterMode sees of it: the count then does not
     depend on whether a kernel or its plain version ran."""
-    if not FLOP_TALLIES:
-        yield
+    if not FLOP_TALLIES or FLOP_TALLIES[-1].depth:
+        yield  # no tally, or a wrapper already stated the enclosing work
         return
     tally = FLOP_TALLIES[-1]
     before = tally.counter.get_total_flops()
-    yield
+    tally.depth += 1
+    try:
+        yield
+    finally:
+        tally.depth -= 1
     tally.seen += tally.counter.get_total_flops() - before
     tally.stated += flops

@@ -48,7 +48,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._common import (check_stream, layer_norm_c, on_cuda, ptr, ref_grads, round_bf16,
+from ._common import (check_stream, counted_as, layer_norm_c, on_cuda, ptr, ref_grads,
+                      round_bf16,
                       weight)
 
 
@@ -271,8 +272,11 @@ class _GdMlp(torch.autograd.Function):
 def stem_fused_cf(x, W1, b1, dw, bdw, H: int, Wd: int, lns=None, lnb=None):
     """SS2D stem. x (B, C, H*Wd); W1 (Dh, C); dw (Dh, 9); b1/bdw (Dh,) or None;
     lns/lnb (C,) fold the block's pre-LN in. Returns (B, Dh, H*Wd) in x.dtype.
-    Differentiable."""
-    return _Stem.apply(x, W1, b1, dw, bdw, H, Wd, lns, lnb)
+    Differentiable. ``count_flops`` counts its W1 product, as its plain
+    version's einsum (the depthwise taps are elementwise work)."""
+    B, C, L = x.shape
+    with counted_as(2 * B * L * W1.shape[0] * C):
+        return _Stem.apply(x, W1, b1, dw, bdw, H, Wd, lns, lnb)
 
 
 def gdmlp_fused_cf(x, W1, b1, dw, bdw, W2, b2, H: int, Wd: int, lns=None,
@@ -280,8 +284,10 @@ def gdmlp_fused_cf(x, W1, b1, dw, bdw, W2, b2, H: int, Wd: int, lns=None,
     """Fused gdMlp. x (B, C, H*Wd); W1 (2h, C); dw (2h, 9); W2 (Cout, h);
     biases (2h,)/(2h,)/(Cout,) or None; lns/lnb (C,) the folded pre-LN;
     residual adds x (Cout == C). Returns (B, Cout, H*Wd) in x.dtype.
-    Differentiable."""
-    return _GdMlp.apply(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, bool(residual))
+    Differentiable. ``count_flops`` counts its W1 and W2 products."""
+    B, C, L = x.shape
+    with counted_as(2 * B * L * (W1.shape[0] * C + W2.shape[0] * W2.shape[1])):
+        return _GdMlp.apply(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, bool(residual))
 
 
 stem_fused_cf.launches = 0

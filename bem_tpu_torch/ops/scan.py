@@ -159,10 +159,12 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, reverse: bool = False) -> torc
     """Inclusive scan of ``h_t = a_t * h_{t-1} + b_t`` along axis -2
     (``h_t = a_t * h_{t+1} + b_t`` when ``reverse``), walked natively in
     either direction. a, b: (..., L, D), fp32 for CUDA tensors. Returns h
-    with the same shape. Differentiable in a and b."""
-    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        return _LinearScan.apply(a, b, bool(reverse))
-    return _run(a, b, bool(reverse))
+    with the same shape. Differentiable in a and b. ``count_flops`` counts
+    it as 0, as its plain version (elementwise work)."""
+    with counted_as(0):
+        if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+            return _LinearScan.apply(a, b, bool(reverse))
+        return _run(a, b, bool(reverse))
 
 
 linear_scan.launches = 0

@@ -38,7 +38,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._common import check_stream, on_cuda, ptr, ref_grads, weight
+from ._common import check_stream, counted_as, on_cuda, ptr, ref_grads, weight
 from .scan import linear_scan, linear_scan_plain, scan_plain
 
 PAIRS = {"row": (0, 2), "col": (1, 3)}
@@ -80,6 +80,13 @@ def _dir_plain(x, Wx, Wdt, bias, A, D, reverse: bool):
         h = scan_plain(torch.exp(w[n]), b[n], reverse, dim=-1)
         y = y + xdbl[:, R + N + n:R + N + n + 1] * h
     return y
+
+
+def pair_flops(B: int, C: int, L: int, P: int, R: int) -> int:
+    """What ``count_flops`` counts for one pass over both directions of a
+    pair: each direction's x and dt projections (two FLOPs a multiply-add),
+    as the plain version's einsums; the recurrence is elementwise work."""
+    return 2 * 2 * B * L * C * (P + R)
 
 
 def _dir_weights(Wx, Wdt, bias, A, D, dev, C):
@@ -436,8 +443,11 @@ def ss2d_seq_pair(xseq, Wx, Wdt, bias, A, D, pair: str):
     (negative), D (4, C): per-direction weights in cross2d order; ``pair``
     "row" runs directions 0/2, "col" 1/3. Returns (B, C, L) in xseq.dtype.
     Differentiable (backward through the unclamped composition).
+    ``count_flops`` counts it as :func:`pair_flops`.
     """
-    return _SeqPair.apply(xseq, Wx, Wdt, bias, A, D, pair)
+    B, C, L = xseq.shape
+    with counted_as(pair_flops(B, C, L, Wx.shape[1], Wdt.shape[-1])):
+        return _SeqPair.apply(xseq, Wx, Wdt, bias, A, D, pair)
 
 
 ss2d_seq_pair.launches = 0
@@ -450,8 +460,11 @@ def ss2d_col_pair(xrow, Wx, Wdt, bias, A, D, y0, H: int, W: int):
     xrow.dtype or None, merged into the output (the row pair's result, so
     the tail reads one stream). Returns (B, C, H*W) in xrow.dtype: y0 +
     y_dir1 + y_dir3 in row-major positions. Differentiable.
+    ``count_flops`` counts it as :func:`pair_flops`.
     """
-    return _ColPair.apply(xrow, Wx, Wdt, bias, A, D, y0, H, W)
+    B, C, L = xrow.shape
+    with counted_as(pair_flops(B, C, L, Wx.shape[1], Wdt.shape[-1])):
+        return _ColPair.apply(xrow, Wx, Wdt, bias, A, D, y0, H, W)
 
 
 ss2d_col_sum.launches = 0

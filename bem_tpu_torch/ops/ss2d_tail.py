@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._common import (check_stream, layer_norm_c, on_cuda, ptr, ref_grads, round_bf16,
+from ._common import (check_stream, counted_as, layer_norm_c, on_cuda, ptr, ref_grads,
+                      round_bf16,
                       weight)
 
 
@@ -100,8 +101,11 @@ class _Tail(torch.autograd.Function):
 def ss2d_tail_cf(y_row, y_colT, scale, bias, Wout, bout, res=None):
     """Merge + LN + out_proj [+ residual]. y_row / y_colT (B, C, L) (y_colT may
     be None); scale/bias (C,); Wout (C, C_out); bout (C_out,) or None; res
-    (B, C_out, L) or None. Returns (B, C_out, L) in y_row.dtype. Differentiable."""
-    return _Tail.apply(y_row, y_colT, scale, bias, Wout, bout, res)
+    (B, C_out, L) or None. Returns (B, C_out, L) in y_row.dtype. Differentiable.
+    ``count_flops`` counts its out_proj product."""
+    B, C, L = y_row.shape
+    with counted_as(2 * B * L * C * Wout.shape[1]):
+        return _Tail.apply(y_row, y_colT, scale, bias, Wout, bout, res)
 
 
 ss2d_tail_cf.launches = 0

@@ -2,7 +2,8 @@
 
 Shared by ``chip_smoke.py`` and the ``cuda``-marked test: every kernel case
 runs one kernel wrapper and its plain PyTorch version on the same CUDA
-tensors (inputs from a numpy seed, realistic weight scales) and reports
+tensors (inputs from seeds: the large streams drawn on the device, the
+weights from numpy, at realistic scales) and reports
 the max abs error against a tolerance scaled by the output's magnitude;
 every gradient case runs ``torch.autograd.grad`` through one autograd
 wrapper (kernel forward, its backward on the card) and through its plain
@@ -288,6 +289,51 @@ class Case:
         return sliced
 
 
+def _on(device):
+    """A function that copies a numpy array or a tensor to ``device`` as a
+    new fp32 tensor."""
+    return lambda a: (a.to(device=device, dtype=torch.float32, copy=True)
+                      if isinstance(a, torch.Tensor)
+                      else torch.from_numpy(np.asarray(a, np.float32)).to(device))
+
+
+class _Draws:
+    """Seeded fp32 draws made on ``device`` by torch's generator there: the
+    large case inputs (streams of up to 4e8 elements), which numpy would
+    take minutes to draw on the host. ``keep``: the k-th normal draw of a
+    shape is kept and handed out again after :meth:`restart`, so a
+    speed-test shape's inputs are drawn once for both dtypes."""
+
+    def __init__(self, seed, device, keep=False):
+        self.seed, self.device, self.keep = seed, device, keep
+        self.gen = torch.Generator(device).manual_seed(seed)
+        self.kept, self.seen = {}, {}
+
+    def restart(self):
+        self.seen = {}
+        return self
+
+    def normal(self, shape):
+        key = tuple(shape)
+        k = self.seen.get(key, 0)
+        self.seen[key] = k + 1
+        if (key, k) in self.kept:
+            return self.kept[(key, k)]
+        out = torch.randn(key, generator=self.gen, device=self.device)
+        if self.keep:
+            self.kept[(key, k)] = out
+        return out
+
+    def decays(self, shape, lo, hi):
+        """exp(-U(lo, hi)), as :func:`_scan_decays` without zeros."""
+        u = torch.rand(tuple(shape), generator=self.gen, device=self.device)
+        return torch.exp(-(lo + (hi - lo) * u))
+
+
+def _silu(x):
+    return x / (1.0 + torch.exp(-x))
+
+
 def _uniform(rng, shape, bound):
     return rng.uniform(-bound, bound, shape).astype(np.float32)
 
@@ -318,27 +364,30 @@ def _dir(w, d, with_d=True):
     return out + ((w[4][d].contiguous() if with_d else None),)
 
 
-def _cases_for(label, B, C, H, W, dtype, device, seed, col_probe=True, clamp=True, rng=None):
+def _cases_for(label, B, C, H, W, dtype, device, seed, col_probe=True, clamp=True,
+               draws=None):
     """Rows 1-7 at one shape and dtype; ``clamp`` adds the row pair's
-    clamp-hitting case, ``col_probe`` the column pair's clamp probes;
-    ``rng`` (default: seeded by ``seed``) draws the inputs."""
-    rng = np.random.default_rng(seed) if rng is None else rng
+    clamp-hitting case, ``col_probe`` the column pair's clamp probes; the
+    streams from ``draws`` (default: a _Draws seeded by ``seed``), the
+    weights from numpy seeded by ``seed``."""
+    rng = np.random.default_rng(seed)
+    big = _Draws(seed, device) if draws is None else draws
     L = H * W
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    t = _on(device)
     s = lambda a: t(a).to(dtype)  # noqa: E731
-    x = rng.standard_normal((B, C, L)).astype(np.float32)
+    x = big.normal((B, C, L))
     lns = 1.0 + 0.1 * rng.standard_normal(C)
     lnb = 0.1 * rng.standard_normal(C)
     cases = [_stem_case(label, dtype, rng, t, s(x), H, W, lns, lnb)]
-    xs = x / (1.0 + np.exp(-x))  # SiLU output, as the stem hands it on
+    xs = _silu(x)  # as the stem hands it on
     scan_w = _scan_weights(rng, C, t)
     clamp_w = _scan_weights(rng, C, t, clamp=True)
     cases.append(Case("ss2d_seq_pair", label, dtype, (s(xs), *scan_w, "row")))
     if clamp:
         cases.append(Case("ss2d_seq_pair", label + " clamp", dtype, (s(xs), *clamp_w, "col")))
-    cases += _col_cases(label, dtype, rng, t, xs, H, W, scan_w, False, device)
+    cases += _col_cases(label, dtype, big.normal, t, xs, H, W, scan_w, False, device)
     if col_probe:
-        cases += _col_cases(label, dtype, rng, t, xs, H, W, clamp_w, True, device)
+        cases += _col_cases(label, dtype, big.normal, t, xs, H, W, clamp_w, True, device)
     N = scan_w[3].shape[-1]
     if dtype == torch.float32:  # a carry over (B, W, C*N) fp32
         a = t(np.exp(-rng.uniform(0.0, 3.0, (B, W, C * N))))
@@ -346,10 +395,10 @@ def _cases_for(label, B, C, H, W, dtype, device, seed, col_probe=True, clamp=Tru
         for rev in (False, True):
             cases.append(Case("linear_scan", label + (" rev" if rev else ""), dtype,
                               (a, b, rev)))
-    y0 = 3.0 + rng.standard_normal((B, C, L)) * 2.0
+    y0 = 3.0 + big.normal((B, C, L)) * 2.0
     cases.append(Case("ss2d_tail_cf", label, dtype, (
-        s(y0), s(rng.standard_normal((B, C, L))), t(lns), t(lnb),
-        t(_uniform(rng, (C, C), C ** -0.5)), None, s(rng.standard_normal((B, C, L))))))
+        s(y0), s(big.normal((B, C, L))), t(lns), t(lnb),
+        t(_uniform(rng, (C, C), C ** -0.5)), None, s(big.normal((B, C, L))))))
     cases.append(_gdmlp_case(label, dtype, rng, t, s(x), H, W, lns, lnb))
     return cases
 
@@ -379,9 +428,10 @@ def col_chunk_for(C, w, dtype, device, H):
     return _seq.col_chunk(C, w[0].shape[1] - 2 * N, N, dtype)
 
 
-def _col_cases(label, dtype, rng, t, xs, H, W, w, probe, device, y0=True):
+def _col_cases(label, dtype, normal, t, xs, H, W, w, probe, device, y0=True):
     """Rows 5 and 6 (the column pair's summary and full pass) on the stream
-    xs (numpy (B, C, H*W)) with weights w, at the card's chunk length; the
+    xs ((B, C, H*W), numpy or a tensor) with weights w, at the card's chunk
+    length, the chunk states and y0 from ``normal(shape)``; the
     full pass from random chunk states, with y0 unless ``probe``. ``probe``
     (w the clamp-hitting weights): x zero at the odd rows of the clamped
     channels, where b = 0 and the state is the decay of the row above's
@@ -396,14 +446,15 @@ def _col_cases(label, dtype, rng, t, xs, H, W, w, probe, device, y0=True):
     fwd, rev = _col_dirs(w)
     T = col_chunk_for(C, w, dtype, device, H)
     nch = -(-H // T)
-    x = xs.copy()
+    x = t(xs)
     if probe:
-        mask = np.zeros((B, C, H, W), bool)
+        mask = torch.zeros((B, C, H, W), dtype=torch.bool, device=device)
         mask[:, ::3, 1::2] = True
-        x[mask.reshape(B, C, L)] = 0.0
-    xt = t(x).to(dtype)
-    h_f, h_r = (t(rng.standard_normal((B, W * nch, C * N))) for _ in range(2))
-    yin = t(rng.standard_normal((B, C, L))).to(dtype) if y0 and not probe else None
+        mask = mask.reshape(B, C, L)
+        x[mask] = 0.0
+    xt = x.to(dtype)
+    h_f, h_r = (t(normal((B, W * nch, C * N))) for _ in range(2))
+    yin = t(normal((B, C, L))).to(dtype) if y0 and not probe else None
     tag = " clamp" if probe else ""
     cases = [Case("ss2d_col_sum", label + tag, dtype, (xt, fwd[:4], rev[:4], H, W, T)),
              Case("ss2d_col_dir", label + tag, dtype, (xt, fwd, rev, h_f, h_r, yin, H, W, T),
@@ -412,12 +463,13 @@ def _col_cases(label, dtype, rng, t, xs, H, W, w, probe, device, y0=True):
         ends = np.minimum(np.arange(1, nch + 1) * T, H) - 1
         if not (ends % 2 == 1).any():
             raise ValueError(f"column probe at H={H}, T={T}: no chunk ends on a zeroed row")
-        m = np.zeros((B, W, nch, C, N), bool)
-        m[:, :, ends % 2 == 1, ::3] = True
-        cases[0].probe = torch.from_numpy(m.reshape(B, W * nch, C * N)).to(device)
+        m = torch.zeros((B, W, nch, C, N), dtype=torch.bool, device=device)
+        for k in np.flatnonzero(ends % 2 == 1):
+            m[:, :, k, ::3] = True
+        cases[0].probe = m.reshape(B, W * nch, C * N)
         cases[0].probe_out = 1  # b_f, a row per (image, channel, state) over its chunks
         cases[0].row_axis = 1
-        cases[1].probe = torch.from_numpy(mask.reshape(B, C, L)).to(device)
+        cases[1].probe = mask
     return cases
 
 
@@ -437,21 +489,21 @@ def _serve_batch_cases(label, B, C, H, W, device, seed):
     stream), 4, 5 and 6 (plain and with the clamp probe) and 1 at the
     serving batch, bf16, each plain version on slices of PLAIN_SLICE
     images."""
-    rng = np.random.default_rng(seed)
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    rng, big = np.random.default_rng(seed), _Draws(seed, device)
+    t = _on(device)
     s = lambda a: t(a).to(torch.bfloat16)  # noqa: E731
-    x = rng.standard_normal((B, C, H * W), dtype=np.float32)
-    xs_np = (x / (1.0 + np.exp(-x))).astype(np.float32)
-    xs = s(xs_np)
+    x = big.normal((B, C, H * W))
+    xs32 = _silu(x)
+    xs = s(xs32)
     lns = 1.0 + 0.1 * rng.standard_normal(C)
     lnb = 0.1 * rng.standard_normal(C)
     cases = [Case("ss2d_seq_pair", label, torch.bfloat16, (xs, *_scan_weights(rng, C, t), "row")),
              Case("ss2d_seq_pair", label + " clamp", torch.bfloat16,
                   (xs, *_scan_weights(rng, C, t, clamp=True), "col")),
              _gdmlp_case(label, torch.bfloat16, rng, t, s(x), H, W, lns, lnb)]
-    cases += _col_cases(label, torch.bfloat16, rng, t, xs_np, H, W, _scan_weights(rng, C, t),
-                        False, device)
-    cases += _col_cases(label, torch.bfloat16, rng, t, xs_np, H, W,
+    cases += _col_cases(label, torch.bfloat16, big.normal, t, xs32, H, W,
+                        _scan_weights(rng, C, t), False, device)
+    cases += _col_cases(label, torch.bfloat16, big.normal, t, xs32, H, W,
                         _scan_weights(rng, C, t, clamp=True), True, device)
     cases.append(_stem_case(label, torch.bfloat16, rng, t, s(x), H, W, lns, lnb))
     for c in cases:
@@ -475,39 +527,13 @@ def _eval_cases(label, B, C, H, W, device, seed):
     return cases
 
 
-class _SharedNormals:
-    """A seeded generator whose normal draws are float32 and kept: the k-th
-    draw of a shape returns the same array each time the cases of another
-    dtype ask for it again (``restart``), so a speed-test shape's
-    2^22-position inputs are drawn once for both dtypes."""
-
-    def __init__(self, seed):
-        self.rng = np.random.default_rng(seed)
-        self.kept, self.seen = {}, {}
-
-    def restart(self):
-        self.seen = {}
-        return self
-
-    def standard_normal(self, size=None):
-        key = tuple(np.atleast_1d(size).tolist()) if size is not None else ()
-        k = self.seen.get(key, 0)
-        self.seen[key] = k + 1
-        if (key, k) not in self.kept:
-            self.kept[(key, k)] = self.rng.standard_normal(size, dtype=np.float32)
-        return self.kept[(key, k)]
-
-    def __getattr__(self, name):
-        return getattr(self.rng, name)
-
-
 def _speed_cases(label, B, C, H, W, dtype, device, draws):
     """Rows 1-7 as _cases_for builds them at a speed-test shape, each a path
     shape (its bound beside its time); the clamp cases in fp32 only; the
-    inputs from ``draws`` (a _SharedNormals of the shape)."""
+    streams from ``draws`` (a keeping _Draws of the shape)."""
     f32 = dtype == torch.float32
-    cases = _cases_for(label, B, C, H, W, dtype, device, None, col_probe=f32, clamp=f32,
-                       rng=draws.restart())
+    cases = _cases_for(label, B, C, H, W, dtype, device, draws.seed, col_probe=f32, clamp=f32,
+                       draws=draws.restart())
     for c in cases:
         c.report = True
     return cases
@@ -518,11 +544,11 @@ def _serve_tail_case(label, B, C, H, W, device, seed):
     column pair has added y_row, y_colT None), with the block's residual,
     no bout, on a mean-dominated scan output (+3); the plain version on
     slices of PLAIN_SLICE images."""
-    rng = np.random.default_rng(seed)
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    rng, big = np.random.default_rng(seed), _Draws(seed, device)
+    t = _on(device)
     s = lambda a: t(a).to(torch.bfloat16)  # noqa: E731
-    y = s(3.0 + 2.0 * rng.standard_normal((B, C, H * W), dtype=np.float32))
-    res = s(rng.standard_normal((B, C, H * W), dtype=np.float32))
+    y = s(3.0 + 2.0 * big.normal((B, C, H * W)))
+    res = s(big.normal((B, C, H * W)))
     return Case("ss2d_tail_cf", label + " merged res", torch.bfloat16,
                 (y, None, t(1.0 + 0.1 * rng.standard_normal(C)), t(0.1 * rng.standard_normal(C)),
                  t(_uniform(rng, (C, C), C ** -0.5)), None, res),
@@ -553,13 +579,12 @@ def _carry_cases(device, seed=760):
 def _cascade_cases(device, seed=810):
     """linear_scan at CASCADE_SHAPES and CASCADE_BATCHES, forward and
     reverse: decays exp(-dt) of the classifier's dt range, inputs of order 1."""
-    rng = np.random.default_rng(seed)
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    big = _Draws(seed, device)
     for label, H, C in CASCADE_SHAPES:
         for B in CASCADE_BATCHES:
             shape = (B * H, H, 2 * C)
-            a = t(_scan_decays(rng, shape, 0.0, 0.2))
-            b = t(rng.standard_normal(shape, dtype=np.float32))
+            a = big.decays(shape, 0.0, 0.2)
+            b = big.normal(shape)
             for rev in (False, True):
                 yield Case("linear_scan", f"{label} B={B}" + (" rev" if rev else ""),
                            torch.float32, (a, b, rev), report=True)
@@ -571,16 +596,16 @@ def _zoo_cases(device, seed=960):
     probe: it must fail against the clamped function) and linear_scan at
     ZOO_SCAN_SHAPES (decays of the selective scan's range, forward only,
     as Mamba1D runs it), each a path shape with its bound."""
-    rng = np.random.default_rng(seed)
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    rng, big = np.random.default_rng(seed), _Draws(seed, device)
+    t = _on(device)
     for label, B, C, H, W, R, N in ZOO_DIR_SHAPES:
-        xs2, probe = _cls_stream(rng, B, C, H, W, device)
+        xs2, probe = _cls_stream(big.normal, B, C, H, W, device)
         yield Case("ss2d_dir_fused", label, torch.float32,
-                   (t(xs2), *_fused_weights(rng, C, R, N, t)), probe, report=True)
+                   (xs2, *_fused_weights(rng, C, R, N, t)), probe, report=True)
         del xs2, probe
     for label, M, L, D in ZOO_SCAN_SHAPES:
-        a = t(_scan_decays(rng, (M, L, D), 0.0, 11.0))
-        b = t(rng.standard_normal((M, L, D), dtype=np.float32))
+        a = big.decays((M, L, D), 0.0, 11.0)
+        b = big.normal((M, L, D))
         yield Case("linear_scan", label, torch.float32, (a, b, False), report=True)
         del a, b
 
@@ -609,8 +634,8 @@ def _serve_stem_case(label, B, C, H, W, device, seed):
     """The stem alone at the serving batch, bf16, the plain version on
     slices of PLAIN_SLICE images."""
     rng = np.random.default_rng(seed)
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
-    x = t(rng.standard_normal((B, C, H * W), dtype=np.float32)).to(torch.bfloat16)
+    t = _on(device)
+    x = _Draws(seed, device).normal((B, C, H * W)).to(torch.bfloat16)
     case = _stem_case(label, torch.bfloat16, rng, t, x, H, W, 1.0 + 0.1 * rng.standard_normal(C),
                       0.1 * rng.standard_normal(C))
     case.plain_slice = PLAIN_SLICE
@@ -684,8 +709,8 @@ def edge_cases(device="cuda", seed=800):
             w[3] = t(-np.exp(rng.standard_normal((4, C, N)) * 0.3))
         x = rng.standard_normal((B, C, H * W)).astype(np.float32)
         for dtype in (torch.float32, torch.bfloat16):
-            out += _col_cases(f"B{B} C{C} {H}x{W} N{N}", dtype, rng, t, x / (1 + np.exp(-x)),
-                              H, W, w, False, device)
+            out += _col_cases(f"B{B} C{C} {H}x{W} N{N}", dtype, rng.standard_normal, t,
+                              x / (1 + np.exp(-x)), H, W, w, False, device)
     # row 9: L a multiple of its 32-position chunk, not a multiple, shorter
     # than it; N = 1 / 4 / 16; C = 288 (nine channel blocks of 32 at N = 16)
     for i, (B, C, L, R, N) in enumerate(((2, 40, 64, 3, 16), (1, 70, 70, 3, 1), (2, 24, 20, 2, 4),
@@ -826,35 +851,37 @@ def _clamp_probe(xs2):
     elements. There D*x and the input term vanish and y is the decay of the
     neighbours' states alone, sum_n C_n exp(dt A_n) h_n: exp(-10) where
     clamped, exp(dt A_n) <= exp(-11) unclamped (dt ~ softplus(12)), so the
-    clamp changes y there by a factor of e or more."""
-    mask = np.zeros(xs2.shape, bool)
+    clamp changes y there by a factor of e or more. ``xs2`` a numpy array
+    or a tensor; the mask is of its kind."""
+    mask = (torch.zeros(xs2.shape, dtype=torch.bool, device=xs2.device)
+            if isinstance(xs2, torch.Tensor) else np.zeros(xs2.shape, bool))
     mask[:, :, ::3, 1::2] = True
     xs2[mask] = 0.0
     return mask
 
 
-def _cls_stream(rng, B, C, H, W, device):
-    """xs2 (numpy (B, 2, C, H*W)): the (row, column) sequences of a SiLU
-    output, with the clamp probe; and the probe's mask on ``device``."""
-    x = rng.standard_normal((B, C, H, W)).astype(np.float32)
-    x = x / (1.0 + np.exp(-x))
-    xs2 = np.stack([x.reshape(B, C, H * W), x.transpose(0, 1, 3, 2).reshape(B, C, H * W)], 1)
-    return xs2, torch.from_numpy(_clamp_probe(xs2)).to(device)
+def _cls_stream(normal, B, C, H, W, device):
+    """xs2 ((B, 2, C, H*W) fp32 on ``device``): the (row, column) sequences
+    of a SiLU output of ``normal((B, C, H, W))``, with the clamp probe; and
+    the probe's mask."""
+    x = _silu(_on(device)(normal((B, C, H, W))))
+    xs2 = torch.stack([x.reshape(B, C, H * W), x.transpose(2, 3).reshape(B, C, H * W)], 1)
+    return xs2, _clamp_probe(xs2)
 
 
 def _cls_cases(label, B, C, H, W, R, N, device, seed):
     """The fused core, its clamped form (fp32, bf16) and its backward (fp32)
     at one stage, on _cls_stream's inputs."""
     rng = np.random.default_rng(seed)
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
-    xs2, probe = _cls_stream(rng, B, C, H, W, device)
+    t = _on(device)
+    xs2, probe = _cls_stream(rng.standard_normal, B, C, H, W, device)
     w = _fused_weights(rng, C, R, N, t)
     out = []
     for dtype in (torch.float32, torch.bfloat16):
         xs = t(xs2).to(dtype)
         out += [Case("ss2d_dir_fused", label, dtype, (xs, *w), probe),
                 Case("ss2d_dir_fused_g", label, dtype, (xs, *w), probe)]
-    g = t(rng.standard_normal(xs2.shape))
+    g = t(rng.standard_normal(tuple(xs2.shape)))
     out.append(Case("ss2d_dir_fused_bwd", label, torch.float32, (t(xs2), *w, g), probe))
     return out
 
@@ -864,10 +891,10 @@ def _cls_batch_cases(label, B, C, H, W, R, N, device, seed):
     (CLS_TRAIN_BATCH), bf16, on _cls_stream's inputs, the plain versions on
     slices of PLAIN_SLICE images."""
     rng = np.random.default_rng(seed)
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
+    t = _on(device)
     B = CLS_TRAIN_BATCH
-    xs2, probe = _cls_stream(rng, B, C, H, W, device)
-    xs = t(xs2).to(torch.bfloat16)
+    xs2, probe = _cls_stream(_Draws(seed, device).normal, B, C, H, W, device)
+    xs = xs2.to(torch.bfloat16)
     w = _fused_weights(rng, C, R, N, t)
     return [Case(name, f"{label} B={B}", torch.bfloat16, (xs, *w), probe,
                  plain_slice=PLAIN_SLICE) for name in ("ss2d_dir_fused", "ss2d_dir_fused_g")]
@@ -877,14 +904,13 @@ def _fused_bwd_case(label, B, C, L, R, N, device, seed, plain_slice=0):
     """Row 9 alone on (B, 2, C, L) sequences of a SiLU output with the clamp
     probe, fp32, the plain version on slices of ``plain_slice`` images
     (its weight gradients added over the slices)."""
-    rng = np.random.default_rng(seed)
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
-    x = rng.standard_normal((B, 2, C, L)).astype(np.float32)
-    xs2 = x / (1.0 + np.exp(-x))
-    probe = torch.from_numpy(_clamp_probe(xs2)).to(device)
+    rng, big = np.random.default_rng(seed), _Draws(seed, device)
+    t = _on(device)
+    xs2 = _silu(big.normal((B, 2, C, L)))
+    probe = _clamp_probe(xs2)
     w = _fused_weights(rng, C, R, N, t)
-    g = t(rng.standard_normal(xs2.shape))
-    return Case("ss2d_dir_fused_bwd", label, torch.float32, (t(xs2), *w, g), probe,
+    g = big.normal((B, 2, C, L))
+    return Case("ss2d_dir_fused_bwd", label, torch.float32, (xs2, *w, g), probe,
                 plain_slice=plain_slice, batch_args=(0, 6), sum_rest=True)
 
 
@@ -896,9 +922,9 @@ def _scan_fused_inputs(B, C, H, W, R, N, scans, device, seed):
     projected from it at the v0 init's scales, the dt bias +12 on those
     channels so dt*A < -10; returns (args, probe)."""
     rng = np.random.default_rng(seed)
-    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)  # noqa: E731
-    x = rng.standard_normal((B, C, H, W)).astype(np.float32)
-    u = cross_scan_cf_input(t(x / (1.0 + np.exp(-x))), scans).contiguous()
+    t = _on(device)
+    u = cross_scan_cf_input(_silu(_Draws(seed, device).normal((B, C, H, W))),
+                            scans).contiguous()
     probe = torch.zeros(u.shape, dtype=torch.bool, device=device)
     probe[:, :, ::3, 1::2] = True
     u[probe] = 0.0
@@ -1081,7 +1107,7 @@ def kernel_cases(small: bool = False, device="cuda"):
         for i, shape in enumerate(FLAGSHIP_TRAIN_SHAPES):
             yield from _scan_bwd_cases(*shape, device, seed=120 + i)
         for i, shape in enumerate(SPEED_SHAPES):
-            draws = _SharedNormals(880 + i)
+            draws = _Draws(880 + i, device, keep=True)
             for dtype in (torch.float32, torch.bfloat16):
                 yield from _speed_cases(*shape, dtype, device, draws)
             del draws
@@ -1242,7 +1268,8 @@ def compare_checkpoints(case: CkptCase):
 
 @torch.inference_mode()
 def time_ms(fn, args, budget_ms: float = 300.0) -> float:
-    """Mean device time of ``fn(*args)`` over repeated launches (CUDA events)."""
+    """Mean device time of ``fn(*args)`` over repeated launches (CUDA events);
+    where one launch after the warm-up fills ``budget_ms``, its time alone."""
     fn(*args)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1250,6 +1277,8 @@ def time_ms(fn, args, budget_ms: float = 300.0) -> float:
     end.record()
     torch.cuda.synchronize()
     once = max(start.elapsed_time(end), 1e-3)
+    if once >= budget_ms:
+        return once
     reps = int(min(20, max(2, budget_ms // once)))
     start.record()
     for _ in range(reps):

@@ -262,14 +262,17 @@ def _png_chunk(ctype: bytes, body: bytes) -> bytes:
 
 
 def encode_png(rgb: np.ndarray) -> bytes:
-    """(H, W, 3) uint8 RGB -> PNG bytes (8-bit RGB, filter 0 on every row)."""
+    """(H, W, 3) uint8 RGB or (H, W) uint8 grey -> PNG bytes (8-bit RGB or
+    grey, filter 0 on every row)."""
     rgb = np.asarray(rgb)
-    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"encode_png: want (H, W, 3) uint8, got {rgb.shape} {rgb.dtype}")
-    h, w, _ = rgb.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], axis=1)
+    grey = rgb.ndim == 2
+    if rgb.dtype != np.uint8 or not (grey or rgb.ndim == 3 and rgb.shape[2] == 3):
+        raise ValueError(f"encode_png: want (H, W, 3) or (H, W) uint8, got {rgb.shape} "
+                         f"{rgb.dtype}")
+    h, w = rgb.shape[:2]
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, -1)], axis=1)
     return (PNG_SIGNATURE
-            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0 if grey else 2, 0, 0, 0))
             + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
             + _png_chunk(b"IEND", b""))
 

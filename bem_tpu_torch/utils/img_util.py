@@ -10,11 +10,11 @@ bem_tpu's host metrics read its output, and their Y channel expects BGR.
 ``imfrombytes`` takes bem_tpu's three flags: ``"color"`` ((H, W, 3)
 uint8), ``"grayscale"`` ((H, W) uint8, each codec's own grey) and
 ``"unchanged"`` (the file's channels and depth: 2-D grey, RGB, RGBA,
-uint16 kept; no EXIF orientation). PNG, BMP, TIFF and JPEG are read by
-content, as cv2.imdecode does (what each decoder reads and refuses:
-:mod:`.image_codec`); WebP, AVIF, JPEG 2000, PNM, Sun raster, GIF and HDR,
-which cv2 also reads by content but no glob of bem_tpu takes, raise a
-``ValueError`` naming the file.
+uint16 kept; no EXIF orientation). PNG, BMP, TIFF, JPEG and WebP are read
+by content, as cv2.imdecode does (what each decoder reads and refuses:
+:mod:`.image_codec`, :mod:`.webp_codec`); AVIF, JPEG 2000, PNM, Sun
+raster, GIF and HDR, which cv2 also reads by content but no glob of
+bem_tpu takes, raise a ``ValueError`` naming the file.
 """
 
 from __future__ import annotations
@@ -25,13 +25,14 @@ import numpy as np
 
 from .image_codec import (PNG_SIGNATURE, decode_bmp, decode_jpeg, decode_png, decode_tiff,
                           encode_png)
+from .webp_codec import decode_webp
 
 # formats cv2 reads by content that the port does not: (magic, offset, name)
-_UNSUPPORTED = ((b"RIFF", 0, "WebP"), (b"ftyp", 4, "AVIF / HEIF"),
+_UNSUPPORTED = ((b"ftyp", 4, "AVIF / HEIF"),
                 (b"\x00\x00\x00\x0cjP  ", 0, "JPEG 2000"), (b"\xffO\xffQ", 0, "JPEG 2000"),
                 (b"GIF8", 0, "GIF"), (b"#?RADIANCE", 0, "HDR"), (b"#?RGBE", 0, "HDR"),
                 (b"\x59\xa6\x6a\x95", 0, "Sun raster"), (b"P", 0, "PNM / PFM"))
-_READ = "PNG, BMP, TIFF and JPEG are read"
+_READ = "PNG, BMP, TIFF, JPEG and WebP are read"
 
 
 def imdecode(data: bytes, name: str = "<bytes>", flag: str = "color") -> np.ndarray:
@@ -45,6 +46,8 @@ def imdecode(data: bytes, name: str = "<bytes>", flag: str = "color") -> np.ndar
         return decode_jpeg(data, name, flag)
     if data[:4] in (b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+"):
         return decode_tiff(data, name, flag)
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return decode_webp(data, name, flag)
     for magic, at, kind in _UNSUPPORTED:
         if data[at:at + len(magic)] == magic and (kind != "PNM / PFM" or data[1:2] in
                                                     b"123456fF"):
@@ -67,16 +70,17 @@ def imfrombytesDP(content: bytes, float32: bool = False, name: str = "<bytes>") 
     return img.astype(np.float32) / 65535.0 if float32 else img
 
 
-def imread(file_path: str, float32: bool = True) -> np.ndarray:
-    """Read from disk -> RGB HWC, float32 in [0, 1] (``float32``) or uint8."""
+def imread(file_path: str, float32: bool = True, flag: str = "color") -> np.ndarray:
+    """Read from disk -> RGB HWC (or what ``flag`` reads, as
+    :func:`imfrombytes`), float32 in [0, 1] (``float32``) or uint8."""
     if not os.path.isfile(file_path):
         raise FileNotFoundError(file_path)
     with open(file_path, "rb") as f:
-        return imfrombytes(f.read(), float32=float32, name=file_path)
+        return imfrombytes(f.read(), flag, float32=float32, name=file_path)
 
 
 def imwrite(img: np.ndarray, file_path: str, auto_mkdir: bool = True) -> bool:
-    """Write an (H, W, 3) uint8 RGB image as PNG."""
+    """Write an (H, W, 3) uint8 RGB or (H, W) uint8 grey image as PNG."""
     if os.path.splitext(file_path)[1].lower() != ".png":
         raise ValueError(f"{file_path}: imwrite writes PNG only")
     if auto_mkdir:

@@ -237,8 +237,9 @@ result line):
      port's writers) and a BASE YAML with the model YAML that names it,
      which together give the harness defaults (VMamba-T v2, 224x224); the
      loader's first training batch on the card bit-identical to the same
-     seed's batch on the CPU; the model's logits on two of its images
-     card vs CPU (1e-4 of their largest, TF32 off); then ``python -m
+     seed's batch on the CPU; the model's logits on its first image card
+     vs CPU (1e-4 of their largest, TF32 off; the CPU forward of a
+     full-width VMamba-T takes about 12 s an image); then ``python -m
      bem_tpu_torch.classification.train`` in its own process (through
      runpy, which then prints the process's launches) to train (batch 32,
      one epoch of three steps with TRAIN.WARMUP_EPOCHS 0, validation),
@@ -260,15 +261,38 @@ result line):
      nine baselines from their builders (seeded, the reference's comparison
      configs: EDSR, RCAN, HWMNet, LLFormer, RetinexFormer, UVMNet, MambaIR,
      SwinIR, HAT), fp32 with TF32 off: each net's output on the card
-     against the port on the CPU at 32x32 (UVMNet at its fixed 64x64
-     working size), within 2e-4 of max(1, |CPU|), and count_flops equal on
-     both devices; then at 256x256, B=1, no gradient: the parameters,
+     against the port on the CPU at 32x32 (UVMNet's first two levels, inc
+     and down1, at its fixed 64x64 working size), within 2e-4 of max(1,
+     |CPU|), and count_flops equal on both devices; then at 256x256, B=1, no gradient: the parameters,
      FLOPs, images/s through analysis.throughput (1 warm-up + 5 timed
      forwards) and peak memory, with that run's launches: row 8 must
      launch for MambaIR (its SS2D with scan_backend "xla", never clamped)
      and row 7 for UVMNet (Mamba1D's selective scan); rows 7 and 8 are
      also held against their plain versions at these nets' shapes in the
      kernels' phase (smoke.ZOO_DIR_SHAPES, smoke.ZOO_SCAN_SHAPES);
+ 14f. video data, flow warp, DCN and WebP: REDSDataset at REDS's published
+     sizes (seeded PNG clips, GT 1280x720, LQ 320x180, quantized flows in
+     dataroot_flow) with EDVR's REDS options (num_frame 5, gt_size 256,
+     scale 4, batch 4) and Vimeo90KDataset (GT 448x256, LQ 112x64, 7
+     frames), each through build_dataset / build_dataloader (an
+     EnlargedSampler: 64 items, 16 batches) and DevicePrefetcher, items/s
+     over the 15 batches after the first (the clock starts once the first
+     batch is on the card); on the first REDS batch flow_warp of each
+     LQ frame by its flow, card vs CPU; DCNv2Pack at EDVR-L's alignment
+     width (128 channels, 8 deform groups, 3x3) on a 5-frame 180x320
+     feature stack and flow_warp at BasicVSR's 64 channels, card vs CPU on
+     64x64 crops (2e-4 of max(1, |CPU|), fp32, TF32 off), card ms and peak
+     memory at full size; upfirdn2d ([1, 3, 3, 1], up 2, pad (2, 1)) and
+     fused_leaky_relu at StyleGAN2's (4, 512, 64, 64), card vs CPU; the
+     LOLv1 IE with scan_backend "xla" card vs CPU at 64x96, then at 400x600
+     (padded 448x640) B=2 on the card, where row 8 must launch unclamped
+     (its chunked forward's carry on row 7) and no fused serving row may; count_flops of the default IE equal on
+     card and CPU; the committed WebP fixtures (lossy q80 at 400x600, a
+     lossless and an alpha 112x144 crop) decoded on the host equal to the
+     PNGs beside them, with each decode's ms, then the train CLI (LOLv1 IE
+     options) 4 iterations on pairs of the two crops (the alpha crop,
+     lossy VP8 with an ALPH plane read in colour, as inputs; the lossless
+     crop as targets);
  15. the microbenchmarks (bem_tpu_torch.tools.microbench_vpu): the lanes /
      npass sweep and the four modes, each line as the tool prints it.
 The kernels' phase also holds the three classifier kernels (the fused core,
@@ -318,13 +342,15 @@ import torch
 from bem_tpu_torch import _build, analysis, smoke
 from bem_tpu_torch.analysis import model_zoo
 from bem_tpu_torch.archs import build_network
+from bem_tpu_torch.archs.arch_util import DCNv2Pack, flow_warp
 from bem_tpu_torch.convert import load_flax_params, state_dict_to_flax
 from bem_tpu_torch.classification import build_model_from_config, get_config, make_trainer
 from bem_tpu_torch.classification import synthetic_batch as cls_batch
 from bem_tpu_torch.classification import cross_entropy, throughput, vmamba_tiny
 from bem_tpu_torch.classification.data import build_loader as cls_build_loader
 from bem_tpu_torch.classification.train import parse_option as cls_parse_option
-from bem_tpu_torch.data import CPUPrefetcher, DevicePrefetcher, build_dataloader, build_dataset
+from bem_tpu_torch.data import (CPUPrefetcher, DevicePrefetcher, EnlargedSampler,
+                                build_dataloader, build_dataset)
 from bem_tpu_torch.nn import BackboneVSSM, VSSBlock, init
 from bem_tpu_torch.nn.ss2d import SS2D
 from bem_tpu_torch.qd.evaluate import load_qd_net
@@ -340,6 +366,7 @@ from bem_tpu_torch.metrics.uciqe_uiqm import uiqm_uciqe_batch
 from bem_tpu_torch.enhancement.pipeline import build_pipeline, padded_size
 from bem_tpu_torch.models import build_model
 from bem_tpu_torch.options import lolv1_options
+from bem_tpu_torch.ops import legacy
 from bem_tpu_torch.tools import microbench_vpu
 from bem_tpu_torch.models.base_model import BaseModel
 from bem_tpu_torch.test import test_pipeline
@@ -347,6 +374,7 @@ from bem_tpu_torch.train import synthetic_batch, train_pipeline
 from bem_tpu_torch.utils.checkpoint import load_params, load_state
 from bem_tpu_torch.utils.cv_ops import resize as cv_resize
 from bem_tpu_torch.utils.diffjpeg import diff_jpeg, diff_round
+from bem_tpu_torch.utils.flow_util import flowwrite
 from bem_tpu_torch.utils.img_process_util import gaussian_blur_torch, usm_sharp_torch
 from bem_tpu_torch.utils.image_writers import (encode_bmp_palette, encode_png_samples,
                                                encode_tiff)
@@ -407,10 +435,34 @@ REALESRGAN_DIR = os.path.join(REPO, "results", "chip_smoke_realesrgan")  # remov
 REALESRGAN_FILES = 8  # about 480x640 each
 DIFFJPEG_QUALITIES = (30, 90)
 DIFFJPEG_TIE = 1e-3  # quantized coefficients this close to a rounding tie may round either way
+VIDEO_DIR = os.path.join(REPO, "results", "chip_smoke_video")  # gitignored, removed at the end
+REDS_FRAMES = 8  # frames of the one REDS training clip
+VIMEO_SEQS = 16  # Vimeo90K septuplets
+# dataset_enlarge_ratio of each (EDVR's REDS options use 200): 64 items, 16
+# batches of 4, of which the 15 after the first are timed
+VIDEO_ENLARGE = {"REDSDataset": 8, "Vimeo90KDataset": 4}
+VIDEO_TOL = 2e-4  # card vs CPU, of max(1, |CPU|), fp32, TF32 off
+WEBP_FIXTURES = ("g_lossy_q80", "h_lossless", "i_alpha")
+# what the IE's "xla" route may launch: row 8 unclamped, whose chunked
+# forward carries its super-chunk states on row 7
+XLA_ROUTE_KERNELS = ("ss2d_dir_fused", "linear_scan")
 
 
 def phase(name):
     print(f"== {name} (at {time.perf_counter() - T0:.0f} s)", flush=True)
+
+
+def process_seconds() -> float | None:
+    """Wall seconds since this process started (its start time in
+    /proc/self/stat against /proc/uptime), or None where there is no /proc."""
+    try:
+        with open("/proc/self/stat") as f:
+            start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+        with open("/proc/uptime") as f:
+            uptime = float(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return None
+    return uptime - start_ticks / os.sysconf("SC_CLK_TCK")
 
 
 def card_info() -> str:
@@ -2415,7 +2467,7 @@ def cls_cli_phase(card: str):
     defaults (VMamba-T v2, 224x224): train (batch 32, one epoch of three
     steps, then validation), --eval, --throughput at batch 64. The loader's
     first batch on the card equal to a second run's on the CPU; the
-    model's logits on two of its images card vs CPU (1e-4 of their
+    model's logits on its first image card vs CPU (1e-4 of their
     largest, TF32 off); finite loss, top-1 / top-5 in [0, 1]; rows 8 and
     9 must launch."""
     root = CLS_CLI_DIR
@@ -2446,14 +2498,14 @@ def cls_cli_phase(card: str):
         raise AssertionError("the classifier loader's first batch differs between two runs")
     _cls_host_split(cfg, card)
     model = build_model_from_config(cfg, torch.Generator().manual_seed(cfg.SEED)).eval()
-    x = torch.from_numpy(images[:2])
+    x = torch.from_numpy(images[:1])
     t0 = time.perf_counter()
     with torch.no_grad():
         lc = model(x)
         cpu_s = time.perf_counter() - t0
         lg = copy.deepcopy(model).to("cuda")(x.to("cuda")).cpu()
     err = (lg - lc).abs().max().item() / lc.abs().max().item()
-    print(f"VMamba-T v2 logits of the batch's first 2 images, card vs CPU: err / max {err:.2e} "
+    print(f"VMamba-T v2 logits of the batch's first image, card vs CPU: err / max {err:.2e} "
           f"(tol 1e-4; CPU forward {cpu_s:.1f} s)", flush=True)
     if not err <= 1e-4:
         raise AssertionError("classifier CLI: the card's logits disagree with the CPU's")
@@ -2585,17 +2637,23 @@ def zoo_phase(card: str):
         size = 64 if name == "UVMNet" else ZOO_CPU_SIZE
         gen = torch.Generator().manual_seed(0)
         x = torch.rand(1, 3, size, size, generator=gen)
+        # UVMNet's check runs its first two levels (inc, down1): each level's
+        # UVMB works at 64x64 whatever the input, and the deep ones' CPU
+        # forwards took 89.6 s of the phase
+        head = ((lambda t: net.down1(torch.nn.functional.max_pool2d(net.inc(t), 2)))
+                if name == "UVMNet" else net)
         outs = []
-        cpu_flops = analysis.count_flops(lambda t: outs.append(net(t)), x)["flops"]
+        cpu_flops = analysis.count_flops(lambda t: outs.append(head(t)), x)["flops"]
         t_cpu = time.perf_counter() - t0
         net.to("cuda")
-        card_flops = analysis.count_flops(lambda t: outs.append(net(t)), x.to("cuda"))["flops"]
+        card_flops = analysis.count_flops(lambda t: outs.append(head(t)), x.to("cuda"))["flops"]
         ref, got = outs[0], outs[1].cpu()
         if got.shape != ref.shape or not torch.isfinite(got).all():
             raise AssertionError(f"{name}: card output {tuple(got.shape)} vs {tuple(ref.shape)}")
         err = (got - ref).abs().max().item()
         tol = ZOO_TOL * max(1.0, ref.abs().max().item())
-        print(f"zoo {name:13s} card vs CPU at {size}x{size}: max_abs_err {err:.3e} tol {tol:.3e} "
+        what = f"{name} inc + down1" if name == "UVMNet" else name
+        print(f"zoo {what:13s} card vs CPU at {size}x{size}: max_abs_err {err:.3e} tol {tol:.3e} "
               f"{'ok' if err <= tol else 'FAIL'}; count_flops card {card_flops:.6e} CPU "
               f"{cpu_flops:.6e} (CPU forward {t_cpu:.1f} s)", flush=True)
         if err > tol or card_flops != cpu_flops:
@@ -2686,6 +2744,276 @@ def realesrgan_phase(card: str):
     print("the RealESRGAN data path runs no kernel of the port (diff_jpeg and USM are plain "
           "tensor code)")
     return counts
+
+
+# phase 14f: video data, flow warp, DCN, the legacy ops, the "xla" IE, WebP
+
+
+def _video_files(root):
+    """A REDS training clip (GT 1280x720, LQ 320x180, each key frame's
+    quantized flows) and Vimeo90K septuplets (GT 448x256, LQ 112x64), seeded
+    PNGs; returns the two datasets' options."""
+    rng = np.random.default_rng(41)
+    reds = {d: os.path.join(root, "reds", d) for d in ("gt", "lq", "flow")}
+    for n in range(REDS_FRAMES):
+        gt = smoke.smooth_image(rng, 720, 1280)
+        imwrite(gt, os.path.join(reds["gt"], "001", f"{n:08d}.png"))
+        imwrite(cv_resize(gt, (320, 180)), os.path.join(reds["lq"], "001", f"{n:08d}.png"))
+        yy, xx = np.mgrid[0:180, 0:320] / 40.0
+        for tag in ("p", "n"):
+            for i in (1, 2):
+                ph = rng.uniform(0, 6.3, 2)
+                flow = np.stack([6 * np.sin(xx + ph[0]), 6 * np.cos(yy + ph[1])], -1)
+                flowwrite(flow.astype(np.float32),
+                          os.path.join(reds["flow"], "001", f"{n:08d}_{tag}{i}.png"),
+                          quantize=True, max_val=20, norm=False)
+    with open(os.path.join(root, "reds", "meta.txt"), "w") as f:
+        f.write(f"001 {REDS_FRAMES} (720,1280,3)\n")
+    vimeo = {d: os.path.join(root, "vimeo", d) for d in ("gt", "lq")}
+    seqs = [f"00001/{i:04d}" for i in range(1, VIMEO_SEQS + 1)]
+    for seq in seqs:
+        for n in range(1, 8):
+            gt = smoke.smooth_image(rng, 256, 448)
+            imwrite(gt, os.path.join(vimeo["gt"], seq, f"im{n}.png"))
+            imwrite(cv_resize(gt, (112, 64)), os.path.join(vimeo["lq"], seq, f"im{n}.png"))
+    with open(os.path.join(root, "vimeo", "meta.txt"), "w") as f:
+        f.writelines(f"{s} 7 (256,448,3)\n" for s in seqs)
+    common = dict(phase="train", batch_size_per_gpu=4, num_worker_per_gpu=2,
+                  io_backend={"type": "disk"}, seed=0, gt_size=256, scale=4, use_hflip=True,
+                  use_rot=True)
+    # EDVR's REDS options (train_EDVR_M_x4_SR_REDS.yml): 5 frames, interval 1, no reversal
+    reds_opt = dict(common, type="REDSDataset", dataroot_gt=reds["gt"], dataroot_lq=reds["lq"],
+                    dataroot_flow=reds["flow"], meta_info_file=os.path.join(root, "reds",
+                                                                            "meta.txt"),
+                    num_frame=5, interval_list=[1], random_reverse=False,
+                    frames_per_clip=REDS_FRAMES)
+    vimeo_opt = dict(common, type="Vimeo90KDataset", dataroot_gt=vimeo["gt"],
+                     dataroot_lq=vimeo["lq"], meta_info_file=os.path.join(root, "vimeo",
+                                                                          "meta.txt"),
+                     num_frame=7, random_reverse=False)
+    return reds_opt, vimeo_opt
+
+
+def _card_vs_cpu_check(label, fn, args):
+    """fn on the CPU tensors ``args`` and on their card copies; raises past
+    VIDEO_TOL of max(1, |CPU|)."""
+    want = fn(*args)
+    got = fn(*(copy.deepcopy(a).to("cuda") if isinstance(a, torch.nn.Module)
+               else a.to("cuda") if isinstance(a, torch.Tensor) else a for a in args)).cpu()
+    err = (got - want).abs().max().item()
+    tol = VIDEO_TOL * max(1.0, want.abs().max().item())
+    print(f"{label}: card vs CPU max_abs_err {err:.3e} tol {tol:.3e} "
+          f"{'ok' if err <= tol else 'FAIL'}", flush=True)
+    if not (torch.isfinite(got).all() and err <= tol):
+        raise AssertionError(f"{label}: the card disagrees with the CPU ({err} > {tol})")
+
+
+def _card_ms(fn, args, reps=3):
+    """Median card ms of ``reps`` calls after one warm-up, and the peak GiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn(*args)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times), torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _video_data(card, root):
+    """Both datasets through build_dataloader (EnlargedSampler) and
+    DevicePrefetcher, the clock started once the first batch is on the card;
+    the first REDS batch."""
+    first = None
+    for opt in _video_files(root):
+        dataset = build_dataset(opt)
+        ratio = VIDEO_ENLARGE[opt["type"]]
+        loader = build_dataloader(dataset, opt, sampler=EnlargedSampler(len(dataset), ratio=ratio),
+                                  seed=0)
+        pre = DevicePrefetcher(loader, "cuda")
+        t_first = time.perf_counter()
+        batches, b = [], pre.next()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while b is not None:
+            batches.append(b)
+            b = pre.next()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n = sum(len(b["key"]) for b in batches[1:])
+        shapes = {k: tuple(v.shape) for k, v in batches[0].items() if isinstance(v, torch.Tensor)}
+        print(f"{opt['type']}: {len(dataset)} items x enlarge ratio {ratio}, {len(batches)} "
+              f"batches; the {len(batches) - 1} after the first, {n} items, in {dt:.3f} s: "
+              f"{n / dt:.2f} items/s through build_dataloader + DevicePrefetcher (2 threads; "
+              f"first batch {t0 - t_first:.3f} s after the prefetcher's start); {shapes} "
+              f"({card})", flush=True)
+        frames = opt["num_frame"]
+        want = {"lq": (4, frames, 64, 64, 3), "gt": (4, 256, 256, 3)}
+        if opt["type"] == "REDSDataset":
+            want["flow"] = (4, frames, 64, 64, 2)
+            first = batches[0]
+        if shapes != want or any(v.device.type != "cuda" for v in batches[0].values()
+                                 if isinstance(v, torch.Tensor)):
+            raise AssertionError(f"{opt['type']}: batch {shapes}, expected {want}")
+    return first
+
+
+def video_phase(card: str):
+    """Phase 14f (see the module docstring). Returns the launches of the
+    "xla" IE's run at 400x600 and of the train CLI on WebP pairs."""
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("the video phase's comparisons run with TF32 off")
+    batch = _video_data(card, os.path.join(VIDEO_DIR, "data"))
+    # each neighbouring LQ frame warped by its flow (the centre's flow is zero)
+    lq = batch["lq"].flatten(0, 1).permute(0, 3, 1, 2).contiguous().cpu()
+    flows = batch["flow"].flatten(0, 1).contiguous().cpu()
+    _card_vs_cpu_check(f"flow_warp of the REDS batch's LQ frames {tuple(lq.shape)}", flow_warp,
+                       (lq, flows))
+
+    gen = torch.Generator().manual_seed(42)
+    dcn = init.initialize(DCNv2Pack(128, 128, 3, deform_groups=8), gen)
+    with torch.no_grad():  # offsets of about a pixel, so the samples move
+        dcn.conv_offset.weight.normal_(0.0, 0.03, generator=gen)
+        dcn.conv_offset.bias.normal_(0.0, 0.5, generator=gen)
+    feat, nbr = (torch.randn(5, 128, 180, 320, generator=gen) for _ in range(2))
+    wflow = 4 * torch.randn(5, 180, 320, 2, generator=gen)
+    x64 = torch.randn(5, 64, 180, 320, generator=gen)
+    crop = (slice(None), slice(None), slice(40, 104), slice(100, 164))
+    with torch.no_grad():
+        _card_vs_cpu_check("DCNv2Pack 128 ch, 8 deform groups, 3x3, 64x64 crop",
+                           lambda d, a, b: d(a, b),
+                           (dcn, nbr[crop].contiguous(), feat[crop].contiguous()))
+        _card_vs_cpu_check("flow_warp 64 ch, 64x64 crop", flow_warp,
+                           (x64[crop].contiguous(), wflow[:, 40:104, 100:164].contiguous()))
+        dcn.to("cuda")
+        args = (nbr.to("cuda"), feat.to("cuda"))
+        ms, peak = _card_ms(dcn, args)
+        print(f"DCNv2Pack 128 ch, 8 deform groups, 3x3 on 5 x 180x320 (EDVR-L alignment): "
+              f"{ms:.3f} ms, peak {peak:.2f} GiB ({card})", flush=True)
+        del args
+        ms, peak = _card_ms(flow_warp, (x64.to("cuda"), wflow.to("cuda")))
+        print(f"flow_warp 64 ch on 5 x 180x320 (BasicVSR): {ms:.3f} ms, peak {peak:.2f} GiB "
+              f"({card})", flush=True)
+        x = torch.randn(4, 512, 64, 64, generator=gen)
+        bias = torch.randn(512, generator=gen)
+        k = legacy.make_resample_kernel([1, 3, 3, 1])
+        up = lambda t, kk: legacy.upfirdn2d(t, kk, up=2, pad=(2, 1))  # noqa: E731
+        _card_vs_cpu_check("upfirdn2d [1,3,3,1] up 2 pad (2,1) on (4, 512, 64, 64)", up, (x, k))
+        _card_vs_cpu_check("fused_leaky_relu on (4, 512, 64, 64)", legacy.fused_leaky_relu,
+                           (x, bias))
+        for label, fn, a in (("upfirdn2d", up, (x.to("cuda"), k.to("cuda"))),
+                             ("fused_leaky_relu", legacy.fused_leaky_relu,
+                              (x.to("cuda"), bias.to("cuda")))):
+            ms, peak = _card_ms(fn, a)
+            print(f"{label} on (4, 512, 64, 64): {ms:.3f} ms, peak {peak:.2f} GiB ({card})",
+                  flush=True)
+    del dcn, feat, nbr, x64
+    torch.cuda.empty_cache()
+    counts = _xla_route(card)
+    cli = _webp(card, os.path.join(VIDEO_DIR, "webp"))
+    return {k: v + cli[k] for k, v in counts.items()}
+
+
+def _xla_route(card):
+    """The LOLv1 IE with scan_backend "xla": card vs CPU at 64x96, then
+    400x600 (448x640) B=2 on the card: row 8 launches unclamped (its carry
+    on row 7), no fused serving row launches; count_flops of the default IE
+    on both devices."""
+    opt = parse(os.path.join(REPO, "Options", EVAL_OPTIONS[1]), is_train=False)["network_g"]
+    gen = torch.Generator().manual_seed(7)
+    x = torch.rand(1, 64, 96, 6, generator=gen)
+    with torch.no_grad():
+        net = build_network(dict(opt, scan_backend="xla"), torch.Generator().manual_seed(3))
+        _card_vs_cpu_check('IE scan_backend "xla" at 64x96', lambda n, t: n(t)[-1], (net, x))
+        net.to("cuda")
+        default = build_network(opt, torch.Generator().manual_seed(3))
+        flops_cpu = analysis.count_flops(default, x)["flops"]
+        flops_card = analysis.count_flops(default.to("cuda"), x.to("cuda"))["flops"]
+        print(f"count_flops of the default IE at 64x96: card {flops_card:.6e}, CPU "
+              f"{flops_cpu:.6e}", flush=True)
+        if flops_card != flops_cpu:
+            raise AssertionError("count_flops of the default IE depends on the device")
+        del default
+        hp, wp = padded_size(H, W)
+        xs = torch.rand(NIMG, hp, wp, 6, generator=gen).to("cuda")
+        smoke.reset_launch_counts()
+        ms, peak = _card_ms(lambda t: net(t)[-1], (xs,))
+        counts = smoke.launch_counts()
+    launched = {k: v for k, v in counts.items() if v}
+    print(f'IE scan_backend "xla" {H}x{W} (padded {hp}x{wp}) B={NIMG} fp32, TF32 off: {ms:.3f} '
+          f"ms/request, peak {peak:.2f} GiB; launches {launched} ({card})", flush=True)
+    if counts["ss2d_dir_fused"] <= 0 or set(launched) - set(XLA_ROUTE_KERNELS):
+        raise AssertionError(f'the "xla" IE: row 8 must launch unclamped (its carry on row 7) '
+                             f"and no fused serving row: {launched}")
+    del net, xs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _webp(card, root):
+    """The committed WebP fixtures against their PNGs (host decode ms), then
+    the train CLI on WebP pairs; returns the CLI's launches."""
+    for stem in WEBP_FIXTURES:
+        with open(os.path.join(JPEG_FIXTURES, stem + ".webp"), "rb") as f:
+            data = f.read()
+        truth = imread(os.path.join(JPEG_FIXTURES, stem + ".png"), float32=False,
+                       flag="unchanged")
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = imdecode(data, stem + ".webp", "unchanged")
+            times.append(time.perf_counter() - t0)
+        same = got.shape == truth.shape and np.array_equal(got, truth)
+        print(f"decode {stem}.webp ({len(data)} bytes, {got.shape}): "
+              f"{1e3 * statistics.median(times):.1f} ms (median of 3, host), equal to cv2's "
+              f"decode {same} ({card})", flush=True)
+        if not same:
+            raise AssertionError(f"{stem}.webp: the decoder disagrees with cv2's decode")
+    lines = _Lines()
+    logging.getLogger("bem_tpu_torch").addHandler(lines)
+    try:
+        for sub in ("input", "target", "val_input", "val_target"):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+        # the committed 112x144 crops (padded to the options' 128x128
+        # training crops): the decoders are host Python, and the test data
+        # stays under 1 MiB (tests/test_torch_jpeg.py)
+        with open(os.path.join(JPEG_FIXTURES, "i_alpha.webp"), "rb") as f:
+            lossy_alpha = f.read()  # VP8X: lossy VP8 with an ALPH plane
+        with open(os.path.join(JPEG_FIXTURES, "h_lossless.webp"), "rb") as f:
+            lossless = f.read()  # VP8L
+        for i in range(10):
+            sub = "" if i < 8 else "val_"
+            for d, data in (("input", lossy_alpha), ("target", lossless)):
+                with open(os.path.join(root, sub + d, f"{i:03d}.webp"), "wb") as f:
+                    f.write(data)
+        args = ["--device", "cuda", "--force_yml",
+                f"datasets:train:dataroot_lq={os.path.join(root, 'input')}",
+                f"datasets:train:dataroot_gt={os.path.join(root, 'target')}",
+                f"datasets:val:dataroot_lq={os.path.join(root, 'val_input')}",
+                f"datasets:val:dataroot_gt={os.path.join(root, 'val_target')}",
+                "name=smoke_webp", "logger:print_freq=1", "logger:save_checkpoint_freq=4",
+                "val:val_freq=4", "logger:use_tb_logger=false", "logger:wandb:project=~",
+                "datasets:train:num_worker_per_gpu=2", "train:total_iter=4", *SSIM]
+        smoke.reset_launch_counts()
+        model, log, _ = _cli_run(EVAL_OPTIONS[1], args, root, lines)
+    finally:
+        logging.getLogger("bem_tpu_torch").removeHandler(lines)
+    losses = [float(m) for line in log for m in re.findall(r"l_total: (\S+)", line)]
+    if not (len(losses) == 4 and np.isfinite(losses).all() and model.step == 4):
+        raise AssertionError(f"train CLI on WebP: losses {losses}, step {model.step}")
+    _check_validation("train CLI on WebP", model.metric_results)
+    rest = model.timings[1:]
+    print(f"ImageEnhancer train CLI 4 iters B=8 fp32 on 8 WebP pairs (i_alpha.webp inputs, "
+          f"lossy VP8 + ALPH read in colour; h_lossless.webp targets, VP8L) 112x144, 2 loader threads: losses "
+          f"{[f'{x:.5f}' for x in losses]};"
+          f" iters 2-4 mean {1e3 * statistics.mean(t[3] for t in rest):.1f} ms/step, data_time "
+          f"{1e3 * statistics.mean(t[2] for t in rest):.1f} ms; validation PSNR "
+          f"{model.metric_results['psnr']:.4f}; launches {smoke.launch_counts()} ({card})",
+          flush=True)
+    return smoke.launch_counts()
 
 
 def microbench_phase():
@@ -2805,6 +3133,11 @@ def main() -> int:
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
         raise AssertionError("the zoo's comparisons run with TF32 off")
     zoo_counts = zoo_phase(card)
+    phase("video data, flow warp, DCN and WebP")
+    try:
+        video_counts = video_phase(card)
+    finally:
+        shutil.rmtree(VIDEO_DIR, ignore_errors=True)
     phase("microbenchmarks")
     mb_counts = microbench_phase()
     # each kernel's launches over the runs of its own paths: the BEM kernels
@@ -2813,15 +3146,16 @@ def main() -> int:
     # clamped form over the narrow reference runs, selective_scan_fused over
     # VMamba-T v052d's, the SS2D modes' over their checks and VMamba-T
     # v052dc_noz's, the classifier CLI's over its three runs, rows 7 and 8
-    # also over the model zoo's full-width runs, the microbenchmarks over
-    # their sweeps
+    # also over the model zoo's full-width runs, rows 7 and 8 also over the
+    # "xla" IE's run of phase 14f and rows 1-7 over its train CLI on WebP
+    # pairs, the microbenchmarks over their sweeps
     paths = {name: (train_counts, cli_counts, serve_counts, eval_counts, flagship_counts,
                     flagship_train_counts, vmunet_counts, formats_counts, speed_counts,
-                    options_counts)
+                    options_counts, video_counts)
              for name in smoke.BEM_KERNELS}
     paths["linear_scan"] += (modes_counts, cascade_counts, cls_cli_counts, zoo_counts)
     paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts, modes_counts, cls_cli_counts,
-                                 zoo_counts),
+                                 zoo_counts, video_counts),
                  ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts, modes_counts,
                                      cls_cli_counts),
                  ss2d_dir_fused_g=(cls_ref_counts, modes_counts, cls_cli_counts),
@@ -2830,7 +3164,10 @@ def main() -> int:
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=sum(c[name] for c in paths[name]), **summary[name])
                for name, (_, _, src, rep) in smoke.KERNELS.items()]
-    print(f"chip_smoke: {time.perf_counter() - t_start:.0f} s")
+    since_start = process_seconds()
+    print(f"chip_smoke: {time.perf_counter() - t_start:.0f} s"
+          + (f" ({since_start:.0f} s since the process started, imports included)"
+             if since_start is not None else ""))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -110,7 +110,10 @@ def test_new_modules_import_nothing_they_must_not():
     code = ("import sys, bem_tpu_torch.classification.train, bem_tpu_torch.classification.data, "
             "bem_tpu_torch.data.degradations, bem_tpu_torch.data.realesrgan_dataset, "
             "bem_tpu_torch.data.realesrgan_paired_dataset, bem_tpu_torch.utils.diffjpeg, "
-            "bem_tpu_torch.utils.img_process_util, bem_tpu_torch.utils.cv_ops; "
+            "bem_tpu_torch.utils.img_process_util, bem_tpu_torch.utils.cv_ops, "
+            "bem_tpu_torch.data.video_datasets, bem_tpu_torch.utils.flow_util, "
+            "bem_tpu_torch.utils.webp_codec, bem_tpu_torch.utils.webp_tables, "
+            "bem_tpu_torch.ops.legacy, bem_tpu_torch.archs.arch_util; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', "
             "'bem_tpu', 'cv2', 'yaml', 'PIL')]; assert not bad, bad")
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")

@@ -14,7 +14,8 @@ difference.
   magnitudes 0, 9 and 30, on odd sizes.
 - Color jitter (``AUTO_AUGMENT`` empty) and random erasing in both modes.
 - ``ShardedBatchLoader``'s order over rank, world_size, drop_last and
-  epochs; ``build_loader``'s tuple; a WebP file raises, naming itself.
+  epochs; ``build_loader``'s tuple; WebP files read as cv2 reads them, an
+  animated one raises, naming itself.
 """
 
 import os
@@ -202,13 +203,31 @@ def test_build_loader_tuple(tree):
 
 
 def test_webp_raises_naming_the_file(tmp_path):
+    """A lossy and a lossless WebP read as bem_tpu's cv2 reads them; an
+    animated WebP, whose first frame cv2 reads, raises naming itself."""
     d = tmp_path / "train" / "cls"
     d.mkdir(parents=True)
-    path = d / "a.webp"
-    path.write_bytes(b"RIFF\x24\x00\x00\x00WEBPVP8 " + bytes(32))
-    cfg = get_config()
-    cfg.DATA.DATA_PATH, cfg.DATA.IMG_SIZE = str(tmp_path), 32
-    ds, _ = port.build_dataset(True, cfg)
-    assert [s for s, _ in ds.samples] == [str(path)]
-    with pytest.raises(ValueError, match=f"{path}: WebP decoding is not supported"):
-        ds[0]
+    img = cv2.GaussianBlur(np.random.default_rng(5).integers(0, 256, (33, 47, 3), np.uint8),
+                           (5, 5), 0)
+    for fn, q in (("a.webp", 80), ("b.webp", 101)):
+        ok, buf = cv2.imencode(".webp", img, [cv2.IMWRITE_WEBP_QUALITY, q])
+        (d / fn).write_bytes(buf.tobytes())
+    anim = cv2.Animation()
+    anim.frames, anim.durations = [img, img[::-1].copy()], [100, 100]
+    ok, buf = cv2.imencodeanimation(".webp", anim)
+    path = d / "c.webp"
+    path.write_bytes(buf.tobytes())
+    cfgs = []
+    for get in (get_config, bem_get_config):
+        cfg = get()
+        cfg.DATA.DATA_PATH, cfg.DATA.IMG_SIZE = str(tmp_path), 32
+        cfgs.append(cfg)
+    ds, _ = port.build_dataset(True, cfgs[0])
+    bds, _ = bem.build_dataset(True, cfgs[1])
+    ds.transform = bds.transform = None
+    assert [s for s, _ in ds.samples] == [str(d / f) for f in ("a.webp", "b.webp", "c.webp")]
+    for i in (0, 1):
+        np.testing.assert_array_equal(ds[i][0], bds[i][0])
+    assert bds[2][0].shape == (33, 47, 3)
+    with pytest.raises(ValueError, match=f"{path}: an animated WebP"):
+        ds[2]

@@ -173,7 +173,8 @@ def test_chunked_column_pair_and_fused_backward_on_card():
         for dtype in (torch.float32, torch.bfloat16):
             for probe in (False, True):
                 w = smoke._scan_weights(rng, C, t, clamp=True)
-                for case in smoke._col_cases(f"{H}x{W}", dtype, rng, t, xs, H, W, w, probe, "cuda"):
+                for case in smoke._col_cases(f"{H}x{W}", dtype, rng.standard_normal, t, xs, H, W,
+                                             w, probe, "cuda"):
                     err, tol = smoke.compare(case)
                     assert err <= tol, (case.name, case.label, dtype, err, tol)
                     assert not probe or case.other_clamp > 1, (case.name, case.other_clamp)
@@ -235,8 +236,8 @@ def test_chunked_fused_forward_and_column_summary_grid_on_card():
     x = rng.standard_normal((B, C, H * W)).astype(np.float32)
     for dtype in (torch.float32, torch.bfloat16):
         w = smoke._scan_weights(rng, C, t, clamp=True)
-        for case in smoke._col_cases("C160 109x160", dtype, rng, t, x / (1.0 + np.exp(-x)), H, W,
-                                     w, True, "cuda"):
+        for case in smoke._col_cases("C160 109x160", dtype, rng.standard_normal, t,
+                                     x / (1.0 + np.exp(-x)), H, W, w, True, "cuda"):
             if case.name == "ss2d_col_sum":
                 err, tol = smoke.compare(case)
                 assert err <= tol and case.other_clamp > 1, (dtype, err, tol, case.other_clamp)

@@ -109,7 +109,17 @@ def test_unported_options_raise(folder):
     with pytest.raises(NotImplementedError, match="lmdb"):
         build_dataset(dict(_opt(folder, "train"), io_backend={"type": "lmdb"}))
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_dataset(dict(_opt(folder, "train"), type="REDSDataset"))
+        build_dataset(dict(_opt(folder, "train"), type="NoSuchDataset"))
+    # the video datasets are ported; their lmdb backend stays refused
+    meta = os.path.join(folder, "meta_info.txt")
+    with open(meta, "w") as f:
+        f.write("001 4 (16,16,3)\n")
+    reds = build_dataset(dict(type="REDSDataset", phase="train", dataroot_gt=folder,
+                              dataroot_lq=folder, meta_info_file=meta, num_frame=3, gt_size=8,
+                              scale=1, frames_per_clip=4, io_backend={"type": "lmdb"}))
+    assert type(reds).__name__ == "REDSDataset" and len(reds) == 4
+    with pytest.raises(NotImplementedError, match="lmdb"):
+        reds[1]
 
 
 @pytest.mark.parametrize("n,replicas,ratio,seed", [(7, 1, 1, 0), (10, 2, 3, 100), (5, 3, 2, 7)])

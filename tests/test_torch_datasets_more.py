@@ -227,9 +227,12 @@ def test_registry():
     ported = {"Dataset_PairedImage", "Dataset_PairedImage_Mask", "Dataset_PairedImage_Slide",
               "Dataset_PairedImage_Norm", "Dataset_DefocusDeblur_DualPixel_16bit",
               "PairedImageDataset", "SingleImageDataset", "Dataset_GaussianDenoising",
-              "FFHQDataset", "Dataset_SIDImage", "RealESRGANDataset", "RealESRGANPairedDataset"}
+              "FFHQDataset", "Dataset_SIDImage", "RealESRGANDataset", "RealESRGANPairedDataset",
+              "REDSDataset", "Vimeo90KDataset", "VideoTestDataset", "REDSRecurrentDataset",
+              "Vimeo90KRecurrentDataset", "VideoTestVimeo90KDataset", "VideoTestDUFDataset",
+              "VideoRecurrentTestDataset"}
     assert set(DATASETS) == ported
-    for name in ("Vimeo90KDataset", "REDSDataset"):
+    for name in ("Vimeo90KDatasetX", "LMDBDataset"):
         with pytest.raises(NotImplementedError, match=f"dataset {name} is not ported"):
             build_dataset({"type": name})
     with pytest.raises(NotImplementedError, match="lmdb"):

@@ -148,12 +148,18 @@ def test_bmp_matches_cv2(tmp_path, shape):
 
 def test_unsupported_images_raise_naming_the_file(tmp_path):
     img = _rand(np.random.default_rng(3), 8, 8, 3)
-    # TIFF, progressive JPEG, interlaced PNG and every BMP cv2 reads are
-    # decoded (test_torch_tiff_bmp_png.py, test_torch_jpeg_progressive.py);
-    # WebP, a 4-bit grey TIFF and a 16-bit BMP with 4-4-4 masks raise
+    # TIFF, progressive JPEG, interlaced PNG, every BMP cv2 reads and still
+    # WebP are decoded (test_torch_tiff_bmp_png.py,
+    # test_torch_jpeg_progressive.py, test_torch_webp.py); an animated WebP,
+    # a 4-bit grey TIFF and a 16-bit BMP with 4-4-4 masks raise
     path = tmp_path / "x.webp"
     _write_cv2(path, img)
-    with pytest.raises(ValueError, match=f"{path}: WebP decoding is not supported"):
+    np.testing.assert_array_equal(imread(str(path), float32=False), _cv2_rgb(path))
+    anim = cv2.Animation()
+    anim.frames, anim.durations = [img, img[::-1].copy()], [100, 100]
+    path = tmp_path / "anim.webp"
+    assert cv2.imwriteanimation(str(path), anim) and cv2.imread(str(path)) is not None
+    with pytest.raises(ValueError, match=f"{path}: an animated WebP"):
         imread(str(path))
     path = tmp_path / "grey4.tif"
     path.write_bytes(encode_tiff(_rand(np.random.default_rng(3), 8, 8, 1, hi=16), 1, 4, 8))

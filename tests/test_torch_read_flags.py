@@ -164,15 +164,34 @@ def test_grey_png_with_gamma_is_refused():
     same(encode_png_samples(s, 2, 8, chunks=[(b"gAMA", struct.pack(">I", 100000))]), "grayscale")
 
 
-@pytest.mark.parametrize("ext,kind", [(".webp", "WebP"), (".ppm", "PNM"), (".pgm", "PNM"),
-                                      (".ras", "Sun raster"), (".hdr", "HDR"),
+@pytest.mark.parametrize("ext,kind", [(".webp", "an animated WebP"), (".ppm", "PNM"),
+                                      (".pgm", "PNM"), (".ras", "Sun raster"), (".hdr", "HDR"),
                                       (".jp2", "JPEG 2000")])
 def test_other_formats_raise_naming_the_file(ext, kind):
+    """Formats cv2 reads and the port refuses; of WebP, the animated kind
+    (cv2 reads its first frame; still WebP: test_webp_reads_as_cv2)."""
     img = np.random.default_rng(4).integers(0, 256, (64, 64, 3)).astype(np.uint8)
-    ok, buf = cv2.imencode(ext, img if ext != ".pgm" else img[..., 0])
+    if ext == ".webp":
+        anim = cv2.Animation()
+        anim.frames, anim.durations = [img, img[::-1].copy()], [100, 100]
+        ok, buf = cv2.imencodeanimation(ext, anim)
+    else:
+        ok, buf = cv2.imencode(ext, img if ext != ".pgm" else img[..., 0])
     assert ok and cv2.imdecode(buf, cv2.IMREAD_COLOR) is not None
     with pytest.raises(ValueError, match=f"f{ext}: {kind}"):
         imfrombytes(buf.tobytes(), name=f"f{ext}")
+
+
+@pytest.mark.parametrize("flag", FLAGS)
+@pytest.mark.parametrize("quality,alpha", [(80, False), (101, False), (80, True), (101, True)])
+def test_webp_reads_as_cv2(flag, quality, alpha):
+    """Lossy and lossless WebP, with and without alpha, under each read flag
+    as bem_tpu's cv2 reads them (0 LSB)."""
+    img = scene(quality, 37, 53)
+    if alpha:
+        img = np.concatenate([img, np.arange(37 * 53, dtype=np.uint8).reshape(37, 53, 1)], -1)
+    ok, buf = cv2.imencode(".webp", img, [cv2.IMWRITE_WEBP_QUALITY, quality])
+    same(buf.tobytes(), flag)
 
 
 SIZES = [((37, 53), (16, 16)), ((37, 53), (106, 74)), ((37, 53), (26, 18)),

@@ -194,6 +194,7 @@ def test_registry():
     assert {"RealESRGANDataset", "RealESRGANPairedDataset"} <= set(DATASETS)
     for name in ("REDSDataset", "Vimeo90KDataset", "VideoTestDataset",
                  "VideoRecurrentTestDataset"):
-        with pytest.raises(NotImplementedError, match=f"dataset {name} is not ported "
-                                                      "\\(a video dataset"):
-            build_dataset({"type": name})
+        assert DATASETS[name].__module__ == "bem_tpu_torch.data.video_datasets"
+    with pytest.raises(NotImplementedError, match="dataset VideoDataset is not ported "
+                                                  "\\(unknown"):
+        build_dataset({"type": "VideoDataset"})
