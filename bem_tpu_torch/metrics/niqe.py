@@ -18,8 +18,10 @@ import os
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ..utils.cv_ops import bgr2gray
+from ..utils.matlab_functions import _contributions
 from .metric_util import reorder_image, to_y_channel
 
 _GAM = np.arange(0.2, 10.001, 0.001)
@@ -33,34 +35,8 @@ def _r_gam() -> np.ndarray:
     return torch.exp(2 * lg(2.0 / g) - lg(1.0 / g) - lg(3.0 / g)).numpy()
 
 
-def _cubic(x):
-    ax = np.abs(x)
-    ax2, ax3 = ax ** 2, ax ** 3
-    return (1.5 * ax3 - 2.5 * ax2 + 1) * (ax <= 1) + (
-        -0.5 * ax3 + 2.5 * ax2 - 4 * ax + 2) * ((ax > 1) & (ax <= 2))
-
-
-def _contributions(in_length: int, out_length: int, scale: float):
-    """MATLAB imresize bicubic weights with antialiasing (the numpy helper
-    of bem_tpu/utils/matlab_functions.py)."""
-    kernel_width = 4.0 / scale if scale < 1 else 4.0
-    x = np.arange(1, out_length + 1, dtype=np.float64)
-    u = x / scale + 0.5 * (1 - 1 / scale)
-    left = np.floor(u - kernel_width / 2)
-    p = int(np.ceil(kernel_width)) + 2
-    indices = left[:, None] + np.arange(p)[None, :] - 1
-    dist = u[:, None] - (indices + 1)
-    weights = scale * _cubic(dist * scale) if scale < 1 else _cubic(dist)
-    weights = weights / np.sum(weights, axis=1, keepdims=True)
-    nz = np.nonzero(np.any(weights != 0, axis=0))[0]
-    weights = weights[:, nz[0]:nz[-1] + 1]
-    indices = indices[:, nz[0]:nz[-1] + 1]
-    aux = np.concatenate([np.arange(in_length), np.arange(in_length - 1, -1, -1)])
-    return weights, aux[np.mod(indices.astype(np.int64), 2 * in_length)]
-
-
 def _resize_half_mat(n: int, dtype=np.float32) -> np.ndarray:
-    wts, idx = _contributions(n, int(np.ceil(n * 0.5)), 0.5)
+    wts, idx = _contributions(n, int(np.ceil(n * 0.5)), 0.5, antialiasing=True)
     M = np.zeros((wts.shape[0], n), dtype)
     np.add.at(M, (np.arange(wts.shape[0])[:, None], idx), wts)
     return M
@@ -117,26 +93,31 @@ def _mscn(img, window):
     return (img - mu) / (sigma + 1.0)
 
 
-class _Niqe:
+class NiqeCore(nn.Module):
     """NIQE of (K, h, w) Y images in [0, 255] at a fixed size, in ``dtype``;
     ``np_cov`` takes np.cov's reading of an image with one good block (the
-    host metric's), else its covariance is 0 (niqe_jax's)."""
+    host metric's), else its covariance is 0 (niqe_jax's). The pristine
+    model, the filter window, the half-size resize matrices and the alpha
+    table are buffers, so a module that holds the core carries them into
+    its exported program."""
 
     def __init__(self, h: int, w: int, device, dtype=torch.float32, np_cov: bool = False):
+        super().__init__()
         p = np.load(os.path.join(os.path.dirname(__file__), "niqe_pris_params.npz"))
         np_dtype = np.float64 if dtype == torch.float64 else np.float32
         self.dtype, self.np_cov = dtype, np_cov
-        t = lambda a: torch.as_tensor(np.asarray(a, np_dtype), device=device)  # noqa: E731
-        self.mu_pris = t(np.squeeze(p["mu_pris_param"]))
-        self.cov_pris = t(p["cov_pris_param"])
-        self.window = t(p["gaussian_window"])
         self.nbh, self.nbw = h // BLOCK, w // BLOCK
         self.hc, self.wc = self.nbh * BLOCK, self.nbw * BLOCK
-        self.Mh = t(_resize_half_mat(self.hc, np_dtype))
-        self.Mw = t(_resize_half_mat(self.wc, np_dtype))
-        self.r_gam, self.gam = t(_r_gam()), t(_GAM)
+        for name, a in (("mu_pris", np.squeeze(p["mu_pris_param"])),
+                        ("cov_pris", p["cov_pris_param"]), ("window", p["gaussian_window"]),
+                        ("Mh", _resize_half_mat(self.hc, np_dtype)),
+                        ("Mw", _resize_half_mat(self.wc, np_dtype)),
+                        ("r_gam", _r_gam()), ("gam", _GAM)):
+            self.register_buffer(name, torch.as_tensor(np.ascontiguousarray(a, np_dtype),
+                                                       device=device),
+                                 persistent=False)
 
-    def __call__(self, img):
+    def forward(self, img):
         img = img[:, :self.hc, :self.wc].to(self.dtype)
         K = img.shape[0]
         feats, valids = [], []
@@ -163,6 +144,9 @@ class _Niqe:
         dmu = (mu_good - mu_dist)[..., None]
         cov = cov - (n_good / (n_good - 1.0))[..., None] * (dmu @ dmu.transpose(1, 2))
         if self.np_cov:
+            if torch.compiler.is_compiling():
+                raise RuntimeError("NIQE with np_cov picks its images by value (.tolist()): "
+                                   "it cannot be traced or exported")
             # np.cov reads a single good row as one variable of 36
             # observations: a scalar variance added to every entry
             for k in torch.nonzero(row_ok.sum((1, 2)) == 1).flatten().tolist():
@@ -189,7 +173,7 @@ def niqe_batch_rgb(h: int, w: int):
     def fn(imgs):
         core = cores.get(imgs.device)
         if core is None:
-            core = cores[imgs.device] = _Niqe(h, w, imgs.device)
+            core = cores[imgs.device] = NiqeCore(h, w, imgs.device)
         return core(rgb_to_y_255(imgs))
 
     return fn
@@ -211,4 +195,4 @@ def calculate_niqe(img, crop_border, input_order="HWC", convert_to="y", **kwargs
     if crop_border != 0:
         img = img[crop_border:-crop_border, crop_border:-crop_border]
     img = torch.from_numpy(np.ascontiguousarray(img.round(), np.float64))
-    return float(_Niqe(*img.shape, "cpu", torch.float64, np_cov=True)(img[None])[0])
+    return float(NiqeCore(*img.shape, "cpu", torch.float64, np_cov=True)(img[None])[0])

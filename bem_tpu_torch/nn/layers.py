@@ -57,6 +57,24 @@ class BayesLayer(nn.Module):
             getattr(self, f"rho_{name}").fill_(rho_from_sigma(self.sigma_init))
 
 
+def _bayes_pairs(module: nn.Module):
+    """(name of mu_*, mu, rho) of every Bayesian parameter pair in
+    ``named_parameters`` order."""
+    params = dict(module.named_parameters())
+    for name, mu in params.items():
+        head, _, leaf = name.rpartition(".")
+        if leaf.startswith("mu_"):
+            yield name, mu, params[(head + "." if head else "") + "rho_" + leaf[3:]]
+
+
+def sample_noise(module: nn.Module, gen) -> dict:
+    """``{name of mu_*: eps}``, one standard-normal draw a Bayesian
+    parameter from ``gen`` in ``named_parameters`` order, on the
+    generator's device: the noise ``sample_bayes(module, gen)`` draws."""
+    return {name: torch.randn(mu.shape, generator=gen, device=gen.device, dtype=mu.dtype)
+            for name, mu, _ in _bayes_pairs(module)}
+
+
 def sample_bayes(module: nn.Module, gen=None, eps=None) -> dict:
     """One weight sample of every Bayesian parameter pair in ``module``.
 
@@ -64,22 +82,16 @@ def sample_bayes(module: nn.Module, gen=None, eps=None) -> dict:
     ``torch.func.functional_call``; ``eps`` is drawn from ``gen`` in
     ``named_parameters`` order, on the generator's device (so a CPU
     generator gives the same sample to a module on any device), or taken
-    from the injected ``eps`` dict under the same names. With neither,
-    returns {} and the module runs on mu.
+    from the injected ``eps`` dict under the same names; an injected eps
+    with a leading axis of K draws gives the K samples at once, stacked.
+    With neither, returns {} and the module runs on mu.
     """
     if gen is None and eps is None:
         return {}
-    params = dict(module.named_parameters())
-    out = {}
-    for name, mu in params.items():
-        head, _, leaf = name.rpartition(".")
-        if not leaf.startswith("mu_"):
-            continue
-        rho = params[(head + "." if head else "") + "rho_" + leaf[3:]]
-        e = eps[name] if eps is not None else torch.randn(
-            mu.shape, generator=gen, device=gen.device, dtype=mu.dtype)
-        out[name] = mu + F.softplus(rho) * e.to(mu.device)
-    return out
+    if eps is None:
+        eps = sample_noise(module, gen)
+    return {name: mu + F.softplus(rho) * eps[name].to(mu.device)
+            for name, mu, rho in _bayes_pairs(module)}
 
 
 class Conv2d(BayesLayer):

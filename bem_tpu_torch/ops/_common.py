@@ -1,7 +1,15 @@
-"""Argument handling and math shared by the kernel wrappers.
+"""Argument handling, math and operator registration shared by the kernel
+wrappers.
 
 A wrapper runs its kernel's plain PyTorch version only for tensors on the
 CPU; for CUDA tensors it launches the kernel or raises. Nothing falls back.
+
+Each kernel row's launch sequence is a ``torch.library`` operator in the
+``bem`` namespace (:func:`operator`): its CUDA implementation launches the
+kernels, its CPU implementation is the plain version, and its fake
+implementation gives the outputs' shapes and dtypes only, so that
+``torch.export`` can trace a net on any machine without building the
+kernels. Importing ``bem_tpu_torch.ops`` registers every operator.
 """
 
 from __future__ import annotations
@@ -9,6 +17,7 @@ from __future__ import annotations
 import contextlib
 
 import torch
+from torch.utils import flop_counter
 
 STREAM_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -20,6 +29,13 @@ def on_cuda(x: torch.Tensor, name: str) -> bool:
     if x.device.type == "cpu":
         return False
     raise RuntimeError(f"{name}: unsupported device {x.device}")
+
+
+def need_cuda(x: torch.Tensor, name: str) -> None:
+    """A CUDA implementation's guard: its stream tensor lies on the card
+    (the dispatcher picks it where any argument does)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes a CUDA stream, not one on {x.device}")
 
 
 def check_stream(name: str, x: torch.Tensor, shape=None) -> None:
@@ -39,6 +55,59 @@ def weight(t, device, shape=None, name="weight"):
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
     return t
+
+
+# the port's operators: bem::<name>
+OPS = torch.library.Library("bem", "DEF")
+
+
+def _device_type(args) -> str:
+    """The device type of the first tensor among ``args`` (or in a list)."""
+    for a in args:
+        if isinstance(a, (list, tuple)):
+            a = next((t for t in a if isinstance(t, torch.Tensor)), None)
+        if isinstance(a, torch.Tensor):
+            return a.device.type
+    raise ValueError("a bem operator was called without a tensor")
+
+
+def operator(name: str, schema: str, cpu, cuda, fake):
+    """Define ``bem::<name><schema>`` with its CPU (plain version), CUDA
+    (kernels) and fake (shapes only) implementations; returns the overload.
+
+    FlopCounterMode would see an operator's call and nothing of its work:
+    under it the implementation runs with the mode active, so that
+    ``count_flops`` sees what the plain version or the kernels do, as it did
+    before the operator existed (the wrappers' ``counted_as`` statements
+    then replace what it saw)."""
+    OPS.define(name + schema)
+    OPS.impl(name, cpu, "CPU")
+    OPS.impl(name, cuda, "CUDA")
+    qualname = f"bem::{name}"
+
+    def shapes_only(*args):  # the Meta kernel too: a meta tensor is refused
+        device = _device_type(args)
+        if device not in ("cpu", "cuda"):
+            raise RuntimeError(f"{name}: unsupported device {device}")
+        return fake(*args)
+
+    torch.library.register_fake(qualname, shapes_only, lib=OPS)
+
+    def under_flop_counter(mode, func, types, args, kwargs):
+        impl = cuda if _device_type(args) == "cuda" else cpu
+        with mode:
+            return impl(*args, **kwargs)
+
+    torch.library.register_torch_dispatch(qualname, flop_counter._FlopCounterMode,
+                                          under_flop_counter, lib=OPS)
+    return getattr(torch.ops.bem, name).default
+
+
+def fresh(out, *inputs):
+    """``out``, contiguous and sharing no tensor object with ``inputs`` (an
+    operator's output may not alias its inputs)."""
+    out = out.contiguous()
+    return out.clone() if any(out is t for t in inputs) else out
 
 
 def ptr(t):

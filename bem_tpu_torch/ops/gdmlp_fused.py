@@ -38,7 +38,9 @@ launch) and the stem deals its hidden chunks over blocks;
 :func:`gdmlp_form` and :func:`stem_form` say which form a call runs.
 Wider nets run CUDA-core forms on either stream.
 
-Both are differentiable: the backward recomputes through the jnp oracles'
+Each is a ``torch.library`` operator, ``bem::stem_fused`` and
+``bem::gdmlp_fused`` (ops/_common.py). Both are differentiable: the
+backward recomputes through the jnp oracles'
 counterparts :func:`_stem_ref` and :func:`_gdmlp_ref`
 (gdmlp_fused.py:618-673), for every argument that is not None.
 """
@@ -48,9 +50,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._common import (check_stream, counted_as, layer_norm_c, on_cuda, ptr, ref_grads,
-                      round_bf16,
-                      weight)
+from ._common import (check_stream, counted_as, layer_norm_c, need_cuda, operator, ptr,
+                      ref_grads, round_bf16, weight)
 
 
 def _dw3x3(hid: torch.Tensor, dw: torch.Tensor) -> torch.Tensor:
@@ -99,11 +100,15 @@ def stem_fused_cf_plain(x, W1, b1, dw, bdw, H: int, Wd: int, lns=None, lnb=None)
     return _stem_plain(*_stem_args(x, W1, b1, dw, bdw, H, Wd, lns, lnb))
 
 
-def _stem_run(x, W1, b1, dw, bdw, H, Wd, lns, lnb):
-    args = _stem_args(x, W1, b1, dw, bdw, H, Wd, lns, lnb)
-    if not on_cuda(x, "stem_fused_cf"):
-        return _stem_plain(*args)
-    x, W1, b1, dw, bdw, H, Wd, lns, lnb = args
+def _stem_cpu(x, W1, b1, dw, bdw, H, Wd, lns, lnb):
+    """bem::stem_fused on the CPU: the plain version."""
+    return _stem_plain(*_stem_args(x, W1, b1, dw, bdw, H, Wd, lns, lnb))
+
+
+def _stem_cuda(x, W1, b1, dw, bdw, H, Wd, lns, lnb):
+    """bem::stem_fused on the card: one launch."""
+    need_cuda(x, "stem_fused_cf")
+    x, W1, b1, dw, bdw, H, Wd, lns, lnb = _stem_args(x, W1, b1, dw, bdw, H, Wd, lns, lnb)
     B, C, L = x.shape
     Dh = W1.shape[0]
     out = torch.empty((B, Dh, L), dtype=x.dtype, device=x.device)
@@ -112,6 +117,16 @@ def _stem_run(x, W1, b1, dw, bdw, H, Wd, lns, lnb):
                 int(x.dtype == torch.bfloat16))
     stem_fused_cf.launches += 1
     return out
+
+
+def _stem_fake(x, W1, b1, dw, bdw, H, Wd, lns, lnb):
+    _stem_args(x, W1, b1, dw, bdw, H, Wd, lns, lnb)
+    return x.new_empty((x.shape[0], W1.shape[0], x.shape[2]))
+
+
+_stem_op = operator(
+    "stem_fused", "(Tensor x, Tensor W1, Tensor? b1, Tensor dw, Tensor? bdw, SymInt H, "
+    "SymInt Wd, Tensor? lns, Tensor? lnb) -> Tensor", _stem_cpu, _stem_cuda, _stem_fake)
 
 
 def _gdmlp_plain(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual):
@@ -166,10 +181,16 @@ def gdmlp_fused_cf_plain(x, W1, b1, dw, bdw, W2, b2, H: int, Wd: int, lns=None,
                                      lnb, residual))
 
 
-def _gdmlp_run(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual):
+def _gdmlp_cpu(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual):
+    """bem::gdmlp_fused on the CPU: the plain version."""
+    return _gdmlp_plain(*_gdmlp_args(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual))
+
+
+def _gdmlp_cuda(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual):
+    """bem::gdmlp_fused on the card: 1 launch, or 2-3 for the fp32
+    tensor-core form (its workspace sized by the library)."""
+    need_cuda(x, "gdmlp_fused_cf")
     args = _gdmlp_args(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual)
-    if not on_cuda(x, "gdmlp_fused_cf"):
-        return _gdmlp_plain(*args)
     x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual = args
     B, C, L = x.shape
     Cout, h = W2.shape
@@ -186,6 +207,17 @@ def _gdmlp_run(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual):
         launches = 2 + (gdmlp_form(B, C, h, Cout, H, Wd, x.dtype) > 1)
     gdmlp_fused_cf.launches += launches
     return out
+
+
+def _gdmlp_fake(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual):
+    _gdmlp_args(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual)
+    return x.new_empty((x.shape[0], W2.shape[0], x.shape[2]))
+
+
+_gdmlp_op = operator(
+    "gdmlp_fused", "(Tensor x, Tensor W1, Tensor? b1, Tensor dw, Tensor? bdw, Tensor W2, "
+    "Tensor? b2, SymInt H, SymInt Wd, Tensor? lns, Tensor? lnb, bool residual) -> Tensor",
+    _gdmlp_cpu, _gdmlp_cuda, _gdmlp_fake)
 
 
 def gdmlp_form(B, C, h, Cout, H, Wd, dtype) -> int:
@@ -237,7 +269,7 @@ class _Stem(torch.autograd.Function):
     def forward(ctx, x, W1, b1, dw, bdw, H, Wd, lns, lnb):
         ctx.hw = (H, Wd)
         ctx.save_for_backward(x, W1, b1, dw, bdw, lns, lnb)
-        return _stem_run(x, W1, b1, dw, bdw, H, Wd, lns, lnb)
+        return _stem_op(x, W1, b1, dw, bdw, H, Wd, lns, lnb)
 
     @staticmethod
     def backward(ctx, g):
@@ -256,7 +288,7 @@ class _GdMlp(torch.autograd.Function):
     def forward(ctx, x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual):
         ctx.cfg = (H, Wd, residual)
         ctx.save_for_backward(x, W1, b1, dw, bdw, W2, b2, lns, lnb)
-        return _gdmlp_run(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual)
+        return _gdmlp_op(x, W1, b1, dw, bdw, W2, b2, H, Wd, lns, lnb, residual)
 
     @staticmethod
     def backward(ctx, g):

@@ -13,8 +13,10 @@ scan whose chunks fold their predecessors' published aggregates in a
 fixed order (anchors every ``SCAN_ANCHOR`` chunks), so that every run
 gives the same bits. Its workspace is cached per device and stream and
 never cleared (the flags carry each call's epoch, kept on the device): a
-call allocates only h. The plain version (:func:`scan_plain`, shared with
-``ss2d_seq``) is the doubling scan: log2(L) elementwise passes. The
+call allocates only h. The launch is the operator ``bem::linear_scan``
+(ops/_common.py); the row operators that carry on it call
+:func:`scan_cuda` inside their own. The plain version
+(:func:`scan_plain`, shared with ``ss2d_seq``) is the doubling scan: log2(L) elementwise passes. The
 backward is the same primitive run in the opposite direction over the
 shifted ``a`` and ``h``
 (bem_tpu/ops/scan.py:225-254): with lambda_t = g_t + a_{t+1} lambda_{t+1},
@@ -32,7 +34,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from ._common import counted_as, on_cuda, ptr, softplus
+from ._common import counted_as, fresh, need_cuda, operator, ptr, softplus
 
 SCAN_THREADS = 256  # threads of a block of either form
 SCAN_SEG = 16       # positions a thread of the look-back form holds (kScanSeg)
@@ -105,12 +107,22 @@ def linear_scan_plain(a: torch.Tensor, b: torch.Tensor, reverse: bool = False):
     return scan_plain(a, b, reverse, dim=-2)
 
 
-def _run(a: torch.Tensor, b: torch.Tensor, reverse: bool) -> torch.Tensor:
-    """One scan: the plain version for CPU tensors, the kernel for CUDA ones."""
+def _check(a: torch.Tensor, b: torch.Tensor) -> None:
     if a.shape != b.shape or a.dim() < 2:
         raise ValueError(f"linear_scan: shapes {tuple(a.shape)} / {tuple(b.shape)}")
-    if not on_cuda(a, "linear_scan"):
-        return linear_scan_plain(a, b, reverse)
+
+
+def _scan_cpu(a: torch.Tensor, b: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """bem::linear_scan on the CPU: the plain version."""
+    _check(a, b)
+    return fresh(linear_scan_plain(a, b, reverse), a, b)
+
+
+def scan_cuda(a: torch.Tensor, b: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """bem::linear_scan on the card: one launch of the kernel. The row
+    operators' carries call it directly, inside their own operator."""
+    _check(a, b)
+    need_cuda(a, "linear_scan")
     if a.dtype != torch.float32 or b.dtype != torch.float32:
         raise TypeError(f"linear_scan: the kernel takes fp32 ({a.dtype}, {b.dtype})")
     if b.device != a.device:
@@ -128,6 +140,15 @@ def _run(a: torch.Tensor, b: torch.Tensor, reverse: bool) -> torch.Tensor:
                 int(plan.walk), plan.DT, plan.P, plan.nch, SCAN_ANCHOR, int(reverse))
     linear_scan.launches += 1
     return h.reshape(a.shape)
+
+
+def _scan_fake(a: torch.Tensor, b: torch.Tensor, reverse: bool) -> torch.Tensor:
+    _check(a, b)
+    return a.new_empty(a.shape)
+
+
+_run = operator("linear_scan", "(Tensor a, Tensor b, bool reverse) -> Tensor",
+                _scan_cpu, scan_cuda, _scan_fake)
 
 
 class _LinearScan(torch.autograd.Function):

@@ -23,7 +23,8 @@ autograd.Function whose backward recomputes through that composition on
 bem_tpu's custom VJP does (scan_fused.py:168-173); the gradients of A, D
 and delta_bias sum over the batch, since bem_tpu broadcasts them
 (scan_fused.py:198-210). On CPU tensors the wrapper runs the plain
-version; on CUDA tensors it launches ``csrc/scan_fused.cu`` or raises.
+version; on CUDA tensors it launches ``csrc/scan_fused.cu`` or raises,
+through the operator ``bem::selective_scan_fused`` (ops/_common.py).
 
 On the card the scan is chunked along L: super-chunks of S positions (S
 from the kernel source, :func:`scan_chunk`); where L > S a summary pass
@@ -39,8 +40,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._common import STREAM_DTYPES, on_cuda, ptr, ref_grads, weight
-from .scan import linear_scan, linear_scan_plain
+from ._common import STREAM_DTYPES, fresh, need_cuda, operator, ptr, ref_grads, weight
+from .scan import linear_scan, linear_scan_plain, scan_cuda
 from .ss2d_fused import N_STATES, W_CLAMP, _softplus
 
 
@@ -126,7 +127,7 @@ def _kernels(u, delta, A, B, C, D, delta_bias, delta_softplus, S):
         _build.call("bem_selective_scan_sum", ptr(u), ptr(delta), ptr(A), ptr(B),
                     ptr(delta_bias), ptr(aprod), ptr(hend), M, K, Cd, L, N, S, *args)
         selective_scan_fused.launches += 1
-        carry = linear_scan(aprod, hend)
+        carry = scan_cuda(aprod, hend, False)
     y = torch.empty_like(u)
     _build.call("bem_selective_scan_fused", ptr(u), ptr(delta), ptr(A), ptr(B), ptr(C),
                 ptr(D), ptr(delta_bias), ptr(carry), ptr(y), M, K, Cd, L, N, S, *args)
@@ -144,15 +145,31 @@ def _cuda_args(u, delta, A, B, C, D, delta_bias):
     return (u, delta, weight(A, dev), B, C, weight(D, dev), weight(delta_bias, dev))
 
 
-def _run(u, delta, A, B, C, D, delta_bias, delta_softplus):
-    """y: the plain version for CPU tensors, the kernels for CUDA ones."""
+def _scan_cpu(u, delta, A, B, C, D, delta_bias, delta_softplus):
+    """bem::selective_scan_fused on the CPU: the plain version."""
+    return fresh(selective_scan_fused_plain(u, delta, A, B, C, D, delta_bias, delta_softplus),
+                 u, delta)
+
+
+def _scan_cuda(u, delta, A, B, C, D, delta_bias, delta_softplus):
+    """bem::selective_scan_fused on the card: the summary pass and its
+    carry (kernel 7) where L > S, the full pass."""
+    need_cuda(u, "selective_scan_fused")
     Bt, K, Cd, L, N = _check(u, delta, A, B, C, D, delta_bias)
-    if not on_cuda(u, "selective_scan_fused"):
-        return selective_scan_fused_plain(u, delta, A, B, C, D, delta_bias, delta_softplus)
     args = _cuda_args(u, delta, A, B, C, D, delta_bias)
     if u.numel() == 0:
         return torch.empty_like(u)
     return _kernels(*args, delta_softplus, scan_chunk(Bt * K, Cd, N, L))
+
+
+def _scan_fake(u, delta, A, B, C, D, delta_bias, delta_softplus):
+    _check(u, delta, A, B, C, D, delta_bias)
+    return u.new_empty(u.shape)
+
+
+_run = operator(
+    "selective_scan_fused", "(Tensor u, Tensor delta, Tensor A, Tensor B, Tensor C, Tensor? D, "
+    "Tensor? delta_bias, bool delta_softplus) -> Tensor", _scan_cpu, _scan_cuda, _scan_fake)
 
 
 class _ScanFused(torch.autograd.Function):

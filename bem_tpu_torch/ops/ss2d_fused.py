@@ -38,6 +38,8 @@ walks every super-chunk at once from the state entering it and writes y and
 the checkpoints. Its launches count the summary and the full pass (1 or 2 a
 call); the projection's GEMM and the carry (on ``linear_scan``) do not.
 
+The forward is the operator ``bem::ss2d_dir_fused`` (both clamp
+settings, ops/_common.py); the backward's kernels (row 9) launch directly.
 On CPU tensors the wrappers run the plain versions below: the forward as a
 composition on the doubling scan, the backward as its formulas written out
 (the same lambda recurrence on the same scan). On CUDA tensors they launch
@@ -49,9 +51,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._common import check_stream, counted_as, on_cuda, ptr, weight
+from ._common import check_stream, counted_as, need_cuda, on_cuda, operator, ptr, weight
 from ._common import softplus as _softplus
-from .scan import linear_scan, scan_plain
+from .scan import linear_scan, scan_cuda, scan_plain
 
 W_CLAMP = -10.0  # ss2d_fused_g.py:52
 CKPT = 32        # scan positions per state checkpoint (the CUDA kernels' chunk)
@@ -143,7 +145,9 @@ def fused_checkpoints_plain(xs2, Wx, Wdt, bias, A, D, clamp: bool = False):
     """The states the forward kernel checkpoints, plainly: per (image,
     stream, direction) the state entering every CKPT-long chunk of the
     direction's scan order (0 for the first), (B, 2, 2, ceil(L / CKPT), C,
-    N) fp32, on any device. For the checks: the port never calls it."""
+    N) fp32, on any device. For the checks, and for bem::ss2d_dir_fused on
+    the CPU where checkpoints are asked (the port's forward asks for them
+    only on the card)."""
     Wx, Wdt, bias, A, D = _args(xs2, Wx, Wdt, bias, A, D)
     B, _, C, L = xs2.shape
     N = A.shape[-1]
@@ -236,7 +240,7 @@ def _fwd_kernels(xs2, w, clamp: bool, with_ckpt: bool, S: int):
         _build.call("bem_ss2d_fused_fwd_sum", ptr(xs2), *map(ptr, w[1:4]), ptr(xdbl), ptr(aprod),
                     ptr(hend), B, C, L, R, N, S, int(clamp), bf16)
         counter.launches += 1
-        carry = linear_scan(aprod, hend)
+        carry = scan_cuda(aprod, hend, False)
     y = torch.empty_like(xs2)
     ck = torch.empty((B, 2, 2, -(-L // CKPT), C, N), **f32) if with_ckpt else None
     _build.call("bem_ss2d_fused_fwd", ptr(xs2), *map(ptr, w[1:]), ptr(xdbl), ptr(carry), ptr(y),
@@ -245,15 +249,47 @@ def _fwd_kernels(xs2, w, clamp: bool, with_ckpt: bool, S: int):
     return y, ck
 
 
-def _fwd_run(xs2, Wx, Wdt, bias, A, D, clamp: bool, with_ckpt: bool):
-    """(y2, checkpoints or None): plain version for CPU tensors, kernels for
-    CUDA ones. Checkpoints: (B, 2, 2, ceil(L / CKPT), C, N) fp32, the state
-    entering each chunk of each direction in its scan order."""
+def _fwd_cpu(xs2, Wx, Wdt, bias, A, D, clamp, with_ckpt):
+    """bem::ss2d_dir_fused on the CPU: the plain version (and, where asked,
+    the checkpoints' plain version)."""
     w = _args(xs2, Wx, Wdt, bias, A, D)
-    if not on_cuda(xs2, "ss2d_dir_fused"):
-        return _fwd_plain(xs2, *w, clamp), None
+    ck = (fused_checkpoints_plain(xs2, *w, clamp) if with_ckpt
+          else xs2.new_empty((0,), dtype=torch.float32))
+    return _fwd_plain(xs2, *w, clamp), ck
+
+
+def _fwd_cuda(xs2, Wx, Wdt, bias, A, D, clamp, with_ckpt):
+    """bem::ss2d_dir_fused on the card: the projection, the summary pass
+    and its carry (kernel 7) where L > S, the full pass."""
+    need_cuda(xs2, "ss2d_dir_fused")
+    w = _args(xs2, Wx, Wdt, bias, A, D)
     B, _, C, L = xs2.shape
-    return _fwd_kernels(xs2, w, clamp, with_ckpt, fused_chunk(B, C, w[3].shape[-1], L))
+    y, ck = _fwd_kernels(xs2, w, clamp, with_ckpt, fused_chunk(B, C, w[3].shape[-1], L))
+    return y, (ck if with_ckpt else xs2.new_empty((0,), dtype=torch.float32))
+
+
+def _ckpt_shape(xs2, A):
+    B, _, C, L = xs2.shape
+    return (B, 2, 2, -(-L // CKPT), C, A.shape[-1])
+
+
+def _fwd_fake(xs2, Wx, Wdt, bias, A, D, clamp, with_ckpt):
+    _args(xs2, Wx, Wdt, bias, A, D)
+    return (xs2.new_empty(xs2.shape),
+            xs2.new_empty(_ckpt_shape(xs2, A) if with_ckpt else (0,), dtype=torch.float32))
+
+
+_fwd_op = operator(
+    "ss2d_dir_fused", "(Tensor xs2, Tensor Wx, Tensor Wdt, Tensor bias, Tensor A, Tensor D, "
+    "bool clamp, bool with_ckpt) -> (Tensor, Tensor)", _fwd_cpu, _fwd_cuda, _fwd_fake)
+
+
+def _fwd_run(xs2, Wx, Wdt, bias, A, D, clamp: bool, with_ckpt: bool):
+    """(y2, checkpoints or None) through bem::ss2d_dir_fused. Checkpoints:
+    (B, 2, 2, ceil(L / CKPT), C, N) fp32, the state entering each chunk of
+    each direction in its scan order."""
+    y, ck = _fwd_op(xs2, Wx, Wdt, bias, A, D, bool(clamp), bool(with_ckpt))
+    return y, (ck if with_ckpt else None)
 
 
 def _bwd_run(xs2, Wx, Wdt, bias, A, D, g, ck):

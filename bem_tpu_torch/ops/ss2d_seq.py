@@ -26,6 +26,11 @@ round(y_r + round(y_f + (D_f + D_r) x + y0)), bem_tpu's rounding points.
 The chunk length comes from the kernel source (:func:`col_chunk`); the
 plain pair walks one chunk per column.
 
+Each pass is a ``torch.library`` operator (ops/_common.py): the row pair
+``bem::ss2d_seq_pair`` (its two carries inside), the column pair's
+``bem::ss2d_col_sum`` and ``bem::ss2d_col_dir`` around two
+``bem::linear_scan`` carries.
+
 The forward passes clamp the log-decay at -10 (``W_CLAMP`` of the TPU
 kernels), and so do their plain versions, which match the kernels and not
 bem_tpu's unclamped ``_seq_pair_ref``. The backward of both pairs
@@ -38,8 +43,9 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._common import check_stream, counted_as, on_cuda, ptr, ref_grads, weight
-from .scan import linear_scan, linear_scan_plain, scan_plain
+from ._common import (check_stream, counted_as, need_cuda, on_cuda, operator, ptr, ref_grads,
+                      weight)
+from .scan import linear_scan, linear_scan_plain, scan_cuda, scan_plain
 
 PAIRS = {"row": (0, 2), "col": (1, 3)}
 W_CLAMP = -10.0
@@ -124,11 +130,16 @@ def ss2d_seq_pair_plain(xseq, Wx, Wdt, bias, A, D, pair: str):
     return _pair_plain(*_pair_args(xseq, Wx, Wdt, bias, A, D, pair))
 
 
-def _seq_pair_run(xseq, Wx, Wdt, bias, A, D, pair):
-    """The forward pass: plain version for CPU tensors, kernels for CUDA."""
+def _seq_pair_cpu(xseq, Wx, Wdt, bias, A, D, pair):
+    """bem::ss2d_seq_pair on the CPU: the plain version."""
+    return _pair_plain(*_pair_args(xseq, Wx, Wdt, bias, A, D, pair))
+
+
+def _seq_pair_cuda(xseq, Wx, Wdt, bias, A, D, pair):
+    """bem::ss2d_seq_pair on the card: the summary pass, the two carries
+    (kernel 7) and the full pass."""
+    need_cuda(xseq, "ss2d_seq_pair")
     xseq, fwd, rev = _pair_args(xseq, Wx, Wdt, bias, A, D, pair)
-    if not on_cuda(xseq, "ss2d_seq_pair"):
-        return _pair_plain(xseq, fwd, rev)
     B, C, L = xseq.shape
     N = fwd[3].shape[-1]
     R = fwd[0].shape[0] - 2 * N
@@ -141,13 +152,23 @@ def _seq_pair_run(xseq, Wx, Wdt, bias, A, D, pair):
     _build.call("bem_ss2d_seq_sum", ptr(xseq), *wts, ptr(a_f), ptr(b_f), ptr(a_r), ptr(b_r),
                 B, C, L, R, N, bf16)
     ss2d_seq_pair.launches += 1
-    h_f = linear_scan(a_f, b_f, False)
-    h_r = linear_scan(a_r, b_r, True)
+    h_f = scan_cuda(a_f, b_f, False)
+    h_r = scan_cuda(a_r, b_r, True)
     y = torch.empty_like(xseq)
     _build.call("bem_ss2d_seq_full", ptr(xseq), *wts, ptr(rev[4]), ptr(h_f), ptr(h_r), ptr(y),
                 B, C, L, R, N, bf16)
     ss2d_seq_pair.launches += 1
     return y
+
+
+def _seq_pair_fake(xseq, Wx, Wdt, bias, A, D, pair):
+    _pair_args(xseq, Wx, Wdt, bias, A, D, pair)
+    return xseq.new_empty(xseq.shape)
+
+
+_seq_pair_op = operator(
+    "ss2d_seq_pair", "(Tensor xseq, Tensor Wx, Tensor Wdt, Tensor bias, Tensor A, Tensor D, "
+    "str pair) -> Tensor", _seq_pair_cpu, _seq_pair_cuda, _seq_pair_fake)
 
 
 # ---------------------------------------------------------------------------
@@ -236,8 +257,44 @@ def ss2d_col_sum_plain(x, fwd, rev, H: int, W: int, T: int, clamp: bool = True):
     return tuple(out)
 
 
+def _col_sum_cpu(x, fwd, rev, H, W, T):
+    """bem::ss2d_col_sum on the CPU: the plain version."""
+    return tuple(ss2d_col_sum_plain(x, fwd, rev, H, W, T))
+
+
+def _col_sum_shape(x, fwd, H, W, T):
+    return (x.shape[0], W * -(-H // T), x.shape[1] * fwd[3].shape[-1])
+
+
+def _col_sum_cuda(x, fwd, rev, H, W, T):
+    """bem::ss2d_col_sum on the card: one launch of the summary pass."""
+    need_cuda(x, "ss2d_col_sum")
+    _col_check("ss2d_col_sum", x, H, W, fwd, rev)
+    B, C, _ = x.shape
+    N = fwd[3].shape[-1]
+    R = fwd[0].shape[0] - 2 * N
+    out = [torch.empty(_col_sum_shape(x, fwd, H, W, T), dtype=torch.float32, device=x.device)
+           for _ in range(4)]
+    _build.call("bem_ss2d_col_sum", ptr(x), *map(ptr, fwd), *map(ptr, rev), *map(ptr, out),
+                B, C, H, W, R, N, T, int(x.dtype == torch.bfloat16))
+    ss2d_col_sum.launches += 1
+    return tuple(out)
+
+
+def _col_sum_fake(x, fwd, rev, H, W, T):
+    _col_check("ss2d_col_sum", x, H, W, fwd, rev)
+    return tuple(x.new_empty(_col_sum_shape(x, fwd, H, W, T), dtype=torch.float32)
+                 for _ in range(4))
+
+
+_col_sum_op = operator(
+    "ss2d_col_sum", "(Tensor x, Tensor[] fwd, Tensor[] rev, SymInt H, SymInt W, SymInt T) -> "
+    "(Tensor, Tensor, Tensor, Tensor)", _col_sum_cpu, _col_sum_cuda, _col_sum_fake)
+
+
 def ss2d_col_sum(x, fwd, rev, H: int, W: int, T: int):
-    """Both column directions' chunk summaries in one top-down walk.
+    """Both column directions' chunk summaries in one top-down walk
+    (the operator bem::ss2d_col_sum).
 
     x (B, C, H*W) row-major stream; fwd / rev = (Wx (P, C), Wdt (C, R),
     bias (C,), A (C, N)) fp32 of directions 1 and 3; T rows per chunk
@@ -245,18 +302,7 @@ def ss2d_col_sum(x, fwd, rev, H: int, W: int, T: int):
     (B, W*nch, C*N) fp32 with nch = ceil(H / T), at [b, w*nch + k, c*N + n]:
     chunk k of column w's decay exp(sum of clamped log-decays) and its end
     state from 0 (forward: at the chunk's bottom row; reverse: at its top)."""
-    if not on_cuda(x, "ss2d_col_sum"):
-        return ss2d_col_sum_plain(x, fwd, rev, H, W, T)
-    _col_check("ss2d_col_sum", x, H, W, fwd, rev)
-    B, C, _ = x.shape
-    N = fwd[3].shape[-1]
-    R = fwd[0].shape[0] - 2 * N
-    out = [torch.empty((B, W * -(-H // T), C * N), dtype=torch.float32, device=x.device)
-           for _ in range(4)]
-    _build.call("bem_ss2d_col_sum", ptr(x), *map(ptr, fwd), *map(ptr, rev), *map(ptr, out),
-                B, C, H, W, R, N, T, int(x.dtype == torch.bfloat16))
-    ss2d_col_sum.launches += 1
-    return tuple(out)
+    return _col_sum_op(x, list(fwd), list(rev), H, W, T)
 
 
 def ss2d_col_dir_plain(x, fwd, rev, h_f, h_r, y0, H: int, W: int, T: int,
@@ -292,36 +338,60 @@ def ss2d_col_dir_plain(x, fwd, rev, h_f, h_r, y0, H: int, W: int, T: int,
     return (y_r + y1.to(x.dtype).float()).to(x.dtype).contiguous()
 
 
+def _col_dir_check(x, fwd, rev, h_f, h_r, y0, H, W, T):
+    _col_check("ss2d_col_dir", x, H, W, fwd, rev)
+    if y0 is not None:
+        check_stream("ss2d_col_dir", y0, x.shape)
+        if y0.dtype != x.dtype:
+            raise TypeError("ss2d_col_dir: y0 dtype differs from x")
+    shape = _col_sum_shape(x, fwd, H, W, T)
+    for h in (h_f, h_r):
+        if h.shape != shape or h.dtype != torch.float32 or not h.is_contiguous():
+            raise ValueError(f"ss2d_col_dir: chunk states {tuple(h.shape)} {h.dtype}, "
+                             f"expected fp32 contiguous {shape}")
+
+
+def _col_dir_cpu(x, fwd, rev, D, h_f, h_r, y0, H, W, T):
+    """bem::ss2d_col_dir on the CPU: the plain version."""
+    return ss2d_col_dir_plain(x, (*fwd, D), (*rev, None), h_f, h_r, y0, H, W, T)
+
+
+def _col_dir_cuda(x, fwd, rev, D, h_f, h_r, y0, H, W, T):
+    """bem::ss2d_col_dir on the card: one launch of the full pass."""
+    need_cuda(x, "ss2d_col_dir")
+    _col_dir_check(x, (*fwd, D), (*rev, None), h_f, h_r, y0, H, W, T)
+    B, C, L = x.shape
+    N = fwd[3].shape[-1]
+    R = fwd[0].shape[0] - 2 * N
+    y = torch.empty_like(x)
+    _build.call("bem_ss2d_col_full", ptr(x), *map(ptr, fwd), *map(ptr, rev),
+                ptr(D), ptr(h_f), ptr(h_r), ptr(y0), ptr(y), B, C, H, W, R, N, T,
+                int(x.dtype == torch.bfloat16))
+    ss2d_col_dir.launches += 1
+    return y
+
+
+def _col_dir_fake(x, fwd, rev, D, h_f, h_r, y0, H, W, T):
+    _col_dir_check(x, (*fwd, D), (*rev, None), h_f, h_r, y0, H, W, T)
+    return x.new_empty(x.shape)
+
+
+_col_dir_op = operator(
+    "ss2d_col_dir", "(Tensor x, Tensor[] fwd, Tensor[] rev, Tensor D, Tensor h_f, Tensor h_r, "
+    "Tensor? y0, SymInt H, SymInt W, SymInt T) -> Tensor", _col_dir_cpu, _col_dir_cuda,
+    _col_dir_fake)
+
+
 def ss2d_col_dir(x, fwd, rev, h_f, h_r, y0, H: int, W: int, T: int):
     """Both column directions' full scans from the carry's chunk states, in
-    one pass.
+    one pass (the operator bem::ss2d_col_dir).
 
     x (B, C, H*W); fwd = (Wx, Wdt, bias, A, D_f + D_r), rev = (Wx, Wdt,
     bias, A, None) fp32 of directions 1 and 3; h_f / h_r (B, W*nch, C*N)
     fp32, the inclusive state of every chunk (the carry scans over
     :func:`ss2d_col_sum`'s summaries, same T); y0 (B, C, H*W) in x.dtype or
     None. Returns round(y_r + round(y_f + (D_f + D_r) x + y0)) in x.dtype."""
-    if not on_cuda(x, "ss2d_col_dir"):
-        return ss2d_col_dir_plain(x, fwd, rev, h_f, h_r, y0, H, W, T)
-    _col_check("ss2d_col_dir", x, H, W, fwd, rev)
-    B, C, L = x.shape
-    N = fwd[3].shape[-1]
-    R = fwd[0].shape[0] - 2 * N
-    if y0 is not None:
-        check_stream("ss2d_col_dir", y0, x.shape)
-        if y0.dtype != x.dtype:
-            raise TypeError("ss2d_col_dir: y0 dtype differs from x")
-    shape = (B, W * -(-H // T), C * N)
-    for h in (h_f, h_r):
-        if h.shape != shape or h.dtype != torch.float32 or not h.is_contiguous():
-            raise ValueError(f"ss2d_col_dir: chunk states {tuple(h.shape)} {h.dtype}, "
-                             f"expected fp32 contiguous {shape}")
-    y = torch.empty_like(x)
-    _build.call("bem_ss2d_col_full", ptr(x), *map(ptr, fwd[:4]), *map(ptr, rev[:4]),
-                ptr(fwd[4]), ptr(h_f), ptr(h_r), ptr(y0), ptr(y), B, C, H, W, R, N, T,
-                int(x.dtype == torch.bfloat16))
-    ss2d_col_dir.launches += 1
-    return y
+    return _col_dir_op(x, list(fwd[:4]), list(rev[:4]), fwd[4], h_f, h_r, y0, H, W, T)
 
 
 def _col_args(xrow, Wx, Wdt, bias, A, D, y0, H, W):
@@ -357,6 +427,10 @@ def ss2d_col_pair_plain(xrow, Wx, Wdt, bias, A, D, y0, H: int, W: int):
 
 
 def _col_pair_run(xrow, Wx, Wdt, bias, A, D, y0, H, W):
+    """The column pair as three operators: bem::ss2d_col_sum, two
+    bem::linear_scan carries, bem::ss2d_col_dir. The chunk length is a
+    Python int: H on the CPU (one chunk a column), the kernel source's on
+    the card (asked of the built library, also when tracing)."""
     fwd, rev = _col_args(xrow, Wx, Wdt, bias, A, D, y0, H, W)
     if not on_cuda(xrow, "ss2d_col_pair"):
         T = H
@@ -404,7 +478,7 @@ class _SeqPair(torch.autograd.Function):
     def forward(ctx, xseq, Wx, Wdt, bias, A, D, pair):
         ctx.pair = pair
         ctx.save_for_backward(xseq, Wx, Wdt, bias, A, D)
-        return _seq_pair_run(xseq, Wx, Wdt, bias, A, D, pair)
+        return _seq_pair_op(xseq, Wx, Wdt, bias, A, D, pair)
 
     @staticmethod
     def backward(ctx, g):

@@ -7,7 +7,8 @@ ungrouped (G=1) form of bem_tpu/ops/ss2d_tail.py::ss2d_tail_cf; the CUDA
 kernel is ``csrc/ss2d_tail.cu``.
 
 On the bf16 stream the LN output is rounded to bf16 before out_proj and
-Wout is rounded to bf16, as the Pallas kernel does. Differentiable: the
+Wout is rounded to bf16, as the Pallas kernel does. The launch is the
+operator ``bem::ss2d_tail`` (ops/_common.py). Differentiable: the
 backward recomputes through :func:`_tail_ref` (ss2d_tail.py:248-273).
 """
 
@@ -16,9 +17,8 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ._common import (check_stream, counted_as, layer_norm_c, on_cuda, ptr, ref_grads,
-                      round_bf16,
-                      weight)
+from ._common import (check_stream, counted_as, layer_norm_c, need_cuda, operator, ptr,
+                      ref_grads, round_bf16, weight)
 
 
 def _tail_args(y_row, y_colT, scale, bias, Wout, bout, res):
@@ -62,10 +62,15 @@ def ss2d_tail_cf_plain(y_row, y_colT, scale, bias, Wout, bout, res=None):
     return _tail_plain(*_tail_args(y_row, y_colT, scale, bias, Wout, bout, res))
 
 
-def _tail_run(y_row, y_colT, scale, bias, Wout, bout, res):
+def _tail_cpu(y_row, y_colT, scale, bias, Wout, bout, res):
+    """bem::ss2d_tail on the CPU: the plain version."""
+    return _tail_plain(*_tail_args(y_row, y_colT, scale, bias, Wout, bout, res))
+
+
+def _tail_cuda(y_row, y_colT, scale, bias, Wout, bout, res):
+    """bem::ss2d_tail on the card: one launch."""
+    need_cuda(y_row, "ss2d_tail_cf")
     args = _tail_args(y_row, y_colT, scale, bias, Wout, bout, res)
-    if not on_cuda(y_row, "ss2d_tail_cf"):
-        return _tail_plain(*args)
     y_row, y_colT, scale, bias, Wout, bout, res = args
     B, C, L = y_row.shape
     Cout = Wout.shape[1]
@@ -75,6 +80,16 @@ def _tail_run(y_row, y_colT, scale, bias, Wout, bout, res):
                 B, C, Cout, L, int(y_row.dtype == torch.bfloat16))
     ss2d_tail_cf.launches += 1
     return out
+
+
+def _tail_fake(y_row, y_colT, scale, bias, Wout, bout, res):
+    _tail_args(y_row, y_colT, scale, bias, Wout, bout, res)
+    return y_row.new_empty((y_row.shape[0], Wout.shape[1], y_row.shape[2]))
+
+
+_tail_op = operator(
+    "ss2d_tail", "(Tensor y_row, Tensor? y_colT, Tensor scale, Tensor bias, Tensor Wout, "
+    "Tensor? bout, Tensor? res) -> Tensor", _tail_cpu, _tail_cuda, _tail_fake)
 
 
 def _tail_ref(y_row, y_colT, scale, bias, Wout, bout, res=None):
@@ -90,7 +105,7 @@ class _Tail(torch.autograd.Function):
     @staticmethod
     def forward(ctx, y_row, y_colT, scale, bias, Wout, bout, res):
         ctx.save_for_backward(y_row, y_colT, scale, bias, Wout, bout, res)
-        return _tail_run(y_row, y_colT, scale, bias, Wout, bout, res)
+        return _tail_op(y_row, y_colT, scale, bias, Wout, bout, res)
 
     @staticmethod
     def backward(ctx, g):

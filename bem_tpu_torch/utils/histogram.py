@@ -1,9 +1,9 @@
 """Per-patch Gaussian-KDE histograms, the "histogram" condition mode
-(counterpart of bem_tpu/utils/histogram.py: its numpy path, :27, and
-``histogram_condition``): bandwidth 0.1 (variance 0.01), bins on
-linspace(0, 1, bins), +1e-5, normalised per patch. Host code; one patch
-row at a time, so the (patches, pixels, 3, bins) kernel values never
-exist for the whole image at once.
+(counterpart of bem_tpu/utils/histogram.py): bandwidth 0.1 (variance
+0.01), bins on linspace(0, 1, bins), +1e-5, normalised per patch. Host
+code: the native library's threaded kernel (``bem_tpu_torch.native``)
+where it builds, else numpy, one patch row at a time, so the (patches,
+pixels, 3, bins) kernel values never exist for the whole image at once.
 """
 
 from __future__ import annotations
@@ -12,7 +12,19 @@ import numpy as np
 
 
 def compute_histograms(image: np.ndarray, patch_size: int = 8, bin_count: int = 256) -> np.ndarray:
-    """(H, W, 3) in [0,1] -> (C, H//p, W//p, bins) KDE histograms."""
+    """(H, W, 3) in [0,1] -> (C, H//p, W//p, bins) KDE histograms: the
+    native kernel when the library is available, else numpy."""
+    from ..native import kde_histograms
+
+    out = kde_histograms(np.ascontiguousarray(image, np.float32), patch_size, bin_count)
+    if out is not None:
+        return out
+    return _compute_histograms_np(image, patch_size, bin_count)
+
+
+def _compute_histograms_np(image: np.ndarray, patch_size: int = 8,
+                           bin_count: int = 256) -> np.ndarray:
+    """The numpy route of :func:`compute_histograms`."""
     H, W, C = image.shape
     if C != 3:
         raise ValueError(f"compute_histograms: the image must have 3 channels, has {C}")

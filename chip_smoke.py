@@ -86,6 +86,17 @@ result line):
   7. the flagship serving pipeline (n_feat 40, blocks (2,2,2), K=16, two
      400x600 images padded to 448x640, bf16 stream, seeded weights)
      answering 3 requests; every kernel of phases 6-7 must launch;
+  7b. the same pipeline's serving module exported with torch.export
+     (tools/export_onchip.py: the bem:: operators of rows 1-7 in its
+     graph), saved, loaded back and run on 3 requests beside the live
+     pipeline, each request's weight noise from the same seeded generator:
+     the same chosen candidates, NIQE scores within 1e-6 relative, rows
+     1-7 launched inside the artifact; both ms/request, the export and
+     load seconds, the artifact's bytes, and the host microseconds of one
+     bem::ss2d_tail call against its CUDA implementation called directly;
+  7c. the native host library (bem_tpu_torch/native, g++) builds, and its
+     KDE histograms equal the numpy route's at 448x640, patch 16, 256 bins
+     (1e-4 relative), with both host times;
   8. the eval CLI (bem_tpu_torch.enhancement.eval) on the card and on the
      CPU: the LOLv1 option files (read by the port's parse) copied with
      noise_level 0, seeded weights, --deterministic, two seeded 112x176 PNG
@@ -367,7 +378,9 @@ from bem_tpu_torch.enhancement.pipeline import build_pipeline, padded_size
 from bem_tpu_torch.models import build_model
 from bem_tpu_torch.options import lolv1_options
 from bem_tpu_torch.ops import legacy
-from bem_tpu_torch.tools import microbench_vpu
+from bem_tpu_torch.tools import export_onchip, microbench_vpu
+from bem_tpu_torch import native
+from bem_tpu_torch.utils import histogram
 from bem_tpu_torch.models.base_model import BaseModel
 from bem_tpu_torch.test import test_pipeline
 from bem_tpu_torch.train import synthetic_batch, train_pipeline
@@ -394,6 +407,8 @@ SCAN_TRAIN_BATCH = 8
 SCAN_TRAIN_STEPS = 3
 T0 = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
+EXPORT_DIR = os.path.join(REPO, "results", "chip_smoke_export")  # gitignored, removed at the end
+NATIVE_PATCH, NATIVE_BINS = 16, 256
 EVAL_DIR = os.path.join(REPO, "results", "chip_smoke_eval")  # gitignored, removed at the end
 EVAL_OPTIONS = ("CG_UNet_LOLv1.yml", "IE_UNet_LOLv1.yml")
 CLI_DIR = os.path.join(REPO, "results", "chip_smoke_cli")  # gitignored, removed at the end
@@ -935,6 +950,47 @@ def serve(card: str):
     print(f"pipeline K={K} NIMG={NIMG} {H}x{W} bf16: median {1e3 * med:.1f} ms/request, "
           f"{NIMG / med:.4f} images/s ({card})")
     return counts
+
+
+def export_phase(card: str):
+    """The full-width serving pipeline exported, saved, loaded and run
+    beside the live one (``tools.export_onchip``): its checks, its line, and
+    the artifact's launches over its 3 requests."""
+    out = export_onchip.main(os.path.join(EXPORT_DIR, "serve.pt2"))
+    print(f"serving artifact K={K} NIMG={NIMG} {H}x{W} bf16: {out['iter_ms_exported']:.1f} "
+          f"ms/request against {out['iter_ms_live']:.1f} live ({out['exported_vs_live']:.4f}x), "
+          f"NIQE rel err {out['value_rel_err']:.3e}, selected crops "
+          f"{out['selected_max_abs_err']:.3e} apart, export {out['export_s']:.1f} s, load "
+          f"{out['load_s']:.1f} s, {out['artifact_bytes']} bytes, {out['graph_nodes']} nodes; "
+          f"bem::ss2d_tail {out['op_call_us']:.2f} us a call, its CUDA implementation "
+          f"{out['op_body_us']:.2f} us ({card})")
+    return out["launches_in_artifact"]
+
+
+def native_check(card: str):
+    """The native library builds on the card's host, and its KDE histograms
+    equal the numpy route's at 400x600 padded to 448x640 (the eval CLI's
+    pad, eval.py), patch 16 (the eval's condition grid at the /16
+    reduction: its scale factor is hist_patch_size) and 256 bins
+    (compute_histograms' default); both host times."""
+    if not native.available():
+        raise AssertionError("native: the host library did not build")
+    rng = np.random.default_rng(0)
+    img = np.pad(rng.random((H, W, 3), np.float32),
+                 ((0, padded_size(H, W)[0] - H), (0, padded_size(H, W)[1] - W), (0, 0)),
+                 mode="reflect")
+    t0 = time.perf_counter()
+    got = native.kde_histograms(img, NATIVE_PATCH, NATIVE_BINS)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = histogram._compute_histograms_np(img, NATIVE_PATCH, NATIVE_BINS)
+    t_np = time.perf_counter() - t0
+    err = float(np.abs(got - want).max() / np.abs(want).max())
+    print(f"native KDE histograms {img.shape[0]}x{img.shape[1]} patch {NATIVE_PATCH} "
+          f"{NATIVE_BINS} bins: max rel err {err:.3e} (tol 1e-4), native {1e3 * t_native:.1f} ms "
+          f"(2 threads), numpy {1e3 * t_np:.1f} ms ({card})")
+    if got.shape != want.shape or err > 1e-4:
+        raise AssertionError(f"native KDE histograms disagree with numpy: {err}")
 
 
 def _eval_files(root, n, h, w, seed, noise_level=None, options=EVAL_OPTIONS):
@@ -3062,6 +3118,13 @@ def main() -> int:
         shutil.rmtree(CLI_DIR, ignore_errors=True)
     phase("serving pipeline")
     serve_counts = serve(card)
+    phase("serving artifact (torch.export)")
+    try:
+        export_counts = export_phase(card)
+    finally:
+        shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    phase("native host library")
+    native_check(card)
     os.makedirs(EVAL_DIR, exist_ok=True)
     try:
         os.environ["BEM_CLIP_NPZ"] = smoke.write_clip_bundle(
@@ -3141,7 +3204,7 @@ def main() -> int:
     phase("microbenchmarks")
     mb_counts = microbench_phase()
     # each kernel's launches over the runs of its own paths: the BEM kernels
-    # over the training, train / test CLI, serving, eval, flagship, flagship
+    # over the training, train / test CLI, serving, serving artifact, eval, flagship, flagship
     # training, VMUNet family, image formats, speed test and option-set runs, the fused core and its backward over VMamba-T's, the
     # clamped form over the narrow reference runs, selective_scan_fused over
     # VMamba-T v052d's, the SS2D modes' over their checks and VMamba-T
@@ -3149,9 +3212,9 @@ def main() -> int:
     # also over the model zoo's full-width runs, rows 7 and 8 also over the
     # "xla" IE's run of phase 14f and rows 1-7 over its train CLI on WebP
     # pairs, the microbenchmarks over their sweeps
-    paths = {name: (train_counts, cli_counts, serve_counts, eval_counts, flagship_counts,
-                    flagship_train_counts, vmunet_counts, formats_counts, speed_counts,
-                    options_counts, video_counts)
+    paths = {name: (train_counts, cli_counts, serve_counts, export_counts, eval_counts,
+                    flagship_counts, flagship_train_counts, vmunet_counts, formats_counts,
+                    speed_counts, options_counts, video_counts)
              for name in smoke.BEM_KERNELS}
     paths["linear_scan"] += (modes_counts, cascade_counts, cls_cli_counts, zoo_counts)
     paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts, modes_counts, cls_cli_counts,

@@ -112,8 +112,9 @@ def test_cascade_gradients_match_vjp():
     cot = np.random.default_rng(5).standard_normal(x.shape).astype(np.float32)
     params = jparams(model)
     jm = jax_ss2d("v052dc")
-    _, vjp = jax.vjp(lambda p, v: jm.apply({"params": p}, v), params, jnp.asarray(nhwc(x)))
-    jg_params, jg_x = vjp(jnp.asarray(nhwc(cot)))
+    jg_params, jg_x = jax.jit(lambda p, v, c: jax.vjp(lambda p, v: jm.apply({"params": p}, v),
+                                                      p, v)[1](c))(
+        params, jnp.asarray(nhwc(x)), jnp.asarray(nhwc(cot)))
     xt = torch.from_numpy(x).requires_grad_()
     names = [k for k, _ in model.named_parameters()]
     out = model(xt)

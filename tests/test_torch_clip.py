@@ -51,7 +51,7 @@ def test_bundle_round_trip(bundle):
 def test_vision_tower_matches_clip_flax(bundle):
     params, _, _, _, jt, pt = _towers(bundle)
     x = np.random.default_rng(0).standard_normal((3, 64, 64, 3)).astype(np.float32)
-    want = np.asarray(jt.apply({"params": params}, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jt.apply)({"params": params}, jnp.asarray(x)))
     with torch.no_grad():
         got = pt(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

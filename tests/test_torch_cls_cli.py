@@ -113,7 +113,12 @@ def test_new_modules_import_nothing_they_must_not():
             "bem_tpu_torch.utils.img_process_util, bem_tpu_torch.utils.cv_ops, "
             "bem_tpu_torch.data.video_datasets, bem_tpu_torch.utils.flow_util, "
             "bem_tpu_torch.utils.webp_codec, bem_tpu_torch.utils.webp_tables, "
-            "bem_tpu_torch.ops.legacy, bem_tpu_torch.archs.arch_util; "
+            "bem_tpu_torch.ops.legacy, bem_tpu_torch.archs.arch_util, "
+            "bem_tpu_torch.enhancement.export, bem_tpu_torch.tools.export_onchip, "
+            "bem_tpu_torch.tools.op_dispatch_ab, "
+            "bem_tpu_torch.native, bem_tpu_torch.utils.histogram, bem_tpu_torch.utils.hog, "
+            "bem_tpu_torch.utils.noise_cal, bem_tpu_torch.utils.matlab_functions, "
+            "bem_tpu_torch.metrics.fid; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', "
             "'bem_tpu', 'cv2', 'yaml', 'PIL')]; assert not bad, bad")
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")

@@ -31,6 +31,7 @@ from PIL import Image
 from bem_tpu.utils.img_util import imfrombytes as bem_imfrombytes
 from bem_tpu_torch.utils.img_util import imfrombytes, imread
 
+from test_torch_cpu_setup import one_torch_thread  # noqa: F401  (module fixture)
 from test_torch_jpeg import TESTDATA, _pil_jpeg, scene
 
 FLAGS = ("color", "grayscale", "unchanged")

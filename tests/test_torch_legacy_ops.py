@@ -116,7 +116,7 @@ def test_dcnv2_pack(groups, moved):
             0.3 * rng.standard_normal(params["conv_offset"]["kernel"].shape)).astype(np.float32)
         params["conv_offset"]["bias"] = rng.standard_normal(
             params["conv_offset"]["bias"].shape).astype(np.float32)
-    want = jm.apply({"params": params}, jnp.asarray(x), jnp.asarray(feat))
+    want = jax.jit(jm.apply)({"params": params}, jnp.asarray(x), jnp.asarray(feat))
     m = init.initialize(DCNv2Pack(4, 6, 3, groups), torch.Generator().manual_seed(0))
     assert not m.conv_offset.weight.any()
     load_flax_params(m, params)

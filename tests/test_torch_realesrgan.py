@@ -39,6 +39,8 @@ from bem_tpu_torch.data import DATASETS, build_dataset
 from bem_tpu_torch.utils import diffjpeg
 from bem_tpu_torch.utils.img_process_util import usm_sharp, usm_sharp_torch
 
+from test_torch_cpu_setup import one_torch_thread  # noqa: F401  (module fixture)
+
 X4PLUS = dict(blur_kernel_size=21, kernel_list=["iso", "aniso", "generalized_iso",
                                                 "generalized_aniso", "plateau_iso",
                                                 "plateau_aniso"],

@@ -28,6 +28,7 @@ from bem_tpu_torch.metrics.uciqe_uiqm import (getUCIQE, getUIQM, uciqe_batch, ui
 from bem_tpu_torch.ops.resize import pil_bicubic_resize_u8
 from bem_tpu_torch.utils.color_util import rgb2lab_u8
 
+from test_torch_cpu_setup import one_torch_thread  # noqa: F401  (module fixture)
 from test_torch_jpeg import scene
 
 

@@ -43,7 +43,8 @@ def images(B, seed=1):
 def jax_logits(kw, params, x, dtype=jnp.float32):
     jm = JaxVSSM(scan_backend="pallas", **kw)
     params = jax.tree_util.tree_map(jnp.asarray, params)
-    return np.asarray(jm.apply({"params": params}, jnp.asarray(x, dtype)).astype(jnp.float32))
+    out = jax.jit(jm.apply)({"params": params}, jnp.asarray(x, dtype))
+    return np.asarray(out.astype(jnp.float32))
 
 
 def port_model(kw, seed=0, clamp=False):

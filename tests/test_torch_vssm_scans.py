@@ -78,7 +78,7 @@ def test_ss2d_map_matches_pallas(ftype):
     params = jax.tree_util.tree_map(np.array, jax.jit(jm.init)(jax.random.PRNGKey(1),
                                                               jnp.asarray(x))["params"])
     params["dt_projs_bias"][:, ::3] = 12.0
-    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jm.apply)({"params": params}, jnp.asarray(x)))
     m = load_flax_params(SS2D(forward_type=ftype, **SS2D_KW), params)
     assert m.scans in (1, 2) and not m.fused_core
     with torch.no_grad():
