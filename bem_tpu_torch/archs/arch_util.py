@@ -173,6 +173,11 @@ class DualUpSample(nn.Module):
         self.up_b_conv2 = Conv2d(c, c // 2, 1, bias=False)
         self.conv = Conv2d(c, c // 2, 1, bias=False)
 
+    def upsample2(self, t):
+        """The bilinear branch's x2 upsample; a method, so that a row-sharded
+        forward (parallel/spatial.py) can bind its band form."""
+        return _upsample2(t)
+
     def forward(self, x, fold_tail=None):
         p = self.up_p_prelu(self.up_p_conv1(x))
         b = self.up_b_prelu(self.up_b_conv1(x))
@@ -189,11 +194,11 @@ class DualUpSample(nn.Module):
             m = (a_p[:, None, :, None] * eye4[None, :, None, :]).reshape(2 * c, -1)
             q = torch.einsum("bchw,cd->bdhw", p, m.to(x.dtype))
             v = torch.einsum("bchw,cd->bdhw", b, a_b.to(x.dtype))
-            return pixel_shuffle_cf(q, 2) + _upsample2(v)
+            return pixel_shuffle_cf(q, 2) + self.upsample2(v)
         if fold_tail is not None:
             raise ValueError("fold_tail needs the folded (bf16) form")
         xp = self.up_p_conv2(pixel_shuffle_cf(p, 2))
-        xb = self.up_b_conv2(_upsample2(b))
+        xb = self.up_b_conv2(self.upsample2(b))
         return self.conv(torch.cat([xp, xb], dim=1))
 
 

@@ -132,6 +132,7 @@ class Network(nn.Module):
                  sam: bool = False, use_illu: bool = False, scan_backend=None):
         super().__init__()
         self.stage, self.last_act = stage, last_act
+        self.scan_backend = scan_backend
         self.first_conv = Conv2d(in_channels, n_feat, 3, padding=1,
                                  weight_init="kaiming_normal_fan_out", zero_bias=True)
         self.mask_token = nn.Parameter(torch.empty(1, n_feat, 1, 1))

@@ -151,12 +151,14 @@ class DataLoader:
 
 def build_dataloader(dataset, dataset_opt: Dict[str, Any], num_gpu: int = 1,
                      dist: bool = False, sampler=None, seed=None) -> DataLoader:
-    """Train: batch_size_per_gpu x num_gpu, num_worker_per_gpu threads,
-    drop_last; val / test: batch 1, no threads (__init__.py:167)."""
+    """Train: batch_size_per_gpu x num_gpu in one process (bem_tpu's
+    batch, whole on the host), batch_size_per_gpu a rank under ``dist``
+    (each rank its sampler's slice), num_worker_per_gpu threads, drop_last;
+    val / test: batch 1, no threads (__init__.py:167)."""
     phase = dataset_opt["phase"]
     if phase == "train":
         return DataLoader(dataset, batch_size=dataset_opt.get("batch_size_per_gpu", 1)
-                          * max(num_gpu, 1),
+                          * (1 if dist else max(num_gpu, 1)),
                           shuffle=(sampler is None) and dataset_opt.get("use_shuffle", True),
                           sampler=sampler, num_workers=dataset_opt.get("num_worker_per_gpu", 0),
                           drop_last=True, seed=seed)

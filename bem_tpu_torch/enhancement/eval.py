@@ -20,8 +20,13 @@ float32's smallest normal, so a channel that is black everywhere stays
 black; bem_tpu's 0 / 0 turns it, and everything after it, into NaN.
 
 It runs on the card (``--device cuda``, the default) through the port's
-kernels, or on the CPU through their plain versions when asked. Not
-ported: ``--shard_samples on`` raises NotImplementedError (ROADMAP §1).
+kernels, or on the CPU through their plain versions when asked.
+``--shard_samples on`` (``auto``: where the world has more than one rank
+and it divides K, bem_tpu's rule with the world's size for its device
+count) splits the K samples over the ranks of a started process group
+(``torchrun --nproc_per_node N -m bem_tpu_torch.enhancement.eval ...``:
+the group starts from torchrun's environment), K/n a rank in one Stage-II
+chunk; rank 0 scores, selects and writes, the others write nothing.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from ..metrics.psnr_ssim import calculate_psnr, calculate_ssim
 from ..metrics.uciqe_uiqm import uiqm_uciqe_batch
 from ..nn.layers import sample_bayes
 from ..ops.resize import resize_bilinear
+from ..parallel.mesh import world_mesh
 from ..utils.checkpoint import load_params
 from ..utils.histogram import histogram_condition
 from ..utils.img_util import downsample, imread, imwrite
@@ -99,7 +105,8 @@ def build_parser():
     p.add_argument("--save_candidates", action="store_true",
                    help="dump all K candidates ranked by score")
     p.add_argument("--shard_samples", default="auto", choices=["auto", "on", "off"],
-                   help="auto / off: one device; on (K sharded over GPUs) is not ported")
+                   help="the K samples over the ranks (auto: where there are several and "
+                        "they divide K)")
     p.add_argument("--device", default="cuda", type=str,
                    help="cuda (the port's kernels) or cpu (their plain versions)")
     return p
@@ -121,7 +128,7 @@ def _build_net(opt_path, weights, bayesian, device):
     return opt, net.to(device).eval()
 
 
-def make_k_pipeline(net, cond_net, *, K, P, cond_type, noise_level):
+def make_k_pipeline(net, cond_net, *, K, P, cond_type, noise_level, mesh=None):
     """The K-candidate pipeline ``k_candidates(gen, inp, cond_in,
     target_mean, use_gt_mean, stochastic) -> (K, Hp, Wp, 3)``.
 
@@ -131,35 +138,51 @@ def make_k_pipeline(net, cond_net, *, K, P, cond_type, noise_level):
     condition noise. The CG runs K times (bem_tpu vmaps them), the IE on
     chunks of P candidates. ``eps`` (K dicts of weight noise, see
     ``sample_bayes``) and ``noise`` (K, hc, wc, C) replace the draws. The
-    two stages are the profiler ranges ``eval.cg`` and ``eval.ie``."""
+    two stages are the profiler ranges ``eval.cg`` and ``eval.ie``.
+
+    With ``mesh`` (bem_tpu's ``shard=True``) rank r runs samples r K/n ..
+    (r+1) K/n - 1 through both stages, the IE as one chunk, and the K
+    candidates are all-gathered in sample order. Every rank makes all K
+    weight draws, then the noise of all K, in the unsharded order, and
+    keeps its own: the candidates are the unsharded run's."""
+    n, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    if K % n:
+        raise ValueError(f"K={K} not divisible by {n} ranks")
+    mine = range(r * K // n, (r + 1) * K // n)
+    if mesh is not None:
+        P = K // n  # one chunk of this rank's samples
 
     @torch.inference_mode()
     def k_candidates(gen, inp, cond_in, target_mean, use_gt_mean: bool, stochastic: bool,
                      eps=None, noise=None):
         with record_function("eval.cg"):
             if stochastic:
-                conds = torch.cat([
-                    functional_call(net, sample_bayes(net, gen, None if eps is None else eps[k]),
-                                    (cond_in,))[-1] for k in range(K)])
+                conds = []
+                for k in range(K):  # every draw, in order; this rank's forwards
+                    sample = sample_bayes(net, gen, None if eps is None else eps[k])
+                    if k in mine:
+                        conds.append(functional_call(net, sample, (cond_in,))[-1])
+                conds = torch.cat(conds)
             else:  # every sample runs on mu
-                conds = net(cond_in)[-1].expand(K, -1, -1, -1)
+                conds = net(cond_in)[-1].expand(len(mine), -1, -1, -1)
             conds = conds.clamp(0.0, 1.0)
             if use_gt_mean and cond_type != "histogram":
                 mean_pred = conds.mean(dim=(1, 2), keepdim=True).clamp_min(TINY)
                 conds = (conds * (target_mean / mean_pred)).clamp(0.0, 1.0)
             if noise_level:
                 if noise is None:
-                    noise = torch.randn(conds.shape, generator=gen, device=gen.device)
-                conds = conds + noise_level * noise.to(conds.device)
+                    noise = torch.randn((K,) + conds.shape[1:], generator=gen, device=gen.device)
+                conds = conds + noise_level * noise[mine.start:mine.stop].to(conds.device)
         with record_function("eval.ie"):
             hp, wp = inp.shape[1], inp.shape[2]
             preds = []
-            for i in range(0, K, P):
+            for i in range(0, len(mine), P):
                 chunk = conds[i:i + P]
                 up = resize_bilinear(chunk, size=(hp, wp))
                 x = torch.cat([inp.expand(chunk.shape[0], -1, -1, -1), up], dim=-1)
                 preds.append(cond_net(x)[-1])
-            return torch.cat(preds, dim=0)
+            preds = torch.cat(preds, dim=0)
+        return preds if mesh is None else torch.cat(mesh.all_gather(preds))
 
     return k_candidates
 
@@ -180,15 +203,23 @@ def _ssim_u8(target, img):
 
 
 def main(args_list=None):
+    """The eval CLI; returns its scores and picks (None on a rank other than 0)."""
     args = build_parser().parse_args(args_list)
-    if args.shard_samples == "on":
-        raise NotImplementedError("--shard_samples on (the K samples over several GPUs) is "
-                                  "not ported (ROADMAP §1, multi-GPU)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device (use --device cpu for the plain "
                            "versions)")
     np.random.seed(args.seed)
+    mesh = world_mesh(device)
+    if mesh is not None:
+        device = mesh.device
+    n_ranks = 1 if mesh is None else mesh.size
+    main_rank = mesh is None or mesh.rank == 0
+    # bem_tpu's rule (eval.py:270-272), the world's size for its device count
+    shard = args.shard_samples == "on" or (args.shard_samples == "auto" and n_ranks > 1
+                                           and args.num_samples % n_ranks == 0)
+    if not shard and not main_rank:  # unsharded, rank 0 runs alone
+        return None
 
     opt, net = _build_net(args.opt, args.weights, True, device)
     cond_opt, cond_net = _build_net(args.cond_opt, args.cond_weights, False, device)
@@ -198,7 +229,8 @@ def main(args_list=None):
     noise_level = cond_opt["condition"].get("noise_level", 0)
 
     result_dir = os.path.join(args.result_dir, args.dataset)
-    os.makedirs(result_dir, exist_ok=True)
+    if main_rank:
+        os.makedirs(result_dir, exist_ok=True)
     input_paths = _images(args.input_dir)
     target_paths = _images(args.target_dir) if args.target_dir else []
     if not input_paths:
@@ -208,18 +240,20 @@ def main(args_list=None):
     P = max(1, min(args.parallel_num, K))
 
     clip_scorer = None
-    if args.no_ref == "clip":
+    if args.no_ref == "clip" and main_rank:
         from .clip_iqa import ClipIQA
 
         clip_scorer = ClipIQA(tuple(args.clip_prompts), device=device)
     lpips_fn = None
-    if args.lpips:
+    if args.lpips and main_rank:
         from .lpips import LPIPS
 
         lpips_fn = LPIPS(device=device)
 
+    if shard and mesh is None:  # one rank holds the one chunk, as bem_tpu's mesh of one
+        P = K
     k_candidates = make_k_pipeline(net, cond_net, K=K, P=P, cond_type=cond_type,
-                                   noise_level=noise_level)
+                                   noise_level=noise_level, mesh=mesh if shard else None)
 
     psnr_l, ssim_l, lpips_l, niqe_l, uiqm_l, uciqe_l = [], [], [], [], [], []
     mc_psnr, mc_ssim = [], []
@@ -249,6 +283,8 @@ def main(args_list=None):
             gen, torch.from_numpy(img_pad[None]).to(device),
             torch.from_numpy(np.ascontiguousarray(cond_in[None])).to(device), tmean,
             use_gt_mean=use_gt_mean, stochastic=not args.deterministic)
+        if not main_rank:  # rank 0 scores, selects and writes
+            continue
         cands = cands[:, :h, :w, :].clamp(0.0, 1.0)  # (K, h, w, 3)
         if use_gt_mean:
             mp = cands.mean(dim=(1, 2), keepdim=True).clamp_min(TINY)
@@ -315,6 +351,8 @@ def main(args_list=None):
         per_img_s.append(time.perf_counter() - t_img)
         print(f"[{p_idx + 1}/{len(input_paths)}] {name} ({per_img_s[-1]:.3f} s)", flush=True)
 
+    if not main_rank:
+        return None
     print(f"running time: {time.perf_counter() - t0:.4f} sec")
     if len(per_img_s) > 1:
         # the first image pays the kernel builds; the median over the rest

@@ -27,6 +27,18 @@ reference's torch Adam would apply it as L2). In both:
 - a batch with a MIM ``mask`` passes it to the forward while the step is
   within the scheduler's first period (bem_tpu's ``_use_mask``).
 
+Under ``opt["dist"]`` (a started process group, one rank a process) the
+trainer holds the mesh of ``parallel.make_mesh`` and its batches are this
+rank's slice of the global batch (``parallel.shard_batch``; the train
+CLI's sampler): rank 0's parameters are broadcast after init and resume,
+the gradients are averaged over the ranks before the clip and AdamW (the
+all-reduce XLA inserts in bem_tpu's sharded step), and so are the logged
+losses. A draw that bem_tpu makes once for the global batch is made for
+the global batch on every rank from the trainer's generator (seeded
+``manual_seed`` alike on every rank) and sliced: the IE's condition noise,
+the CG's weight sample (one for all), mixup's flip of the whole batch
+(:meth:`BaseModel._flip`). Rank 0 alone validates and saves, as in bem_tpu.
+
 Checkpoints are bem_tpu's files (base_model.py:219-321): ``net_g_<iter>.msgpack``
 and ``<iter>.state`` in flax's layout, through ``convert.py``'s per-leaf
 transforms, so either package reads the other's. In a state the port keeps
@@ -52,6 +64,7 @@ from ..archs import build_network
 from ..bayesian import extract_bayes_prior
 from ..convert import flax_to_state_dict, state_dict_to_flax
 from ..metrics import calculate_metric
+from ..parallel.mesh import make_mesh, replicate
 from ..utils import checkpoint as ckpt
 from ..utils.img_util import imwrite, tensor2img
 from ..utils.logger import get_root_logger
@@ -143,6 +156,9 @@ class BaseModel:
         if hasattr(net, "load_frozen"):
             net.load_frozen()
         self.net = net.to(self.device)
+        self.mesh = make_mesh(device=self.device) if opt.get("dist") else None
+        if self.mesh is not None:
+            replicate(self.mesh, self.net)
         self.params = dict(self.net.named_parameters())
         self.step = 0
         self.bayes_prior = extract_bayes_prior(self.params)
@@ -191,17 +207,41 @@ class BaseModel:
         periods = self.opt["train"].get("scheduler", {}).get("periods")
         return not (periods and self.step > periods[0])
 
+    @property
+    def is_main(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _local_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of a global-batch tensor."""
+        if self.mesh is None:
+            return t
+        n = t.shape[0] // self.mesh.size
+        return t[self.mesh.rank * n:(self.mesh.rank + 1) * n]
+
+    def _flip(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the global batch flipped along axis 0 (mixup's
+        partner rows; under dist they lie on the mirror rank)."""
+        if self.mesh is None:
+            return t.flip(0)
+        return self._local_rows(torch.cat(self.mesh.all_gather(t)).flip(0))
+
     def _grads(self, loss: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """d loss / d every parameter (zeros for one the loss does not reach)."""
+        """d loss / d every parameter (zeros for one the loss does not
+        reach), averaged over the ranks under dist."""
         names = list(self.params)
         gs = torch.autograd.grad(loss, [self.params[k] for k in names], allow_unused=True)
-        return {k: torch.zeros_like(self.params[k]) if g is None else g
-                for k, g in zip(names, gs)}
+        gs = [torch.zeros_like(self.params[k]) if g is None else g for k, g in zip(names, gs)]
+        if self.mesh is not None:
+            gs = self.mesh.all_reduce_mean(gs)
+        return dict(zip(names, gs))
 
     def _apply_updates(self, grads, aux):
         """One optimizer step (+ EMA of the params); logs grad_norm and lr,
         and with ``logger.record_grad`` a ``grads/<path>`` mean |grad| for
         each parameter under bem_tpu's path names (base_model.py:202-210)."""
+        if self.mesh is not None:  # the logged losses: their mean over the ranks
+            keys = [k for k, v in aux.items() if isinstance(v, torch.Tensor)]
+            aux.update(zip(keys, self.mesh.all_reduce_mean([aux[k] for k in keys])))
         aux["grad_norm"] = global_norm(grads.values()).detach()
         if self.opt.get("logger", {}).get("record_grad", False):
             aux.update(grad_logs(self._flax(grads)))
@@ -310,7 +350,9 @@ class BaseModel:
 
     def save(self, epoch: int, current_iter: int, **kwargs):
         """net_g_<iter>.msgpack (params, and params_ema when kept) and
-        <iter>.state (base_model.py:223)."""
+        <iter>.state (base_model.py:223); rank 0's alone."""
+        if not self.is_main:
+            return
         mdir, sdir = self._paths()
         extra = None if self.ema_params is None else {"params_ema": self._flax(self.ema_params)}
         ckpt.save_params(os.path.join(mdir, f"net_g_{current_iter}.msgpack"), self._flax(),
@@ -319,7 +361,9 @@ class BaseModel:
 
     def save_best(self, best_metric: Dict[str, Any], param_key: str = "params"):
         """best_psnr_<psnr:.2f>_<iter>.msgpack in the experiment's root, the
-        older best files removed (base_model.py:235)."""
+        older best files removed (base_model.py:235); rank 0's alone."""
+        if not self.is_main:
+            return
         root = self.opt["path"]["experiments_root"]
         path = os.path.join(root, f"best_psnr_{best_metric['psnr']:.2f}_{best_metric['iter']}.msgpack")
         if not os.path.exists(path):
@@ -329,6 +373,10 @@ class BaseModel:
 
     def resume_training(self, state_path: str):
         self.load_train_state(ckpt.load_state(state_path), state_path)
+        if self.mesh is not None:
+            replicate(self.mesh, self.net)
+            if self.ema_params is not None:
+                self.mesh.broadcast_(list(self.ema_params.values()))
         self.logger.info(f"Resumed training from {state_path} (iter {self.step}).")
 
     def load_network(self, load_path: str, strict: bool = True, param_key: str = "params"):
@@ -368,6 +416,9 @@ class BaseModel:
     # ------------------------------------------------------------ validation
     def validation(self, dataloader, current_iter, tb_logger=None, save_img=False,
                    rgb2bgr=True, use_image=True):
+        """Rank 0 validates (base_model.py:310-318); the others return 0."""
+        if not self.is_main:
+            return 0.0
         return self.nondist_validation(dataloader, current_iter, tb_logger, save_img,
                                        rgb2bgr, use_image)
 

@@ -59,7 +59,7 @@ class ConditionGenerator(BaseModel):
         if self.mixing_flag:
             if lam is None:
                 lam = mixup_lam(self.mixup_beta, self.opt.get("manual_seed") or 0, self.step)
-            gt, lq = mix(gt, lq, lam)
+            gt, lq = mix(gt, lq, lam, self._flip)
         mask = b["mask"] if self._use_mask(batch) else None
         self.bayes_prior = update_prior_ema(self.bayes_prior, self.params, self.step,
                                             self.bnn_decay)

@@ -54,20 +54,24 @@ class ImageEnhancer(BaseModel):
 
     def train_step(self, batch, noise=None, lam=None):
         """One optimizer step on ``batch`` (NHWC lq, gt and the condition,
-        optionally the MIM mask). ``noise``: the standard-normal condition
-        noise (drawn from the trainer's generator when None); ``lam``: the
-        mixup weight (``mixup_lam(beta, manual_seed, step)`` when None).
-        Returns the step's logs."""
+        optionally the MIM mask; under dist this rank's slice). ``noise``:
+        the standard-normal condition noise of the global batch (drawn from
+        the trainer's generator when None; each rank takes its rows);
+        ``lam``: the mixup weight (``mixup_lam(beta, manual_seed, step)``
+        when None). Returns the step's logs."""
         b = self._batch(batch)
         lq, gt = b["lq"], b["gt"]
         conds = b[self._cond_key()]
         if noise is None:
-            noise = torch.randn(conds.shape, generator=self.gen, device=self.device)
-        conds = conds + self.noise_level * torch.as_tensor(noise, device=self.device)
+            world = 1 if self.mesh is None else self.mesh.size
+            noise = torch.randn((conds.shape[0] * world,) + conds.shape[1:], generator=self.gen,
+                                device=self.device)
+        conds = conds + self.noise_level * self._local_rows(torch.as_tensor(noise,
+                                                                            device=self.device))
         if self.mixing_flag:
             if lam is None:
                 lam = mixup_lam(self.mixup_beta, self.opt.get("manual_seed") or 0, self.step)
-            gt, lq = mix(gt, lq, lam)
+            gt, lq = mix(gt, lq, lam, self._flip)
         mask = b["mask"] if self._use_mask(batch) else None
         preds = self.net(self._build_input(lq, conds), mask)[-1]
         train_opt = self.opt["train"]

@@ -255,6 +255,18 @@ class SS2D(nn.Module):
         return ss2d_tail_cf(y_row, y_colT, self.out_norm.weight, self.out_norm.bias,
                             w_out.t(), b_out, res)
 
+    def _dir_core(self, xs):
+        """The 4-direction fused core (ss2d.py:440-482) on the stem's (B, C,
+        H, W) output: y_row + y_col, (B, C, H, W) fp32. A method, so that a
+        row-sharded forward (parallel/spatial.py) can bind its band form."""
+        B, C, H, W = xs.shape
+        L = H * W
+        xs2 = torch.stack([xs.reshape(B, C, L), xs.transpose(2, 3).reshape(B, C, L)], 1)
+        y2 = ss2d_dir_fused(xs2.contiguous(), *self._scan_weights(),
+                            clamp=not self.xla and pick_group(B, C) > 1)
+        return (y2[:, 0].reshape(B, C, H, W)
+                + y2[:, 1].reshape(B, C, W, H).transpose(2, 3)).float()
+
     def _scan_patterns(self, xs, H, W):
         """The unidi / bidi core (ss2d.py:483-541) on the stem's (B, C, H, W)
         output: (B, C, H, W) in the stream dtype."""
@@ -379,12 +391,8 @@ class SS2D(nn.Module):
         if self.fused_core:
             out = self._pairs_and_tail(xs.reshape(B, C, L).contiguous(), H, W).reshape(B, -1, H, W)
         else:
-            if self.scans == 0:  # the 4-direction fused core (ss2d.py:440-482)
-                xs2 = torch.stack([xs.reshape(B, C, L), xs.transpose(2, 3).reshape(B, C, L)], 1)
-                y2 = ss2d_dir_fused(xs2.contiguous(), *self._scan_weights(),
-                                    clamp=not self.xla and pick_group(B, C) > 1)
-                y = (y2[:, 0].reshape(B, C, H, W)
-                     + y2[:, 1].reshape(B, C, W, H).transpose(2, 3)).float()
+            if self.scans == 0:
+                y = self._dir_core(xs)
             elif self.scans == 3:
                 y = self._cascade(xs)
             else:

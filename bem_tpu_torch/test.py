@@ -2,6 +2,7 @@
 
     python -m bem_tpu_torch.test --opt Options/<test cfg>.yml
         [--force_yml path:pretrain_network_g=<net_g file> ...] [--device cuda|cpu]
+        [--launcher none|pytorch|slurm|jax] [--local_rank N]
 
 Every dataset of the options is a test set. The trainer is built from
 manual_seed, then takes ``path.pretrain_network_g`` (``strict_load_g``,
@@ -26,7 +27,8 @@ def test_pipeline(root_path, args_list=None):
     """The test CLI (bem_tpu/test.py:18)."""
     opt, _ = parse_options(root_path, is_train=False, args_list=args_list)
     opt["root_path"] = root_path
-    make_exp_dirs(opt)
+    if opt["rank"] == 0:  # under a launcher, rank 0 alone writes and validates
+        make_exp_dirs(opt)
     log_file = osp.join(opt["path"]["log"], f"test_{opt['name']}_{int(time.time())}.log")
     logger = get_root_logger(log_level=logging.INFO, log_file=log_file)
 

@@ -2,6 +2,12 @@
 
     python -m bem_tpu_torch.train --opt Options/<cfg>.yml [--auto_resume] [--debug]
         [--force_yml key:sub=value ...] [--device cuda|cpu]
+        [--launcher none|pytorch|slurm|jax] [--local_rank N]
+
+Several ranks: ``torchrun --nproc_per_node N -m bem_tpu_torch.train --launcher
+pytorch ...``; each rank trains on its sampler's slice of
+batch_size_per_gpu images, the gradients averaged over the ranks, and
+rank 0 alone writes the experiment's files and logs.
 
 ``train_pipeline`` reads the options, makes the experiment's directories
 (or takes up the latest training state with ``--auto_resume``), builds the
@@ -131,15 +137,17 @@ def train_pipeline(root_path, args_list=None):
         resume_state_path = find_latest_state(opt["path"]["training_states"])
     elif opt["path"].get("resume_state"):
         resume_state_path = opt["path"]["resume_state"]
-    if resume_state_path is None:
+    main = opt["rank"] == 0  # rank 0 alone writes (bem_tpu/train.py:103-108)
+    if resume_state_path is None and main:
         make_exp_dirs(opt)
         if opt["logger"].get("use_tb_logger") and "debug" not in opt["name"]:
             mkdir_and_rename(osp.join(opt["root_path"], "tb_logger", opt["name"]))
-    copy_opt_file(args.opt, opt["path"]["experiments_root"])
+    if main:
+        copy_opt_file(args.opt, opt["path"]["experiments_root"])
 
     log_file = osp.join(opt["path"]["log"], f"train_{opt['name']}_{int(time.time())}.log")
     logger = get_root_logger(log_level=logging.INFO, log_file=log_file)
-    tb_logger = init_tb_loggers(opt)
+    tb_logger = init_tb_loggers(opt) if main else None
     train_loader, _, val_loaders, _, total_iters = create_train_val_dataloader(opt, logger)
 
     model = build_model(opt, device=opt["device"])
@@ -202,7 +210,7 @@ def train_pipeline(root_path, args_list=None):
         # for the device to read its losses)
         model.timings.append((current_iter, iter_timer.get_current_time(),
                               data_timer.get_current_time(), time.time() - iter_timer.start_time))
-        if current_iter % 100 == 0 and model.last_visuals:
+        if current_iter % 100 == 0 and model.last_visuals and main:
             vis_dir = opt["path"].get("visualization", ".")
             for name, arr in model.last_visuals.items():
                 imwrite(tensor2img(arr.float().cpu().numpy(), rgb2bgr=False),

@@ -12,10 +12,19 @@ import time
 initialized_logger = {}
 
 
+def is_main_process() -> bool:
+    """Rank 0 of a started process group, or a process without one."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def get_root_logger(log_level=logging.INFO, log_file=None):
-    """A stream logger, set up once per name (logger.py:22; one process, so
-    rank 0). A ``log_file`` replaces the logger's earlier file, where
-    bem_tpu keeps only the first: each CLI run in a process logs to its own."""
+    """A stream logger, set up once per name (logger.py:22). Only the main
+    process logs (logger.py:31-37): another rank's logger keeps errors
+    alone and writes no file. A ``log_file`` replaces the logger's earlier
+    file, where bem_tpu keeps only the first: each CLI run in a process
+    logs to its own."""
     logger_name = "bem_tpu_torch"
     logger = logging.getLogger(logger_name)
     fmt = logging.Formatter("%(asctime)s %(levelname)s: %(message)s", datefmt="%Y-%m-%d %H:%M:%S")
@@ -26,6 +35,9 @@ def get_root_logger(log_level=logging.INFO, log_file=None):
         logger.propagate = False
         logger.setLevel(log_level)
         initialized_logger[logger_name] = True
+    if not is_main_process():
+        logger.setLevel(logging.ERROR)
+        return logger
     if log_file is not None:
         for h in [h for h in logger.handlers if isinstance(h, logging.FileHandler)]:
             logger.removeHandler(h)

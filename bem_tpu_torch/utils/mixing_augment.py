@@ -17,12 +17,13 @@ def mixup_lam(beta: float, seed: int, step: int) -> float:
     return float(np.random.default_rng((seed, step)).beta(beta, beta))
 
 
-def mix(target: torch.Tensor, input_: torch.Tensor, lam):
-    """lam * x + (1 - lam) * x flipped along axis 0, for both tensors; lam is
-    taken as an fp32 scalar, as bem_tpu's is."""
+def mix(target: torch.Tensor, input_: torch.Tensor, lam, flip=lambda t: t.flip(0)):
+    """lam * x + (1 - lam) * flip(x), for both tensors, ``flip`` the batch
+    flipped along axis 0 (a trainer's rows of the global batch flipped,
+    under dist); lam is taken as an fp32 scalar, as bem_tpu's is."""
     lam = torch.as_tensor(lam, dtype=torch.float32, device=target.device)
-    return (lam * target + (1 - lam) * target.flip(0),
-            lam * input_ + (1 - lam) * input_.flip(0))
+    return (lam * target + (1 - lam) * flip(target),
+            lam * input_ + (1 - lam) * flip(input_))
 
 
 class MixingAugment:

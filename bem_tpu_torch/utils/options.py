@@ -47,28 +47,39 @@ def parse_options(root_path: str, is_train: bool = True, args_list=None):
     """The CLIs' options (options.py:43): the YAML of ``--opt`` with the
     ``--force_yml key:sub=value`` overrides (values read as YAML), the
     ``--debug`` name and frequencies, the seed, and ``--device`` (cuda by
-    default: there is no CPU fallback). One process on one device: rank 0,
-    world size 1. Returns (opt, args)."""
+    default: there is no CPU fallback). ``--launcher`` pytorch / slurm /
+    jax starts this rank's process group (``parallel.init_dist``: rank and
+    world size from the launcher; each rank on its own card where there are
+    enough, ``opt["device"]`` names it) and fails rather than run alone;
+    ``--local_rank`` is accepted, as in bem_tpu (torchrun's LOCAL_RANK is
+    read instead). ``num_gpu: auto`` counts the cards (1 on the CPU).
+    Returns (opt, args)."""
     parser = argparse.ArgumentParser()
     parser.add_argument("-opt", "--opt", type=str, required=True, help="Path to option YAML file.")
-    parser.add_argument("--launcher", choices=["none", "pytorch", "slurm"], default="none",
-                        help="distributed launcher (only 'none' is ported)")
+    parser.add_argument("--launcher", choices=["none", "pytorch", "slurm", "jax"], default="none",
+                        help="distributed launcher")
     parser.add_argument("--auto_resume", action="store_true")
     parser.add_argument("--debug", action="store_true")
+    parser.add_argument("--local_rank", type=int, default=0)
     parser.add_argument("--force_yml", nargs="+", default=None,
                         help="Force to update yml files. Examples: train:ema_decay=0.999")
     parser.add_argument("--device", default="cuda", type=str,
                         help="cuda (the port's kernels) or cpu (their plain versions)")
     args = parser.parse_args(args_list)
-    if args.launcher != "none":
-        raise NotImplementedError(f"--launcher {args.launcher}: multi-GPU runs are not ported")
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device; --device cpu runs the "
                            f"plain versions of the kernels")
 
     opt = yaml_load(args.opt)
-    opt["dist"], opt["rank"], opt["world_size"] = False, 0, 1
     opt["device"] = args.device
+    if args.launcher == "none":
+        opt["dist"], opt["rank"], opt["world_size"] = False, 0, 1
+    else:
+        from ..parallel import init_dist
+
+        mesh = init_dist(args.launcher, args.device)
+        opt["dist"], opt["rank"], opt["world_size"] = True, mesh.rank, mesh.size
+        opt["device"] = str(mesh.device)
     seed = opt.get("manual_seed")
     if seed is None:
         seed = opt["manual_seed"] = random.randint(1, 10000)
@@ -81,9 +92,7 @@ def parse_options(root_path: str, is_train: bool = True, args_list=None):
     if args.debug and not opt["name"].startswith("debug"):
         opt["name"] = "debug_" + opt["name"]
     if opt.get("num_gpu") == "auto":
-        opt["num_gpu"] = 1
-    if opt.get("num_gpu", 1) != 1:
-        raise NotImplementedError(f"num_gpu {opt['num_gpu']}: multi-GPU runs are not ported")
+        opt["num_gpu"] = torch.cuda.device_count() if args.device.startswith("cuda") else 1
     _expand(opt, root_path, is_train)
     if args.debug:
         if "val" in opt:

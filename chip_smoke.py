@@ -304,7 +304,29 @@ result line):
      options) 4 iterations on pairs of the two crops (the alpha crop,
      lossy VP8 with an ALPH plane read in colour, as inputs; the lossless
      crop as targets);
- 15. the microbenchmarks (bem_tpu_torch.tools.microbench_vpu): the lanes /
+ 15. multi-GPU on the one card: 2 ranks through parallel.spawn (the spawn
+     start method; the kernels built here first, the ranks load that
+     library), gloo since both ranks share the card, every collective
+     staged through the host; against one process on the same card (TF32
+     off): (a) context_parallel_linear_scan at row 7's (8, 16384, 40) fp32
+     against linear_scan_plain of the whole sequence (2e-4 of max(1,
+     |plain|)), row 7 launching on each rank, and its ms against row 7 on
+     the whole sequence; (b) spatial_apply of the LOLv1 IE on the "xla"
+     route at 448x640 B=2 fp32 against the unsharded net (2e-4), row 8 on
+     each rank at L = H*W/2 of every level, both ms; then the speed test
+     at 2048x2048 under --spatial_shard 2, bf16 and fp32 (--repeat 1, its
+     running time); (c) one IE and one CG step of the LOLv1 options at a
+     global batch of 8, 4 a rank, against the one-process step from the
+     same weights and draws (the params within 1e-4 of 1 + |p| where the
+     gradient is clear, within 2 lr elsewhere; ms/step both ways), then the
+     train CLI under --launcher pytorch (torchrun's environment) for 4
+     iterations on 16 seeded 400x600 PNG pairs: finite losses, and one log
+     and the checkpoints, rank 0's alone; (d) the eval CLI on three seeded
+     400x600 PNGs, the LOLv1 option files, K=16, niqe, with --shard_samples
+     on over the ranks against --shard_samples off in one process: the
+     same picks, the PNGs within 1 LSB, s/img both ways. Its launches are
+     the ranks' summed;
+ 16. the microbenchmarks (bem_tpu_torch.tools.microbench_vpu): the lanes /
      npass sweep and the four modes, each line as the tool prints it.
 The kernels' phase also holds the three classifier kernels (the fused core,
 its clamped form, its backward) and selective_scan_fused (scans 1 and 2
@@ -342,6 +364,7 @@ import os
 import random
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -429,6 +452,9 @@ VMUNET_OPTIONS = ("TwoBranch_1.yml", "TwoBranch_3.yml")  # TunedModel, FusedTune
 VMUNET_TRAIN_IMAGES = 48
 SPEED_SIZE = 2048  # the speed test's input (speed_test.py's default)
 SPEED_REPEAT, SPEED_SPEEDUP_REPEAT = 3, 16
+# card ms the kernels' phase spends on timing each case's plain version
+# (the kernel's own: smoke.time_ms's default 300)
+PLAIN_BUDGET_MS = 100.0
 SPEED_CHECK_SIZE, SPEED_CHECK_K = 256, 4  # its card-vs-CPU check
 FORMATS_DIR = os.path.join(REPO, "results", "chip_smoke_formats")  # gitignored, removed at the end
 OPTIONS_DIR = os.path.join(REPO, "results", "chip_smoke_options")  # gitignored, removed at the end
@@ -507,7 +533,7 @@ def compare_kernels():
     for case in smoke.kernel_cases():
         err, tol = smoke.compare(case)
         ms = smoke.time_ms(case.fn, case.args)
-        plain_ms = smoke.time_ms(case.plain, case.args)
+        plain_ms = smoke.time_ms(case.plain, case.args, budget_ms=PLAIN_BUDGET_MS)
         dt = str(case.dtype).replace("torch.", "")
         ok = err <= tol
         print(f"{case.name:15s} {case.label:34s} {dt:8s} max_abs_err {err:.3e} "
@@ -3085,6 +3111,352 @@ def microbench_phase():
     return counts
 
 
+# phase 15: two ranks on the one card (gloo: NCCL takes one rank a card)
+PAR_RANKS = 2
+PAR_DIR = os.path.join(REPO, "results", "chip_smoke_parallel")  # gitignored, removed at the end
+PAR_SCAN = (8, 16384, 40)  # row 7's table shape, the sequence split over the ranks
+PAR_IE = (NIMG, 448, 640)  # the "xla" IE's batch and padded 400x600
+PAR_TOL = 2e-4             # of max(1, |unsharded|), fp32, TF32 off
+PAR_TRAIN_TOL = 1e-4       # 2 ranks vs 1 after a step, of 1 + |param|, where |g| is clear
+PAR_SPEED_REPEAT = 1       # timed two-stage forwards a speed-test run
+PAR_TRAIN_STEPS = 1        # timed train steps after the compared one
+PAR_CLI_IMAGES = 16        # two steps of 2 x 4 an epoch
+CLI_TRAINERS_TYPES = ("ImageEnhancer", "ConditionGenerator")
+
+
+def _par_scan_inputs():
+    """Row 7's (a, b) at PAR_SCAN from a seeded generator on the card (the
+    same bits in every process): decays in (0.999, 1], so that the carry
+    over a rank's 8192 positions matters."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    return (1 - 1e-3 * torch.rand(PAR_SCAN, generator=g, device="cuda"),
+            torch.randn(PAR_SCAN, generator=g, device="cuda"))
+
+
+def _par_ie():
+    """The LOLv1 IE on the "xla" route (seeded) and its seeded input on the card."""
+    opt = parse(os.path.join(REPO, "Options", EVAL_OPTIONS[1]), is_train=False)["network_g"]
+    net = build_network(dict(opt, scan_backend="xla"), torch.Generator().manual_seed(3))
+    g = torch.Generator(device="cuda").manual_seed(33)
+    return net.to("cuda").eval(), torch.rand(*PAR_IE, 6, generator=g, device="cuda")
+
+
+def _par_train_inputs(mt):
+    """A global batch of 8 at the LOLv1 shapes, the seeded net and (the CG)
+    its injected weight noise, as train_reference_check makes them."""
+    opt = _train_opt(mt)
+    batch = {k: v.numpy() for k, v in synthetic_batch(
+        opt, torch.Generator().manual_seed(35), batch_size=8).items()}
+    net_opt = dict(opt["network_g"])
+    eps = None
+    if mt == "ConditionGenerator":
+        net_opt.update(bayesian=True, sigma_init=opt["sigma_init"])
+    net = build_network(net_opt, torch.Generator().manual_seed(5))
+    if mt == "ConditionGenerator":
+        erng = np.random.default_rng(9)
+        eps = {k: erng.standard_normal(tuple(p.shape)).astype(np.float32)
+               for k, p in net.named_parameters() if k.rpartition(".")[2].startswith("mu_")}
+    return opt, net, batch, eps
+
+
+def _par_steps(model, batch, eps, sync):
+    """The compared step, then PAR_TRAIN_STEPS timed ones: (the first
+    step's logs, its gradients, the params after it, median ms/step)."""
+    grads = _grad_capture(model)
+    kw = {} if eps is None else {"eps": {k: torch.from_numpy(v) for k, v in eps.items()}}
+    logs = model.train_step(batch, **kw)
+    params = {k: p.detach().cpu().clone() for k, p in model.params.items()}
+    grads = {k: g.cpu() for k, g in grads.items()}
+    times = []
+    for _ in range(PAR_TRAIN_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        model.train_step(batch, **kw)
+        sync()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return {k: float(v) for k, v in logs.items()}, grads, params, statistics.median(times)
+
+
+def _par_rank(mesh, job):
+    """Phase 15 on one rank: (a) the context-parallel scan, (b) the row-sharded
+    "xla" IE and the speed test under --spatial_shard, (c) one IE and one CG
+    train step on this rank's slice, (d) the eval CLI with --shard_samples
+    on, then the train CLI under --launcher pytorch (torchrun's
+    environment). Each part's launch counts, its outputs and its times."""
+    from bem_tpu_torch.ops.scan import linear_scan_plain
+    from bem_tpu_torch.parallel import context_parallel_linear_scan, shard_batch, spatial_apply
+    from bem_tpu_torch.parallel import spatial
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    r, n = mesh.rank, mesh.size
+    out = {"backend": mesh.backend, "device": str(mesh.device), "counts": {}}
+
+    def sync():
+        torch.cuda.synchronize()
+        mesh.barrier()
+
+    def part(name):
+        out["counts"][name] = smoke.launch_counts()
+        smoke.reset_launch_counts()
+
+    def ms(fn, reps=3):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    # (a) the context-parallel scan
+    a, b = _par_scan_inputs()
+    L = a.shape[1] // n
+    ac, bc = a[:, r * L:(r + 1) * L].contiguous(), b[:, r * L:(r + 1) * L].contiguous()
+    want = linear_scan_plain(a, b)[:, r * L:(r + 1) * L]
+    smoke.reset_launch_counts()
+    got = context_parallel_linear_scan(ac, bc, mesh)
+    out["scan_err"] = ((got - want).abs().max() / max(1.0, want.abs().max().item())).item()
+    out["scan_ms"] = ms(lambda: context_parallel_linear_scan(ac, bc, mesh))
+    part("scan")
+    del a, b, ac, bc, want, got
+
+    # (b) the row-sharded "xla" IE, then the speed test under --spatial_shard
+    net, xs = _par_ie()
+    h = xs.shape[1] // n
+    band = xs[:, r * h:(r + 1) * h].contiguous()
+    shapes, core = [], spatial.ss2d_dir_fused
+
+    def recording(x2, *args, **kw):
+        shapes.append(tuple(x2.shape))
+        return core(x2, *args, **kw)
+
+    spatial.ss2d_dir_fused = recording
+    try:
+        y = spatial_apply(net, band, mesh)
+    finally:
+        spatial.ss2d_dir_fused = core
+    ref = torch.from_numpy(job["ie_want"][:, r * h:(r + 1) * h]).to("cuda")
+    out["ie_err"] = ((y - ref).abs().max() / max(1.0, ref.abs().max().item())).item()
+    out["ie_core_shapes"] = shapes
+    out["ie_ms"] = ms(lambda: spatial_apply(net, band, mesh), reps=1)
+    part("ie")
+    del net, xs, band, y, ref
+    torch.cuda.empty_cache()
+    out["speed"] = {}
+    for dtype in ("bfloat16", "float32"):
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            speed_test.main(job["speed_args"] + ["--dtype", dtype])
+        out["speed"][dtype] = log.getvalue().strip()
+        torch.cuda.empty_cache()
+    part("speed")
+
+    # (c) one IE and one CG step on this rank's slice of the global batch
+    out["train"] = {}
+    for mt in CLI_TRAINERS_TYPES:
+        opt, net, batch, eps = _par_train_inputs(mt)
+        opt = dict(opt, dist=True, rank=r, world_size=n)
+        model = build_model(opt, device="cuda", net=net)
+        logs, grads, params, step_ms = _par_steps(model, shard_batch(mesh, batch), eps, sync)
+        out["train"][mt] = dict(logs=logs, params=params, ms=step_ms)
+        del model
+        torch.cuda.empty_cache()
+    part("train")
+
+    # (d) the eval CLI with the K samples over the ranks
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        out["eval"] = eval_main(job["eval_args"])
+    out["eval_log"] = log.getvalue()
+    torch.cuda.empty_cache()
+    part("eval")
+
+    # the train CLI as torchrun starts it: the launcher's environment, the
+    # group started anew by --launcher pytorch
+    torch.distributed.destroy_process_group()
+    os.environ.update(RANK=str(r), WORLD_SIZE=str(n), LOCAL_RANK=str(r),
+                      LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(job["port"]))
+    model = train_pipeline(PAR_DIR, job["cli_args"])
+    out["cli"] = dict(step=model.step, rank=model.opt["rank"], world=model.opt["world_size"],
+                      device=model.opt["device"])
+    part("cli")
+    return out
+
+
+def _par_references():
+    """What phase 15 compares with, on one process: the whole sequence's
+    row-7 scan, the unsharded "xla" IE, the 1-process train steps and the
+    unsharded eval. Their launches do not count."""
+    ref = {}
+    a, b = _par_scan_inputs()
+    ref["scan_ms"] = smoke.time_ms(smoke.KERNELS["linear_scan"][0], (a, b))
+    del a, b
+    net, xs = _par_ie()
+    with torch.no_grad():
+        ref["ie_want"] = net(xs)[-1].cpu().numpy()
+        ref["ie_ms"], _ = _card_ms(lambda t: net(t)[-1], (xs,), reps=1)
+    del net, xs
+    ref["train"] = {}
+    for mt in CLI_TRAINERS_TYPES:
+        opt, net, batch, eps = _par_train_inputs(mt)
+        p0 = {k: p.detach().clone() for k, p in net.named_parameters()}
+        model = build_model(opt, device="cuda", net=net)
+        logs, grads, params, step_ms = _par_steps(model, batch, eps, torch.cuda.synchronize)
+        ref["train"][mt] = dict(logs=logs, grads=grads, params=params, ms=step_ms, p0=p0,
+                                lr=opt["train"]["optim_g"]["lr"])
+        del model
+    torch.cuda.empty_cache()
+    return ref
+
+
+def parallel_phase(card: str):
+    """Phase 15: 2 ranks on the one card (``parallel.spawn``, the spawn start
+    method, the kernels built by this process first; gloo, since both ranks
+    share the card) against one process. Rows 7 and 8 must launch on each
+    rank; returns the launches summed over the ranks."""
+    from bem_tpu_torch import parallel
+    from bem_tpu_torch.parallel.mesh import pick_backend
+
+    t0 = time.perf_counter()
+    devices = ["cuda:0"] * PAR_RANKS
+    print(f"phase 15: {PAR_RANKS} ranks on {devices}, backend {pick_backend(devices)} "
+          f"(NCCL takes one rank a card) ({card})", flush=True)
+    smoke.write_eval_images(os.path.join(PAR_DIR, "eval"), 3, H, W, seed=41)
+    smoke.write_eval_images(os.path.join(PAR_DIR, "train"), PAR_CLI_IMAGES, H, W, seed=42)
+    smoke.write_eval_images(os.path.join(PAR_DIR, "val"), 2, H, W, seed=43)
+    opts = [os.path.join(REPO, "Options", name) for name in EVAL_OPTIONS]
+    eval_root = os.path.join(PAR_DIR, "eval")
+    sharded_args = _eval_args(opts, eval_root, "sharded", "niqe", "cuda", K, 8,
+                              ["--shard_samples", "on"])
+    ref = _par_references()
+    t_ref = time.perf_counter()
+    ref_eval = eval_main(_eval_args(opts, eval_root, "one", "niqe", "cuda", K, 8,
+                                    ["--shard_samples", "off"]))
+    t_ref = time.perf_counter() - t_ref
+    torch.cuda.empty_cache()
+    data = lambda sub, phase: [  # noqa: E731
+        f"datasets:{phase}:dataroot_gt={os.path.join(PAR_DIR, sub, 'target')}",
+        f"datasets:{phase}:dataroot_lq={os.path.join(PAR_DIR, sub, 'input')}"]
+    cli_args = ["--opt", opts[1], "--device", "cuda", "--launcher", "pytorch", "--force_yml",
+                *data("train", "train"), *data("val", "val"), "name=smoke_par",
+                "train:total_iter=4", "logger:print_freq=1", "logger:save_checkpoint_freq=2",
+                "val:val_freq=100", "logger:use_tb_logger=false", "logger:wandb:project=~",
+                "datasets:train:batch_size_per_gpu=4", "datasets:train:num_worker_per_gpu=2"]
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    job = dict(ie_want=ref["ie_want"], eval_args=sharded_args, cli_args=cli_args, port=port,
+               speed_args=["--opt", opts[0], "--cond_opt", opts[1], "--input_size",
+                           str(SPEED_SIZE), "--device", "cuda", "--repeat",
+                           str(PAR_SPEED_REPEAT), "--spatial_shard", str(PAR_RANKS)])
+    t_ranks = time.perf_counter()
+    res = parallel.spawn(_par_rank, PAR_RANKS, args=(job,), devices=devices, threads=4,
+                         timeout=600)
+    t_ranks = time.perf_counter() - t_ranks
+    note = "two ranks time-share one card's SMs: not a scaling result"
+    fails = []
+
+    # (a)
+    a_err = max(o["scan_err"] for o in res)
+    rows7 = [o["counts"]["scan"]["linear_scan"] for o in res]
+    print(f"(a) context_parallel_linear_scan {PAR_SCAN} fp32 over {PAR_RANKS} ranks vs "
+          f"linear_scan_plain of the whole sequence: max err / max(1, |plain|) {a_err:.3e} "
+          f"(tol {PAR_TOL}); row-7 launches by rank {rows7}; {res[0]['scan_ms']:.4f} ms on "
+          f"{PAR_RANKS} ranks vs linear_scan of the whole sequence on one process "
+          f"{ref['scan_ms']:.4f} ms ({note}; {card})", flush=True)
+    if not (a_err <= PAR_TOL and min(rows7) > 0):
+        fails.append("(a) the context scan")
+
+    # (b)
+    b_err = max(o["ie_err"] for o in res)
+    hp, wp = PAR_IE[1:]
+    want_l = sorted([hp * wp // 2 ** (2 * i) // PAR_RANKS for i in (0, 1, 2)])
+    seen_l = [sorted(set(s[-1] for s in o["ie_core_shapes"])) for o in res]
+    rows8 = [o["counts"]["ie"]["ss2d_dir_fused"] for o in res]
+    print(f'(b) spatial_apply of the "xla" IE {hp}x{wp} B={PAR_IE[0]} fp32 over {PAR_RANKS} '
+          f"ranks vs the unsharded one: max err / max(1, |ref|) {b_err:.3e} (tol {PAR_TOL}); "
+          f"row-8 launches by rank {rows8} at L {seen_l} (H*W/{PAR_RANKS} a level: {want_l}); "
+          f"{res[0]['ie_ms']:.1f} ms on {PAR_RANKS} ranks vs {ref['ie_ms']:.1f} ms on one "
+          f"process ({note}; {card})", flush=True)
+    if not (b_err <= PAR_TOL and min(rows8) > 0 and all(x == want_l for x in seen_l)):
+        fails.append("(b) the row-sharded IE")
+    for dtype, text in res[0]["speed"].items():
+        print(f"(b) speed test {SPEED_SIZE}x{SPEED_SIZE} {dtype} --spatial_shard {PAR_RANKS} "
+              f"--repeat {PAR_SPEED_REPEAT}: {'; '.join(text.splitlines())} ({note}; {card})",
+              flush=True)
+        if not re.search(r"running time: \d+\.\d{4} sec", text) or res[1]["speed"][dtype]:
+            fails.append(f"(b) the speed test {dtype}")
+    rows8s = [o["counts"]["speed"]["ss2d_dir_fused"] for o in res]
+    print(f"(b) speed test row-8 launches by rank {rows8s}", flush=True)
+    if min(rows8s) <= 0:
+        fails.append("(b) the speed test's row 8")
+
+    # (c)
+    for mt in CLI_TRAINERS_TYPES:
+        rt = ref["train"][mt]
+        lr = rt["lr"]
+        err = far = 0.0
+        for o in res:
+            got = o["train"][mt]["params"]
+            for k, want in rt["params"].items():
+                moved = (torch.from_numpy(got[k]) - want).abs()
+                g = rt["grads"][k].abs()
+                clear = g > 1e-2 * g.max()
+                if clear.any():
+                    err = max(err, (moved[clear] / (1 + want[clear].abs())).max().item())
+                far = max(far, (moved - 2 * lr * (1 + 1e-4 * rt["p0"][k].abs())).max().item())
+        loss = [o["train"][mt]["logs"]["l_total"] for o in res]
+        print(f"(c) {mt} step, global B=8, {PAR_RANKS} ranks vs 1 (fp32, TF32 off): loss "
+              f"{loss} vs {rt['logs']['l_total']:.7f}; params max rel err {err:.3e} where "
+              f"|g| > 1e-2 max|g| of the leaf (tol {PAR_TRAIN_TOL}), beyond one step (2 lr) "
+              f"{max(far, 0.0):.3e} (tol 1e-6); {res[0]['train'][mt]['ms']:.1f} ms/step on "
+              f"{PAR_RANKS} ranks vs {rt['ms']:.1f} on one process ({note}; {card})", flush=True)
+        if not (err <= PAR_TRAIN_TOL and far <= 1e-6
+                and all(abs(x - rt["logs"]["l_total"]) <= 1e-4 * abs(rt["logs"]["l_total"])
+                        for x in loss)):
+            fails.append(f"(c) the {mt} step")
+    exp = os.path.join(PAR_DIR, "experiments", "smoke_par")
+    logs = [f for f in os.listdir(exp) if f.startswith("train_")]
+    text = open(os.path.join(exp, logs[0])).read() if len(logs) == 1 else ""
+    losses = [float(x) for x in re.findall(r"l_total: (\S+)", text)]
+    files = sorted(os.listdir(os.path.join(exp, "models")))
+    print(f"(c) train CLI --launcher pytorch, {PAR_RANKS} ranks, 4 iters, global B=8: ranks "
+          f"{[(o['cli']['rank'], o['cli']['world'], o['cli']['step']) for o in res]}; one log "
+          f"{logs}, losses {losses}; models {files}", flush=True)
+    if not (len(logs) == 1 and len(losses) == 4 and np.isfinite(losses).all()
+            and files == [f"net_g_{i}.msgpack" for i in (2, 4, 5)]
+            and [o["cli"]["step"] for o in res] == [4] * PAR_RANKS
+            and "World size: 2" in text):
+        fails.append("(c) the train CLI")
+
+    # (d)
+    got_eval = res[0]["eval"]
+    lsb = 0
+    for i in range(3):
+        a = imread(os.path.join(eval_root, "sharded", "dataset", f"{i}.png"), False).astype(int)
+        b = imread(os.path.join(eval_root, "one", "dataset", f"{i}.png"), False).astype(int)
+        lsb = max(lsb, int(np.abs(a - b).max()))
+    print(f"(d) eval CLI niqe K={K} {H}x{W} LOLv1, --shard_samples on over {PAR_RANKS} ranks vs "
+          f"one process: picks {got_eval['selected']} vs {ref_eval['selected']}, PNGs within "
+          f"{lsb} LSB (tol 1); steady-state {got_eval['steady_s_per_img']:.4f} vs "
+          f"{ref_eval['steady_s_per_img']:.4f} s/img ({note}; {card})", flush=True)
+    if not (got_eval["selected"] == ref_eval["selected"] and lsb <= 1
+            and res[1]["eval"] is None):
+        fails.append("(d) the sharded eval")
+
+    counts = {k: sum(o["counts"][p][k] for o in res for p in o["counts"])
+              for k in smoke.KERNELS}
+    print(f"phase 15 backend {sorted({o['backend'] for o in res})} on "
+          f"{sorted({o['device'] for o in res})}; references {t_ref:.1f} s (eval) and ranks "
+          f"{t_ranks:.1f} s of {time.perf_counter() - t0:.1f} s; launches over the ranks' runs "
+          f"{counts}", flush=True)
+    if fails:
+        raise AssertionError(f"phase 15: {fails}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3201,6 +3573,12 @@ def main() -> int:
         video_counts = video_phase(card)
     finally:
         shutil.rmtree(VIDEO_DIR, ignore_errors=True)
+    phase("multi-GPU on the one card (2 ranks)")
+    torch.cuda.empty_cache()
+    try:
+        par_counts = parallel_phase(card)
+    finally:
+        shutil.rmtree(PAR_DIR, ignore_errors=True)
     phase("microbenchmarks")
     mb_counts = microbench_phase()
     # each kernel's launches over the runs of its own paths: the BEM kernels
@@ -3214,11 +3592,11 @@ def main() -> int:
     # pairs, the microbenchmarks over their sweeps
     paths = {name: (train_counts, cli_counts, serve_counts, export_counts, eval_counts,
                     flagship_counts, flagship_train_counts, vmunet_counts, formats_counts,
-                    speed_counts, options_counts, video_counts)
+                    speed_counts, options_counts, video_counts, par_counts)
              for name in smoke.BEM_KERNELS}
     paths["linear_scan"] += (modes_counts, cascade_counts, cls_cli_counts, zoo_counts)
     paths.update(ss2d_dir_fused=(cls_train_counts, cls_tp_counts, modes_counts, cls_cli_counts,
-                                 zoo_counts, video_counts),
+                                 zoo_counts, video_counts, par_counts),
                  ss2d_dir_fused_bwd=(cls_train_counts, cls_tp_counts, modes_counts,
                                      cls_cli_counts),
                  ss2d_dir_fused_g=(cls_ref_counts, modes_counts, cls_cli_counts),

@@ -118,7 +118,10 @@ def test_new_modules_import_nothing_they_must_not():
             "bem_tpu_torch.tools.op_dispatch_ab, "
             "bem_tpu_torch.native, bem_tpu_torch.utils.histogram, bem_tpu_torch.utils.hog, "
             "bem_tpu_torch.utils.noise_cal, bem_tpu_torch.utils.matlab_functions, "
-            "bem_tpu_torch.metrics.fid; "
+            "bem_tpu_torch.metrics.fid, bem_tpu_torch.parallel, bem_tpu_torch.parallel.mesh, "
+            "bem_tpu_torch.parallel.context, bem_tpu_torch.parallel.spatial, "
+            "bem_tpu_torch.utils.profiler, bem_tpu_torch.utils.plot_util, "
+            "bem_tpu_torch.analysis.plot; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', "
             "'bem_tpu', 'cv2', 'yaml', 'PIL')]; assert not bad, bad")
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")

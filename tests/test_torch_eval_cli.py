@@ -188,10 +188,16 @@ def test_niqe_under_96_pixels_refused(env):
 
 
 def test_refusals(env):
-    # --no_ref uiqm_uciqe is ported (test_torch_eval_uiqm.py); the K-sharded
-    # eval is not
-    with pytest.raises(NotImplementedError, match="shard_samples on"):
-        main(_args(env, "refused", "input", ["--shard_samples", "on", "--device", "cpu"]))
+    # --no_ref uiqm_uciqe is ported (test_torch_eval_uiqm.py), and so is the
+    # K-sharded eval: in a world of one, --shard_samples on runs the K
+    # samples as one chunk, the same picks and images as off
+    # (test_torch_parallel_eval.py shards them over 4 ranks)
+    on = main(_args(env, "shard_on", "input", ["--shard_samples", "on", "--device", "cpu"]))
+    off = main(_args(env, "shard_off", "input", ["--shard_samples", "off", "--device", "cpu"]))
+    assert on["selected"] == off["selected"]
+    for i in range(2):
+        assert ((env / "shard_on" / "dataset" / f"{i}.png").read_bytes()
+                == (env / "shard_off" / "dataset" / f"{i}.png").read_bytes())
     with pytest.raises(ValueError, match="No input images"):
         main(_args(env, "refused", "missing", ["--device", "cpu"]))
 

@@ -10,7 +10,10 @@ each sample's weights, as ``state_dict_to_flax`` gives them),
 and argmin of bem_tpu/enhancement/speed_test.py:95-104. Held within 2e-5:
 the reduction, every IE output sum (relative), the IE outputs and the
 scores (of max(1, |ref|)), and the same pick. Then ``main`` in both modes
-on the CPU (the printed line), and ``--spatial_shard 2`` raises.
+on the CPU (the printed line), and ``--spatial_shard 2``: it raises in a
+world of one, and on 2 gloo ranks prints the running time, its IE output
+(each rank's band through ``parallel.spatial_apply``) within 2e-5 of
+bem_tpu's.
 """
 
 import re
@@ -27,7 +30,9 @@ from bem_tpu_torch.archs import build_network
 from bem_tpu_torch.convert import state_dict_to_flax
 from bem_tpu_torch.enhancement import speed_test
 from bem_tpu_torch.nn import sample_bayes
+from bem_tpu_torch.parallel import spawn
 
+import torch_parallel_workers as workers
 from test_torch_cpu_setup import one_torch_thread, quick_compile  # noqa: F401  (module fixtures)
 
 TOL = 2e-5
@@ -112,7 +117,17 @@ def test_main_prints_running_time(tmp_path, capsys, mode):
     assert re.fullmatch(r"running time: \d+\.\d{4} sec", lines[-1]), lines
 
 
-def test_spatial_shard_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="spatial_shard"):
-        speed_test.main(["--opt", "unused.yml", "--cond_opt", "unused.yml",
-                         "--spatial_shard", "2", "--device", "cpu"])
+def test_spatial_shard_raises(tmp_path, setup):
+    """``--spatial_shard 2`` raises in a world of one; on 2 ranks it runs:
+    rank 0 prints the running time, and the sharded body's IE output (the
+    "xla" route on each band of rows) matches bem_tpu's."""
+    args = ["--opt", _options(tmp_path, "cg", CG), "--cond_opt", _options(tmp_path, "ie", IE),
+            "--input_size", str(S), "--repeat", "2", "--dtype", "float32", "--device", "cpu",
+            "--spatial_shard", "2"]
+    with pytest.raises(ValueError, match="needs a world of 2 ranks"):
+        speed_test.main(args)
+    res = spawn(workers.speed_test_run, 2, args=(args, args, setup["eps"][:1]))
+    lines = res[0]["log"].strip().splitlines()
+    assert re.fullmatch(r"running time: \d+\.\d{4} sec", lines[-1]), lines
+    assert res[1]["log"] == ""
+    _close(np.concatenate([r["pred"] for r in res], 1), setup["ie"](setup["conds"][:1]))
